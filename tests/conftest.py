@@ -140,6 +140,10 @@ def pytest_configure(config):
         "slow: nightly tier — tier-1 runs with -m 'not slow'; compile-bound "
         "tests the static compile-cost audit demoted live here",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips without one",
+    )
 
 
 def pytest_runtest_logreport(report):
