@@ -3,40 +3,54 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass (any failure exits non-zero):
+Phases, each of which must pass (any failure exits non-zero); each prints
+its wall time on a line of its own:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions, and
-   the nvcc build of the fused kernels from this checkout's sources;
-2. kernels: each of the ten CUDA kernels against its plain PyTorch version
-   on the card, on seeded inputs at the main path's shapes (field kernels
-   at 512 and 2,560 rows, ladder kernels at 512 rows), three inputs a
-   shape — bitwise, tolerance zero, since both are exact integer
-   arithmetic.  Times are device times: 20 calls captured in one CUDA
-   graph, the replays timed by CUDA events, so the host's cost of issuing
-   a launch is outside the window (it is printed beside them as
-   ``issue_ms``, 20 eager calls between events);
-3. slice: 128 real signature sets (interop keys, the port's own oracle)
-   through ``TorchBlsVerifier.verify_signature_sets`` at bucket 128 with
-   every launch counter set to 0 just before: the valid batch verifies,
-   every kernel launched; then a corrupted signature, a signature outside
-   G2 and 100 live sets in bucket 128 give False, False, True; the
-   batch-128 example inputs verify through ``verify_signature_sets_fused``;
-   the card's Miller product at bucket 4 equals the CPU plain run's
-   canonically, digit for digit;
-4. times: three batches of 128 fresh signatures (new messages, so no
-   signature is in the verifier's point cache; the public keys are, as on
-   a node), each timed as pack then device dispatch to the verdict on the
-   host clock; the best batch gives sets/s;
-5. profile: one more fresh batch's dispatch under ``torch.profiler``: the
-   device time of the port's kernels and of PyTorch's glue kernels, and
-   the device's idle share over that dispatch.
+   the nvcc build of the fourteen kernels from this checkout's sources;
+2. kernels: each CUDA kernel against its plain PyTorch version on the
+   card, on seeded inputs at the shapes its path gives it (the fused
+   field kernels at 512 and 2,560 rows, the ladder kernels at 512 rows,
+   the tower kernels at 1 row and at the most rows the XLA-graph path
+   gives them at bucket 128), three inputs a shape — bitwise, tolerance
+   zero, since both are exact integer arithmetic.  Times are device
+   times: 20 calls captured in one CUDA graph, the replays timed by CUDA
+   events, so the host's cost of issuing a launch is outside the window
+   (it is printed beside them as ``issue_ms``, 20 eager calls between
+   events);
+3. fused slice: 128 real signature sets (interop keys, the port's own
+   oracle) through ``TorchBlsVerifier.verify_signature_sets`` at bucket
+   128 with every launch counter set to 0 just before: the valid batch
+   verifies, every fused-path kernel launched; then a corrupted
+   signature, a signature outside G2 and 100 live sets in bucket 128 give
+   False, False, True; the batch-128 example inputs verify through
+   ``verify_signature_sets_fused``; the card's Miller product at bucket 4
+   equals the CPU plain run's canonically, digit for digit;
+4. fused times: three batches of 128 fresh signatures (new messages, so
+   no signature is in the verifier's point cache; the public keys are, as
+   on a node), each timed as pack then device dispatch to the verdict on
+   the host clock; the best batch gives sets/s;
+5. fused profile: one more fresh batch's dispatch under
+   ``torch.profiler``: the device time of the port's kernels and of
+   PyTorch's glue kernels, and the device's idle share over that dispatch;
+6. XLA slice: the same four batches through
+   ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
+   ``ops/batch_verify``) with every launch counter set to 0 just before
+   the valid one: True, False, False, True, and each tower kernel
+   launched; the card's bucket-4 Miller product equals the CPU plain
+   run's canonically (the XLA path's digits depend on the order of the
+   glue, so the comparison is on the canonical residues);
+7. XLA times and profile: phases 4 and 5 for the XLA-graph program
+   (profiled with device activity only: the program makes about a million
+   launches).
 
-The line before the last is the ``kernels`` JSON object; the last line is
-``{"ok": true, "device": {...}}``.
+The last lines: the two paths side by side, the ``kernels`` JSON object,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,6 +67,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 
 SEED = 20261016
+BUCKET = 128  # the node's MAX_SIGNATURE_SETS_PER_JOB
 # seeded inputs each kernel is held against its plain version on, per shape
 # (a miscompiled build can be wrong on a few rows in thousands)
 CHECKS = 3
@@ -70,6 +85,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+class Phase:
+    """Logs a phase's wall time on a line of its own when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s wall")
+
+
 # -- operation counts (int32 multiply-adds a row; carries and adds are not
 #    counted, so the bound below is a lower bound) ---------------------------
 
@@ -84,6 +114,11 @@ _LOADF = _fold(50, 22)
 _SMALL = _fold(50, 13)  # add / sub / doubling folds (one extra column)
 _F2MUL = 3 * _MUL + 2 * _SMALL
 _F2SQR = 2 * _MUL + 2 * _SMALL
+# the tower kernels fold every add and subtract on its own
+_TF2MUL = 3 * _MUL + 5 * _SMALL
+_TF2 = 2 * _SMALL  # one folded Fq2 add or subtract
+_TF6MUL = 6 * _TF2MUL + 6 * _TF2 + 11 * _TF2
+_TF12MUL = 3 * _TF6MUL + 6 * _TF2 + 10 * _TF2
 MACS_PER_ROW = {
     "mul": 2 * _LOADF + _MUL,
     "fq2mul": 4 * _LOADF + _F2MUL,
@@ -95,7 +130,25 @@ MACS_PER_ROW = {
     "lad1": 12 * _LOADF + 6 * _F2SQR + 2 * _F2MUL,
     "lad2": 8 * _LOADF + 4 * _F2MUL + 2 * (3 * _F2SQR + 18 * _SMALL),
     "lad3": 4 * _LOADF + 9 * _F2MUL + 3 * _F2SQR + 32 * _SMALL,
+    "tower_fq2_mul": _TF2MUL,
+    "tower_fq2_sqr": 2 * _MUL + 3 * _SMALL,
+    "tower_fq6_mul": _TF6MUL,
+    "tower_fq12_mul": _TF12MUL,
 }
+# rows each kernel is held and timed at: the shapes its path gives it at
+# bucket 128 (the last is the one the kernels line reports).  The XLA-graph
+# path's largest: the Fq2 product in fq12_sqr (12 lanes x 129 pairs), the
+# Fq2 square in hash-to-G2 (2 draws x 128), the Fq12 product in the Miller
+# loop (129 pairs); the Fq6 product runs only in the final exponentiation.
+SHAPES = {
+    "lad1": (512,), "lad2": (512,), "lad3": (512,),
+    "tower_fq2_mul": (1, 12 * (BUCKET + 1)),
+    "tower_fq2_sqr": (1, 2 * BUCKET),
+    "tower_fq6_mul": (1,),
+    "tower_fq12_mul": (1, BUCKET + 1),
+}
+FUSED_SHAPES = (512, 2560)
+TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
 
 
 def bound(kernel, rows: int):
@@ -149,36 +202,32 @@ def issue_ms(fn, reps: int = 20) -> float:
 
 def kernel_inputs(kernel, rows: int, rng: np.random.Generator, dev):
     """Seeded inputs: loose digits up to 2^22 - 1 where the kernel folds on
-    entry, semi-strict digits (<= 256) where it takes kernel outputs, plus
-    zero, p and 2p rows and one all-(2^22 - 1) row."""
+    entry, semi-strict digits (<= 256) where it takes kernel outputs.  Row
+    0 is random; rows 1-4, as many as there are, are zero, p, 2p and every
+    digit at the bound."""
     from lodestar_tpu_torch.crypto.bls.fields import P
     from lodestar_tpu_torch.ops import limbs as fl
 
-    loose_in = {"lad1": 6, "lad2": 4, "lad3": 2}.get(kernel.name, kernel.n_in)
     shape = (rows,) + kernel.tail
     out = []
     for i in range(kernel.n_in):
-        top = (1 << 22) if i < loose_in else 257
-        a = rng.integers(0, top, size=shape).astype(np.float32)
-        if i < loose_in:
-            flat = a.reshape(rows, -1, 50)
-            flat[0] = 0
-            flat[1] = fl.int_to_limbs(P)
-            flat[2] = fl.int_to_limbs(2 * P)
-            flat[3] = (1 << 22) - 1
+        top = (1 << 22) - 1 if i < kernel.loose_in else 256
+        a = rng.integers(0, top + 1, size=shape).astype(np.float32)
+        flat = a.reshape(rows, -1, 50)
+        for r, edge in enumerate((0, fl.int_to_limbs(P), fl.int_to_limbs(2 * P), top)[: rows - 1]):
+            flat[r + 1] = edge
         out.append(torch.from_numpy(a).to(dev))
     return out
 
 
 def check_kernels(dev, card: str):
-    from lodestar_tpu_torch.ops import fused_ladder  # noqa: F401 - registers lad1..3
+    from lodestar_tpu_torch.ops import fused_ladder, tower_kernels  # noqa: F401 - registers them
     from lodestar_tpu_torch.ops.fused_core import KERNELS
 
     rng = np.random.default_rng(SEED)
     results = {}
     for name, k in KERNELS.items():
-        shapes = (512,) if name.startswith("lad") else (512, 2560)
-        for rows in shapes:
+        for rows in SHAPES.get(name, FUSED_SHAPES):
             err = 0.0
             for _ in range(CHECKS):
                 ins = kernel_inputs(k, rows, rng, dev)
@@ -202,7 +251,7 @@ def check_kernels(dev, card: str):
     return results
 
 
-# -- phase 3: the slice --------------------------------------------------------
+# -- the batches -------------------------------------------------------------
 
 
 def make_keys(n: int):
@@ -240,116 +289,95 @@ def non_subgroup_signature() -> bytes:
     return g2_to_bytes(pt)
 
 
-def run_slice(dev, card: str):
-    import dataclasses
+def check_verdicts(verifier, sets, path: str, kernels) -> dict:
+    """The four batches through ``verifier``: valid, one corrupted
+    signature, one signature outside G2, 100 live sets in the bucket ->
+    True, False, False, True.  Every launch counter is 0 just before the
+    valid batch; returns the counts just after it, and fails if one of
+    ``kernels`` (the path's) was launched no time."""
+    from lodestar_tpu_torch.ops import fused_core
 
-    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
-    from lodestar_tpu_torch.ops import fused_core, fused_verify
-
-    t0 = time.perf_counter()
-    keys = make_keys(128)
-    sets = make_sets(keys, b"slice")
-    log(f"slice: built 128 signature sets on the host in {time.perf_counter() - t0:.1f} s")
-    verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED))
-
-    # the main path, counted: every launch counter is 0 just before
     fused_core.reset_launch_counts()
     t0 = time.perf_counter()
     ok = verifier.verify_signature_sets(sets)
     first_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in fused_core.KERNELS.items()}
-    log(f"slice: valid batch of 128 -> {ok} (first run {first_s:.3f} s); "
+    log(f"{path} slice: valid batch of {len(sets)} -> {ok} (first run {first_s:.3f} s); "
         f"launches per batch {json.dumps(launches)}")
     if ok is not True:
-        raise AssertionError("a valid batch of 128 sets did not verify")
-    idle = [name for name, n in launches.items() if n == 0]
+        raise AssertionError(f"{path}: a valid batch of {len(sets)} sets did not verify")
+    idle = [name for name in kernels if launches[name] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"{path}: kernels never launched on the path: {idle}")
 
     bad = list(sets)
     bad[5] = dataclasses.replace(bad[5], signature=sets[6].signature)
     got = verifier.verify_signature_sets(bad)
-    log(f"slice: one corrupted signature -> {got}")
+    log(f"{path} slice: one corrupted signature -> {got}")
     if got is not False:
-        raise AssertionError("a corrupted batch verified")
+        raise AssertionError(f"{path}: a corrupted batch verified")
 
     bad = list(sets)
     bad[9] = dataclasses.replace(bad[9], signature=non_subgroup_signature())
     got = verifier.verify_signature_sets(bad)
-    log(f"slice: one signature outside G2 -> {got}")
+    log(f"{path} slice: one signature outside G2 -> {got}")
     if got is not False:
-        raise AssertionError("a batch with a non-subgroup signature verified")
+        raise AssertionError(f"{path}: a batch with a non-subgroup signature verified")
 
     got = verifier.verify_signature_sets(sets[:100])
-    log(f"slice: 100 live sets in bucket 128 -> {got}")
+    log(f"{path} slice: 100 live sets in bucket {BUCKET} -> {got}")
     if got is not True:
-        raise AssertionError("a padded batch of 100 valid sets did not verify")
+        raise AssertionError(f"{path}: a padded batch of 100 valid sets did not verify")
+    return launches
 
-    args = fused_verify.from_packed(fused_verify.example_inputs(128), dev)
-    got = bool(fused_verify.verify_signature_sets_fused(*args))
-    log(f"slice: example_inputs(128) through verify_signature_sets_fused -> {got}")
-    if got is not True:
-        raise AssertionError("the batch-128 example inputs did not verify")
 
-    # the card against the CPU plain versions on a small input
-    small = fused_verify.example_inputs(4)
-    f_gpu, ok_gpu = fused_verify.miller_product_fused(*fused_verify.from_packed(small, dev))
-    f_cpu, ok_cpu = fused_verify.miller_product_fused(*fused_verify.from_packed(small, "cpu"))
-    same = torch.equal(fused_core.f_canon(f_gpu).cpu(), fused_core.f_canon(f_cpu))
-    log(f"slice: bucket-4 Miller product, card vs CPU plain: canonical f equal {same}, "
-        f"ok {bool(ok_gpu)} / {bool(ok_cpu)}")
-    if not (same and bool(ok_gpu) and bool(ok_cpu)):
-        raise AssertionError("the card's Miller product differs from the CPU plain run")
-
-    # phase 4: three batches of fresh signatures; the public keys stay in
-    # the point cache, as on a node
-    fresh = [make_sets(keys, b"timed %d" % r) for r in range(4)]
+def time_batches(verifier, fresh, path: str, card: str):
+    """Phase 4 / 7: each fresh batch packed then dispatched to the verdict
+    on the host clock; returns (sets/s of the best, its dispatch seconds)."""
     cache = verifier.point_cache
     packs, dispatches = [], []
-    for r, batch in enumerate(fresh[:3]):
+    for r, batch in enumerate(fresh):
         torch.cuda.synchronize()
         hits, misses = cache.hits, cache.misses
         t0 = time.perf_counter()
         packed = verifier.pack(batch)
         t1 = time.perf_counter()
-        log(f"times: batch {r} pack: point cache {cache.hits - hits} hits, "
+        log(f"{path} times: batch {r} pack: point cache {cache.hits - hits} hits, "
             f"{cache.misses - misses} misses")
         ok = bool(verifier.dispatch(packed))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if not ok:
-            raise AssertionError(f"timed batch {r} did not verify")
+            raise AssertionError(f"{path}: timed batch {r} did not verify")
         packs.append(t1 - t0)
         dispatches.append(t2 - t1)
     walls = [p + d for p, d in zip(packs, dispatches)]
-    best = min(range(3), key=walls.__getitem__)
-    log(f"times: batch of 128 fresh signatures, best of 3: {walls[best]} s = "
-        f"{128 / walls[best]} sets/s (pack {packs[best]} s + device dispatch "
+    best = min(range(len(walls)), key=walls.__getitem__)
+    rate = len(fresh[best]) / walls[best]
+    log(f"{path} times: batch of {len(fresh[best])} fresh signatures, best of {len(walls)}: "
+        f"{walls[best]} s = {rate} sets/s (pack {packs[best]} s + device dispatch "
         f"{dispatches[best]} s); all packs {packs}, dispatches {dispatches} [{card}]")
-
-    profile_dispatch(verifier.pack(fresh[3]), verifier, dispatches[best], card)
-    return launches
+    return rate, dispatches[best]
 
 
-def profile_dispatch(packed, verifier, dispatch_s: float, card: str) -> None:
-    """Phase 5: one dispatch under torch.profiler.  The port's kernels and
-    PyTorch's glue kernels run on one stream and do not overlap, so the
+def profile_dispatch(packed, verifier, dispatch_s: float, card: str, kernels, path: str,
+                     activities) -> float:
+    """Phase 5 / 7: one dispatch under torch.profiler.  The port's kernels
+    and PyTorch's glue kernels run on one stream and do not overlap, so the
     device is idle for the wall time their summed device time leaves: over
-    the profiled wall, which the profiler stretches, and over ``dispatch_s``,
-    the best unprofiled dispatch of phase 4."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from lodestar_tpu_torch.ops.fused_core import KERNELS
+    the profiled wall, which the profiler stretches, and over
+    ``dispatch_s``, the best unprofiled dispatch.  Returns the latter."""
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         ok = bool(verifier.dispatch(packed))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not ok:
-        raise AssertionError("the profiled batch did not verify")
-    ours = {f"{name}_k" for name in KERNELS}
+        raise AssertionError(f"{path}: the profiled batch did not verify")
+    ours = {f"{name}_k" for name in kernels}
     per_kernel, glue_ms, glue_launches = {}, 0.0, 0
     for ev in prof.key_averages():
         dev_us = ev.device_time_total
@@ -361,22 +389,96 @@ def profile_dispatch(packed, verifier, dispatch_s: float, card: str) -> None:
             glue_ms += dev_us / 1e3
             glue_launches += ev.count
     if set(per_kernel) != ours:
-        raise AssertionError(f"the profiler saw no device time for {sorted(ours - set(per_kernel))}")
+        raise AssertionError(f"{path}: the profiler saw no device time for "
+                             f"{sorted(ours - set(per_kernel))}")
     ours_ms = sum(v["device_ms"] for v in per_kernel.values())
     busy_ms = ours_ms + glue_ms
-    log("profile: " + json.dumps({
+    idle = 1.0 - busy_ms / (dispatch_s * 1e3)
+    log(f"{path} profile: " + json.dumps({
         "card": card, "wall_ms": wall_ms, "port_kernels_device_ms": ours_ms,
         "glue_kernels_device_ms": glue_ms, "glue_kernel_launches": glue_launches,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "unprofiled_dispatch_ms": dispatch_s * 1e3,
-        "device_idle_share_unprofiled": 1.0 - busy_ms / (dispatch_s * 1e3),
+        "device_idle_share_unprofiled": idle,
         "per_kernel": per_kernel}))
+    return idle
+
+
+# -- phases 3-5: the fused path ----------------------------------------------
+
+
+def run_fused(dev, card: str, keys, sets):
+    from torch.profiler import ProfilerActivity
+
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import fused_core, fused_verify
+
+    fused = [name for name in fused_core.KERNELS if name not in TOWER]
+    with Phase("3 fused slice"):
+        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED))
+        launches = check_verdicts(verifier, sets, "fused", fused)
+
+        args = fused_verify.from_packed(fused_verify.example_inputs(BUCKET), dev)
+        got = bool(fused_verify.verify_signature_sets_fused(*args))
+        log(f"fused slice: example_inputs({BUCKET}) through verify_signature_sets_fused -> {got}")
+        if got is not True:
+            raise AssertionError("the batch-128 example inputs did not verify")
+
+        # the card against the CPU plain versions on a small input
+        small = fused_verify.example_inputs(4)
+        f_gpu, ok_gpu = fused_verify.miller_product_fused(*fused_verify.from_packed(small, dev))
+        f_cpu, ok_cpu = fused_verify.miller_product_fused(*fused_verify.from_packed(small, "cpu"))
+        same = torch.equal(fused_core.f_canon(f_gpu).cpu(), fused_core.f_canon(f_cpu))
+        log(f"fused slice: bucket-4 Miller product, card vs CPU plain: canonical f equal {same}, "
+            f"ok {bool(ok_gpu)} / {bool(ok_cpu)}")
+        if not (same and bool(ok_gpu) and bool(ok_cpu)):
+            raise AssertionError("the card's Miller product differs from the CPU plain run")
+
+    # fresh signatures; the public keys stay in the point cache, as on a node
+    with Phase("4 fused times"):
+        fresh = [make_sets(keys, b"timed %d" % r) for r in range(4)]
+        rate, dispatch_s = time_batches(verifier, fresh[:3], "fused", card)
+    with Phase("5 fused profile"):
+        idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, fused,
+                                "fused", [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return launches, rate, idle
+
+
+# -- phases 6-7: the XLA-graph path -------------------------------------------
+
+
+def run_xla(dev, card: str, keys, sets):
+    from torch.profiler import ProfilerActivity
+
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import batch_verify, limbs
+
+    with Phase("6 XLA slice"):
+        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 1), fused=False)
+        launches = check_verdicts(verifier, sets, "xla", TOWER)
+
+        small = batch_verify.example_inputs(4)
+        f_gpu, ok_gpu = batch_verify.miller_product_kernel(*batch_verify.from_packed(small, dev))
+        f_cpu, ok_cpu = batch_verify.miller_product_kernel(*batch_verify.from_packed(small, "cpu"))
+        same = torch.equal(limbs.fp_reduce_full(f_gpu).cpu(), limbs.fp_reduce_full(f_cpu))
+        log(f"xla slice: bucket-4 Miller product, card vs CPU plain: canonical f equal {same}, "
+            f"ok {bool(ok_gpu)} / {bool(ok_cpu)}")
+        if not (same and bool(ok_gpu) and bool(ok_cpu)):
+            raise AssertionError("the card's XLA-path Miller product differs from the CPU run")
+
+    with Phase("7 XLA times and profile"):
+        fresh = [make_sets(keys, b"xla timed %d" % r) for r in range(4)]
+        rate, dispatch_s = time_batches(verifier, fresh[:3], "xla", card)
+        idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, TOWER,
+                                "xla", [ProfilerActivity.CUDA])
+    return launches, rate, idle
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 2
+    from lodestar_tpu_torch.ops import fused_ladder, tower_kernels  # noqa: F401 - registers them
     from lodestar_tpu_torch.ops.fused_core import KERNELS
     from lodestar_tpu_torch.ops.kernels import _build
 
@@ -384,22 +486,34 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    _build.load()
-    log(f"build: nvcc sm_90a library {_build.library_path()} in {time.perf_counter() - t0:.1f} s")
+    with Phase("1 build"):
+        t0 = time.perf_counter()
+        _build.load()
+        log(f"build: nvcc sm_90a library {_build.library_path()} in "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    results = check_kernels(dev, card)
-    launches = run_slice(dev, card)
+    with Phase("2 kernels"):
+        results = check_kernels(dev, card)
+    t0 = time.perf_counter()
+    keys = make_keys(BUCKET)
+    sets = make_sets(keys, b"slice")
+    log(f"slice: built {BUCKET} signature sets on the host in {time.perf_counter() - t0:.1f} s")
+    fused_launches, fused_rate, fused_idle = run_fused(dev, card, keys, sets)
+    xla_launches, xla_rate, xla_idle = run_xla(dev, card, keys, sets)
+    log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} of the "
+        f"dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the dispatch [{card}]")
 
     line = []
     for name, k in KERNELS.items():
         r = results[name]
+        on_xla = name in TOWER
         line.append({
             "name": name,
             "route": "cuda",
-            "source": "lodestar_tpu_torch/ops/kernels/fused_kernels.cu",
+            "source": "lodestar_tpu_torch/ops/kernels/"
+                      + ("tower_kernels.cu" if on_xla else "fused_kernels.cu"),
             "replaces": k.replaces,
-            "launches": launches[name],
+            "launches": (xla_launches if on_xla else fused_launches)[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -408,6 +522,7 @@ def main() -> int:
             "library_ms": None,
             "rows": r["rows"],
             "issue_ms": r["issue_ms"],
+            "launches_by_path": {"fused": fused_launches[name], "xla": xla_launches[name]},
         })
     print(json.dumps({"kernels": line}))
     print(card)

@@ -2,9 +2,16 @@
 
 The port's verifier boundary (``verify_signature_sets(sets) -> bool``): the
 host packs a batch into padded digit arrays (``pack``), and the device runs
-the fused program with the final exponentiation on the card
-(``ops/fused_verify.verify_signature_sets_fused``).  A failed launch
-raises; there is no other tier to fall back to.
+one of two programs, both with the final exponentiation on the card:
+
+- ``fused=True`` (the default): the fused program
+  (``ops/fused_verify.verify_signature_sets_fused``);
+- ``fused=False``: the XLA-graph program
+  (``ops/batch_verify.verify_signature_sets_kernel``), which the JAX
+  package runs on every backend but a TPU.
+
+The choice is the caller's.  A failed launch raises; there is no other
+path or tier to fall back to.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 
 from ... import resolve_device
 from ...ops import limbs as fl
+from ...ops.batch_verify import verify_signature_sets_kernel
 from ...ops.fused_verify import from_packed, verify_signature_sets_fused
 from ...ops.htc import hash_to_field_limbs
 from .curve import g2_from_bytes, to_affine_batch
@@ -31,13 +39,16 @@ class TorchBlsVerifier:
     """Verifies signature sets on ``device`` (the card unless the caller
     asks for ``"cpu"``, which runs the kernels' plain versions).
 
+    ``fused``: the fused program (True) or the XLA-graph program (False).
     ``rng``: a ``numpy.random.Generator`` for the RLC coefficients, for
     reproducible runs; None (the default) draws them from ``secrets``."""
 
-    def __init__(self, device="cuda", rng: Optional[np.random.Generator] = None):
+    def __init__(self, device="cuda", rng: Optional[np.random.Generator] = None,
+                 fused: bool = True):
         self.device = resolve_device(device)
         self.point_cache = PointCache()
         self.rng = rng
+        self.fused = fused
 
     def verify_signature_sets(self, sets: Sequence[SignatureSet]) -> bool:
         """True iff every set verifies.  Batches above the largest bucket
@@ -57,7 +68,8 @@ class TorchBlsVerifier:
     def dispatch(self, packed) -> torch.Tensor:
         """Enqueue one packed batch on the device; returns the verdict as a
         bool scalar tensor there (reading it is the only synchronisation)."""
-        return verify_signature_sets_fused(*from_packed(packed, self.device))
+        program = verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
+        return program(*from_packed(packed, self.device))
 
     def _coefficients(self, b: int) -> np.ndarray:
         """b fresh odd 64-bit RLC coefficients."""

@@ -24,7 +24,7 @@ use no matmul at all.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..crypto.bls.fields import P as P_INT
 from . import limbs as fl
+from .limbs import const_tensor
 
 NL = fl.NLIMBS
 
@@ -61,21 +62,6 @@ def _pad_for(bound: int) -> np.ndarray:
 
 def _pad_max(bound: int) -> int:
     return (1 << max(9, int(bound - 1).bit_length())) + 255
-
-
-_TENSOR_CACHE: Dict[tuple, tuple] = {}
-
-
-def const_tensor(arr: np.ndarray, device, dtype=torch.float32) -> torch.Tensor:
-    """A numpy constant as a tensor on ``device``, made once per device.
-    The cache holds the array itself too, so its id is never reused."""
-    dev = torch.device(device)
-    key = (id(arr), dev, dtype)
-    hit = _TENSOR_CACHE.get(key)
-    if hit is None:
-        hit = (arr, torch.as_tensor(np.ascontiguousarray(arr)).to(device=dev, dtype=dtype))
-        _TENSOR_CACHE[key] = hit
-    return hit[1]
 
 
 # ---------------------------------------------------------------------------
@@ -221,14 +207,7 @@ def m_mul(a: torch.Tensor, b: torch.Tensor, c: _C, bits: int = 16) -> torch.Tens
     anti-diagonal sums (skewed by pad-and-reshape) are <= 50 * 2^bits."""
     if bits > 18:
         raise ValueError(f"m_mul bits={bits} breaks 50*2^bits < 2^24 exactness")
-    lead = a.shape[:-1]
-    outer = a[..., :, None] * b[..., None, :]  # (..., 50, 50)
-    acc = (
-        F.pad(outer, (0, NL))
-        .reshape(lead + (2 * NL * NL,))[..., : NL * (2 * NL - 1)]
-        .reshape(lead + (NL, 2 * NL - 1))
-        .sum(-2)
-    )  # acc[k] = sum_{i+j=k} a_i b_j
+    acc = fl.skew_sum(a[..., :, None] * b[..., None, :])  # acc[k] = sum_{i+j=k} a_i b_j
     return m_fold(acc, c, min(24, bits + 6))
 
 
@@ -337,16 +316,20 @@ class Kernel:
     ``kernel(*rows)`` takes float32 tensors shaped (N, *tail), all on one
     device.  On the CPU it runs the plain version; on the card it launches
     the kernel on the current stream (no synchronisation) and adds one to
-    ``launches``.  Anything else raises: there is no fallback."""
+    ``launches``.  Anything else raises: there is no fallback.
+
+    The first ``loose_in`` inputs take loose digits (<= 2^22 - 1, folded on
+    entry), the others semi-strict digits (<= 256)."""
 
     def __init__(self, name: str, replaces: str, n_in: int, n_out: int,
-                 tail: Tuple[int, ...], plain: Callable):
+                 tail: Tuple[int, ...], plain: Callable, loose_in: Optional[int] = None):
         self.name = name
         self.replaces = replaces
         self.n_in = n_in
         self.n_out = n_out
         self.tail = tail
         self._plain = plain
+        self.loose_in = n_in if loose_in is None else loose_in
         self.launches = 0
         KERNELS[name] = self
 

@@ -93,9 +93,9 @@ def _lad3_plain(c, z1, z2, u1, u2, s1y, s2y, z1z1, z2z2,
 
 _T2 = (2, NL)
 _SRC = "lodestar_tpu/ops/fused_ladder.py"
-K_LAD1 = Kernel("lad1", f"{_SRC}:86", 6, 8, _T2, _lad1_plain)
-K_LAD2 = Kernel("lad2", f"{_SRC}:106", 10, 12, _T2, _lad2_plain)
-K_LAD3 = Kernel("lad3", f"{_SRC}:153", 16, 9, _T2, _lad3_plain)
+K_LAD1 = Kernel("lad1", f"{_SRC}:86", 6, 8, _T2, _lad1_plain, loose_in=6)
+K_LAD2 = Kernel("lad2", f"{_SRC}:106", 10, 12, _T2, _lad2_plain, loose_in=4)
+K_LAD3 = Kernel("lad3", f"{_SRC}:153", 16, 9, _T2, _lad3_plain, loose_in=2)
 
 
 def _ladder_step(acc, addend, bit: torch.Tensor, ns: FNS):

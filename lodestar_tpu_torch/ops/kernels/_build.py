@@ -1,9 +1,10 @@
-"""Build and load the fused CUDA kernels (nvcc into a shared library with a
-plain C interface, loaded with ctypes).
+"""Build and load the port's CUDA kernels (nvcc into a shared library with
+a plain C interface, loaded with ctypes).
 
-``fused_kernels.cu`` is compiled once per kernel (``-DLF_KERNEL_<name>``),
-all ten nvcc processes started together, and the objects are linked into
-one library.  It is built at first use into ``build/lodestar_tpu_torch/``
+``fused_kernels.cu`` (the fused path's ten kernels) and ``tower_kernels.cu``
+(the XLA-graph path's four tower products) are compiled once per kernel
+(``-DLF_KERNEL_<name>``), all fourteen nvcc processes started together, and
+the objects are linked into one library.  It is built at first use into ``build/lodestar_tpu_torch/``
 under the repository root, named by a hash of the sources and the flags,
 so an edited source rebuilds and an unchanged one loads at once.  Nothing
 is built or loaded when the module is imported.
@@ -27,15 +28,17 @@ from typing import Dict, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "lodestar_tpu_torch")
-SOURCES = ("field.cuh", "fused_kernels.cu")
+SOURCES = ("field.cuh", "fused_kernels.cu", "tower.cuh", "tower_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
-LAUNCHERS = (
-    "mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul",
-    "fold", "canon", "lad1", "lad2", "lad3",
-)
+_FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul",
+          "fold", "canon", "lad1", "lad2", "lad3")
+_TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
+#: every launcher, by the source file that holds its kernel
+LAUNCHERS = {**{name: "fused_kernels.cu" for name in _FUSED},
+             **{name: "tower_kernels.cu" for name in _TOWER}}
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
@@ -50,7 +53,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the fused CUDA kernels cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _digest(extra: Tuple[str, ...]) -> str:
@@ -62,7 +65,7 @@ def _digest(extra: Tuple[str, ...]) -> str:
 
 
 def library_path(extra: Tuple[str, ...] = ()) -> str:
-    return os.path.join(BUILD_DIR, f"fused_kernels_{_digest(extra)}.so")
+    return os.path.join(BUILD_DIR, f"kernels_{_digest(extra)}.so")
 
 
 def build(extra: Tuple[str, ...] = ()) -> str:
@@ -73,12 +76,12 @@ def build(extra: Tuple[str, ...] = ()) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    src = os.path.join(_HERE, "fused_kernels.cu")
     tag = f"{out}.{os.getpid()}"
     objs, procs = [], []
-    for name in LAUNCHERS:
+    for name, src in LAUNCHERS.items():
         obj = f"{tag}.{name}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *extra, f"-DLF_KERNEL_{name}", "-c", "-o", obj, src]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, f"-DLF_KERNEL_{name}", "-c", "-o", obj,
+               os.path.join(_HERE, src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))

@@ -1,9 +1,9 @@
-// Host build of the kernels' row bodies (field.cuh) with a plain C
+// Host build of the kernels' row bodies (field.cuh, tower.cuh) with a plain C
 // interface, for the CPU parity test: the same arithmetic the CUDA
 // kernels run, looped over rows on the CPU.  Built with g++ by
 // tests/test_torch_kernel_host.py; not part of the device path.
 
-#include "field.cuh"
+#include "tower.cuh"
 
 #define LF_HOST(NAME)                                                        \
   extern "C" int host_##NAME(void* const* ins, void* const* outs, int n,     \
@@ -27,3 +27,7 @@ LF_HOST(canon)
 LF_HOST(lad1)
 LF_HOST(lad2)
 LF_HOST(lad3)
+LF_HOST(tower_fq2_mul)
+LF_HOST(tower_fq2_sqr)
+LF_HOST(tower_fq6_mul)
+LF_HOST(tower_fq12_mul)

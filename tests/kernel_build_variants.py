@@ -3,8 +3,9 @@ against the plain versions on the card.
 
     python3 tests/kernel_build_variants.py [variant ...]
 
-The port builds field.cuh with its heavy steps (fold, the digit product,
-the Fq2 product and square, the canonicalisation) as real calls.  With
+The port builds field.cuh and tower.cuh with their heavy steps (fold, the
+digit product, the Fq2 product and square, the canonicalisation, the
+tower's Fq2 / Fq6 / Fq12 products) as real calls.  With
 every step inlined (``-DLF_INLINE_ALL``, the layout of the kernels' first
 build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
@@ -13,8 +14,9 @@ shows which stage of the compiler the fault follows.
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 512 and 2,560 rows and three seeds,
-and the first differing row's digits; then, for the fq2sqr kernel,
-ptxas's register, stack and spill report.  Needs a CUDA card and nvcc.
+and the first differing row's digits; then, for the fq2sqr and
+tower_fq12_mul kernels, ptxas's register, stack and spill report.  Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from lodestar_tpu_torch.ops import fused_core as fc  # noqa: E402
 from lodestar_tpu_torch.ops import fused_ladder  # noqa: E402,F401 - registers lad1..3
+from lodestar_tpu_torch.ops import tower_kernels  # noqa: E402,F401 - registers the tower kernels
 from lodestar_tpu_torch.ops.kernels import _build  # noqa: E402
 
 INLINE = "-DLF_INLINE_ALL"
@@ -86,10 +89,10 @@ def check(lib, k, dev) -> dict:
     return {"rows_checked": checked, "rows_differ": differ, "first": first}
 
 
-def ptxas_report(extra) -> list:
-    """ptxas's resource lines for the fq2sqr kernel of a variant."""
-    src = os.path.join(os.path.dirname(_build.__file__), "fused_kernels.cu")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-DLF_KERNEL_fq2sqr",
+def ptxas_report(extra, name: str) -> list:
+    """ptxas's resource lines for kernel ``name`` of a variant."""
+    src = os.path.join(os.path.dirname(_build.__file__), _build.LAUNCHERS[name])
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, f"-DLF_KERNEL_{name}",
            "-Xptxas", "-v", "-c", "-o", os.devnull, src]
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     return [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
@@ -107,8 +110,9 @@ def main(names) -> int:
         for name, k in fc.KERNELS.items():
             print(json.dumps({"variant": variant, "kernel": name, **check(lib, k, dev)}),
                   flush=True)
-        print(json.dumps({"variant": variant, "ptxas_fq2sqr": ptxas_report(VARIANTS[variant])}),
-              flush=True)
+        for name in ("fq2sqr", "tower_fq12_mul"):
+            print(json.dumps({"variant": variant, f"ptxas_{name}": ptxas_report(VARIANTS[variant], name)}),
+                  flush=True)
     return 0
 
 

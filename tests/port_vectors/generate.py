@@ -1,15 +1,24 @@
-"""Golden vectors of the JAX fused kernels for the PyTorch port's tests.
+"""Golden vectors of the JAX package for the PyTorch port's tests.
 
-    JAX_PLATFORMS=cpu python tests/port_vectors/generate.py
+    JAX_PLATFORMS=cpu python tests/port_vectors/generate.py [fused] [tower] [xla]
 
-Runs the JAX package's ``fused_core`` ops (``f_mul``, ``f2_mul``,
-``f2_sqr``, ``f_pow16mul``, ``f2_pow16mul``, ``f_fold``, ``f_canon``) and
-``fused_ladder.point_mul_bits_ladder`` (4 bits over 2 rows) on the CPU in
-Pallas interpret mode, on inputs made with numpy from a fixed seed, and
-writes inputs and outputs to ``fused_core.npz`` and ``fused_ladder.npz``
-beside this file.  The tests rebuild the inputs with ``core_inputs`` /
-``ladder_inputs`` below, check them against the stored ones, and hold the
-port's plain versions to the stored outputs bitwise.
+With no argument it writes every file; each takes the JAX package on the
+CPU and inputs made with numpy from a fixed seed, and writes inputs and
+outputs beside this file:
+
+- ``fused_core.npz`` / ``fused_ladder.npz`` (``fused``): the ``fused_core``
+  ops (``f_mul``, ``f2_mul``, ``f2_sqr``, ``f_pow16mul``, ``f2_pow16mul``,
+  ``f_fold``, ``f_canon``) and ``fused_ladder.point_mul_bits_ladder`` (4
+  bits over 2 rows) in Pallas interpret mode;
+- ``tower_kernels.npz`` (``tower``): the four ``pallas_tower`` kernels
+  (``fq2_mul``, ``fq2_sqr``, ``fq6_mul``, ``fq12_mul``) in interpret mode;
+- ``xla_path.npz`` (``xla``, a few minutes of XLA compiles): the ``limbs``
+  ops in their default ``ladder`` mode, ``htc.hash_to_g2_device`` at 2
+  messages, ``points.g2_subgroup_check`` on a member and a non-member, and
+  ``batch_verify``'s Miller product and verdicts at bucket 4.
+
+The tests rebuild the inputs with the ``*_inputs`` functions below, check
+them against the stored ones, and hold the port to the stored outputs.
 
 Importing this module needs neither JAX nor torch.
 """
@@ -24,6 +33,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 CORE_NPZ = os.path.join(HERE, "fused_core.npz")
 LADDER_NPZ = os.path.join(HERE, "fused_ladder.npz")
+TOWER_NPZ = os.path.join(HERE, "tower_kernels.npz")
+XLA_NPZ = os.path.join(HERE, "xla_path.npz")
 SEED = 20261016
 ROWS = 8
 LOOSE_MAX = (1 << 22) - 1
@@ -80,11 +91,127 @@ def ladder_inputs() -> dict:
     return {"x": np.stack(xs), "y": np.stack(ys), "bits": bits}
 
 
-def main() -> None:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
-    import jax
+# pallas_tower kernels: input arity and trailing value shape
+TOWER_OPS = {
+    "fq2_mul": (2, (2, 50)),
+    "fq2_sqr": (1, (2, 50)),
+    "fq6_mul": (2, (3, 2, 50)),
+    "fq12_mul": (2, (6, 2, 50)),
+}
 
-    jax.config.update("jax_platforms", "cpu")
+
+def _edge_rows(a: np.ndarray, top: int) -> np.ndarray:
+    """Rows 0-3 of a: zero, p, 2p, every digit at top."""
+    from lodestar_tpu_torch.crypto.bls.fields import P
+
+    flat = a.reshape(a.shape[0], -1, 50)
+    for r, edge in enumerate((0, _digits(P), _digits(2 * P), top)):
+        flat[r] = edge
+    return a
+
+
+def tower_inputs() -> dict:
+    """Per kernel, its semi-strict inputs (ROWS rows, digits <= 256): edge
+    rows 0-3, then random digits in [0, 256]."""
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    for op, (arity, tail) in TOWER_OPS.items():
+        for k in range(arity):
+            a = rng.integers(0, 257, size=(ROWS,) + tail).astype(np.float32)
+            out[f"{op}_in{k}"] = _edge_rows(a, 256)
+    return out
+
+
+XLA_MSGS = [b"port xla path message 0", b"port xla path message 1"]
+
+
+def xla_inputs() -> dict:
+    """Inputs of the XLA-path vectors: digit arrays for the limbs ops
+    (loose < 2^24, minuends < 2^23, subtrahends < 2^12, semi-strict <= 256
+    with edge rows), the hash_to_field draws of XLA_MSGS, a G2 member and
+    a non-member (affine), and the bucket-4 example batch with a corrupted
+    twin (set 1 carries set 2's signature)."""
+    from lodestar_tpu_torch.crypto.bls.hash_to_curve import hash_to_field_fq2, map_to_curve_g2
+    from lodestar_tpu_torch.ops import batch_verify, htc, tower
+
+    rng = np.random.default_rng(SEED + 3)
+    draw = lambda top: rng.integers(0, top, size=(ROWS, 50)).astype(np.float32)  # noqa: E731
+    out = {
+        "loose": _edge_rows(draw(1 << 24), (1 << 24) - 1),
+        "sub_a": _edge_rows(draw(1 << 23), (1 << 23) - 1),
+        "sub_b": _edge_rows(draw(1 << 12), (1 << 12) - 1),
+        "semi_a": _edge_rows(draw(257), 256),
+        "semi_b": _edge_rows(draw(257), 256),
+        "msg_u": htc.hash_to_field_limbs(XLA_MSGS),
+    }
+    pk_x, pk_y, sig_x, sig_y, msg_u, bits, mask = batch_verify.example_inputs(4)
+    outside = map_to_curve_g2(hash_to_field_fq2(b"port xla path outside G2", 2)[0]).to_affine()
+    out["g2_x"] = np.stack([sig_x[0], tower.fq2_const(outside[0])])
+    out["g2_y"] = np.stack([sig_y[0], tower.fq2_const(outside[1])])
+    for name, arr in zip(("pk_x", "pk_y", "sig_x", "sig_y", "msg_u4", "bits", "mask"),
+                         (pk_x, pk_y, sig_x, sig_y, msg_u, bits, mask)):
+        out[f"b4_{name}"] = arr
+    bad_x, bad_y = sig_x.copy(), sig_y.copy()
+    bad_x[1], bad_y[1] = sig_x[2], sig_y[2]
+    out["b4_bad_sig_x"], out["b4_bad_sig_y"] = bad_x, bad_y
+    return out
+
+
+def bucket4(ins: dict, corrupted: bool = False) -> tuple:
+    """The packed bucket-4 7-tuple of xla_inputs (valid or corrupted)."""
+    sig = ("b4_bad_sig_x", "b4_bad_sig_y") if corrupted else ("b4_sig_x", "b4_sig_y")
+    return (ins["b4_pk_x"], ins["b4_pk_y"], ins[sig[0]], ins[sig[1]], ins["b4_msg_u4"],
+            ins["b4_bits"], ins["b4_mask"])
+
+
+def _write_tower() -> None:
+    import jax.numpy as jnp
+
+    from lodestar_tpu.ops import pallas_tower
+
+    ins = tower_inputs()
+    outs = {}
+    for op, (arity, _tail) in TOWER_OPS.items():
+        args = [jnp.asarray(ins[f"{op}_in{k}"]) for k in range(arity)]
+        outs[f"{op}_out"] = np.asarray(getattr(pallas_tower, op)(*args, interpret=True))
+    np.savez_compressed(TOWER_NPZ, **ins, **outs)
+
+
+def _write_xla() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from lodestar_tpu.ops import batch_verify, htc, limbs, points
+
+    ins = xla_inputs()
+    j = {k: jnp.asarray(v) for k, v in ins.items()}
+    outs = {
+        "carry_exact": limbs.carry_exact(j["loose"]),
+        "carry_ripple_exact": limbs.carry_ripple_exact(j["semi_a"]),  # its semi-strict contract
+        "fp_strict": limbs.fp_strict(j["loose"]),
+        "fp_sub": limbs.fp_sub(j["sub_a"], j["sub_b"]),
+        "fp_neg": limbs.fp_neg(j["sub_b"]),
+        "fp_mul_small": limbs.fp_mul_small(j["semi_a"], 12345),
+        "fp_mul": limbs.fp_mul(j["semi_a"], j["semi_b"]),
+        "fp_mul_loose": limbs.fp_mul(j["loose"], j["semi_b"], a_strict=False),
+        "fp_reduce_full": limbs.fp_reduce_full(j["semi_a"]),
+        "fp_eq": limbs.fp_eq(j["semi_a"], j["semi_b"]),
+        "fp_is_zero": limbs.fp_is_zero(j["semi_a"]),
+        "fp_inv": limbs.fp_inv(j["semi_a"]),
+    }
+    h = jax.jit(htc.hash_to_g2_device)(j["msg_u"])
+    outs.update(htc_x=h[0], htc_y=h[1], htc_z=h[2])
+    g2 = points.point_from_affine(j["g2_x"], j["g2_y"], points.FQ2_NS)
+    outs["g2_subgroup"] = jax.jit(points.g2_subgroup_check)(g2)
+    f, ok = jax.jit(batch_verify.miller_product_kernel)(*map(jnp.asarray, bucket4(ins)))
+    outs.update(b4_f=f, b4_ok=ok)
+    verdict = jax.jit(batch_verify.verify_signature_sets_kernel)
+    outs["b4_verdict"] = verdict(*map(jnp.asarray, bucket4(ins)))
+    outs["b4_bad_verdict"] = verdict(*map(jnp.asarray, bucket4(ins, corrupted=True)))
+    np.savez_compressed(XLA_NPZ, **ins, **{k: np.asarray(v) for k, v in outs.items()})
+
+
+def _write_fused() -> None:
     import jax.numpy as jnp
 
     from lodestar_tpu.ops import fused_core as J
@@ -112,8 +239,20 @@ def main() -> None:
         LADDER_NPZ, **lad, out_x=np.asarray(out[0].a), out_y=np.asarray(out[1].a),
         out_z=np.asarray(out[2].a),
     )
-    print(f"wrote {CORE_NPZ} and {LADDER_NPZ}")
+
+
+WRITERS = {"fused": _write_fused, "tower": _write_tower, "xla": _write_xla}
+
+
+def main(names) -> None:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    for name in names or WRITERS:
+        WRITERS[name]()
+        print(f"wrote the {name} vectors", flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

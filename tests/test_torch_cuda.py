@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (cuda-marked: they skip without one).
 
 Run on the H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-Each kernel is held bitwise against its plain version on the same CUDA
-inputs, and the bucket-4 slice on the card against the CPU plain run.
+Each kernel (the fused path's ten and the XLA-graph path's four tower
+kernels) is held bitwise against its plain version on the same CUDA
+inputs, and the bucket-4 slice of each path on the card against the CPU
+plain run.
 ``tests/kernel_build_variants.py`` holds builds of the same sources that
 the port does not run to the same check."""
 
@@ -12,8 +14,11 @@ import torch
 
 import chip_smoke
 from lodestar_tpu_torch.ops import fused_core as fc
+from lodestar_tpu_torch.ops import batch_verify as bv
 from lodestar_tpu_torch.ops import fused_ladder  # noqa: F401 - registers lad1..3
 from lodestar_tpu_torch.ops import fused_verify as fv
+from lodestar_tpu_torch.ops import tower_kernels  # noqa: F401 - registers the tower kernels
+from lodestar_tpu_torch.ops.limbs import fp_reduce_full
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +31,7 @@ def card():
 
 
 @pytest.mark.parametrize("name", sorted(fc.KERNELS))
-@pytest.mark.parametrize("rows", [1, 37, 512, 2560])
+@pytest.mark.parametrize("rows", [1, 37, 512, 1548, 2560])
 def test_kernel_equals_plain_version_on_the_card(name, rows, card):
     k = fc.KERNELS[name]
     ins = chip_smoke.kernel_inputs(k, max(rows, 4), np.random.default_rng(rows), card)
@@ -45,3 +50,12 @@ def test_bucket4_miller_product_on_the_card_equals_the_cpu_plain_run(card):
     assert torch.equal(f_gpu.a.cpu(), f_cpu.a)
     assert bool(ok_gpu) and bool(ok_cpu)
     assert bool(fv.verify_signature_sets_fused(*fv.from_packed(packed, card)))
+
+
+def test_bucket4_xla_miller_product_on_the_card_equals_the_cpu_plain_run(card):
+    packed = bv.example_inputs(4)
+    f_gpu, ok_gpu = bv.miller_product_kernel(*bv.from_packed(packed, card))
+    f_cpu, ok_cpu = bv.miller_product_kernel(*bv.from_packed(packed, "cpu"))
+    assert torch.equal(fp_reduce_full(f_gpu).cpu(), fp_reduce_full(f_cpu))
+    assert bool(ok_gpu) and bool(ok_cpu)
+    assert bool(bv.verify_signature_sets_kernel(*bv.from_packed(packed, card)))

@@ -35,6 +35,8 @@ def _absolute_imports(path):
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    for module in ("limbs", "tower", "tower_kernels", "points", "htc", "pairing", "batch_verify"):
+        assert os.path.join(PORT, "ops", f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
         for f in files
@@ -51,6 +53,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "    sys.modules[name] = None\n"
         "import lodestar_tpu_torch.crypto.bls.torch_verifier\n"
         "import lodestar_tpu_torch.ops.fused_verify\n"
+        "import lodestar_tpu_torch.ops.batch_verify\n"
+        "import lodestar_tpu_torch.ops.tower_kernels\n"
         "import lodestar_tpu_torch.ops.kernels._build\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
@@ -71,6 +75,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     packed = (np.zeros((4, 50), np.float32),) * 6 + (np.ones(4, bool),)
     with pytest.raises(RuntimeError):
         TorchBlsVerifier()
+    with pytest.raises(RuntimeError):
+        TorchBlsVerifier(fused=False)
     with pytest.raises(RuntimeError):
         from_packed(packed)
     with pytest.raises(RuntimeError):

@@ -1,10 +1,14 @@
-"""Live twins of the port's vector tests: the JAX package's fused ops run
-on the fly (Pallas interpret mode on the CPU) beside the port's plain
-versions.  Slow-marked: the bucket-4 Miller product alone takes minutes in
-interpret mode, like the JAX package's own fused-vs-XLA value check."""
+"""Live twins of the port's vector tests: the JAX package's fused ops, its
+pallas_tower kernels (Pallas interpret mode on the CPU) and
+its XLA-graph batch_verify run on the fly beside the port's plain versions.
+Slow-marked: the bucket-4 Miller products alone take minutes (interpret
+mode, or the XLA compile of the whole program), like the JAX package's own
+fused-vs-XLA value check."""
 
 import importlib.util
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,11 +23,15 @@ from lodestar_tpu.ops import fused_core as J  # noqa: E402
 from lodestar_tpu.ops import fused_ladder as JL  # noqa: E402
 from lodestar_tpu.ops import fused_points as JP  # noqa: E402
 from lodestar_tpu.ops import fused_verify as JV  # noqa: E402
+from lodestar_tpu_torch.ops import batch_verify as TB  # noqa: E402
 from lodestar_tpu_torch.ops import fused_core as T  # noqa: E402
 from lodestar_tpu_torch.ops import fused_ladder as TL  # noqa: E402
 from lodestar_tpu_torch.ops import fused_points as TP  # noqa: E402
 from lodestar_tpu_torch.ops import fused_verify as TV  # noqa: E402
+from lodestar_tpu_torch.ops import tower_kernels as TK  # noqa: E402
+from lodestar_tpu_torch.ops.limbs import fp_reduce_full  # noqa: E402
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_vectors", "generate.py")
 _spec = importlib.util.spec_from_file_location("port_vectors_generate", _GEN)
 gen = importlib.util.module_from_spec(_spec)
@@ -65,3 +73,58 @@ def test_miller_product_fused_equals_jax_at_bucket4():
     f_t, ok_t = TV.miller_product_fused(*TV.from_packed(args, "cpu"))
     np.testing.assert_array_equal(T.f_canon(f_t).numpy(), np.asarray(J.f_canon(f_j, True)))
     assert bool(ok_t) is bool(ok_j) is True
+
+
+
+def _jax_in_child(code: str, tmp_path) -> dict:
+    """Run ``code`` (which fills a dict ``out`` of arrays) in a child
+    process on the CPU and return ``out``: the JAX compiles of the tower
+    kernels and the XLA-graph program take seconds to minutes and stay out
+    of this process's compile guard."""
+    path = tmp_path / "jax_out.npz"
+    script = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "import jax.numpy as jnp\n"
+        "out = {}\n" + code + "\nnp.savez(sys.argv[2], **out)\n"
+    )
+    subprocess.run([sys.executable, "-c", script, _REPO, str(path)], check=True, timeout=3000)
+    with np.load(path) as z:
+        return dict(z)
+
+
+def test_tower_kernel_plain_equals_live_pallas_kernel(tmp_path):
+    ref = _jax_in_child(
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('g', sys.argv[1] + '/tests/port_vectors/generate.py')\n"
+        "g = importlib.util.module_from_spec(spec); spec.loader.exec_module(g)\n"
+        "from lodestar_tpu.ops import pallas_tower as JT\n"
+        "ins = g.tower_inputs()\n"
+        "for op, (arity, _) in g.TOWER_OPS.items():\n"
+        "    args = [jnp.asarray(ins[f'{op}_in{k}']) for k in range(arity)]\n"
+        "    out[op] = np.asarray(getattr(JT, op)(*args, interpret=True))\n",
+        tmp_path,
+    )
+    ins = gen.tower_inputs()
+    kernel = {"fq2_mul": TK.K_FQ2_MUL, "fq2_sqr": TK.K_FQ2_SQR, "fq6_mul": TK.K_FQ6_MUL,
+              "fq12_mul": TK.K_FQ12_MUL}
+    for op, (arity, _tail) in gen.TOWER_OPS.items():
+        (got,) = kernel[op](*(torch.from_numpy(ins[f"{op}_in{k}"]) for k in range(arity)))
+        np.testing.assert_array_equal(got.numpy(), ref[op], err_msg=op)
+
+
+def test_xla_miller_product_equals_jax_batch_verify_at_bucket4(tmp_path):
+    ref = _jax_in_child(
+        "from lodestar_tpu.ops import batch_verify as bv\n"
+        "f, ok = jax.jit(bv.miller_product_kernel)(*map(jnp.asarray, bv.example_inputs(4)))\n"
+        "out.update(f=np.asarray(f), ok=np.asarray(ok))\n",
+        tmp_path,
+    )
+    args = bv.example_inputs(4)
+    f_t, ok_t = TB.miller_product_kernel(*TB.from_packed(args, "cpu"))
+    canon = lambda f: fp_reduce_full(torch.as_tensor(np.asarray(f))).numpy()  # noqa: E731
+    np.testing.assert_array_equal(canon(f_t), canon(ref["f"]))
+    assert bool(ok_t) is bool(ref["ok"]) is True
