@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits non-zero); each prints
 its wall time on a line of its own:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions, and
-   the nvcc build of the fourteen kernels from this checkout's sources;
+   the nvcc build of the fifteen kernels from this checkout's sources;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, on seeded inputs at the shapes its path gives it (the fused
    field kernels at 512 and 2,560 rows, the ladder kernels at 512 rows,
@@ -42,16 +42,50 @@ its wall time on a line of its own:
    glue, so the comparison is on the canonical residues);
 7. XLA times and profile: phases 4 and 5 for the XLA-graph program
    (profiled with device activity only: the program makes about a million
-   launches).
+   launches);
+8. ring: the ring hop kernel (``ops/ring_gather``) against its plain
+   version, bitwise, as a whole all-gather and as a one-hop permute, at 2
+   and 4 logical shards on card 0 and on a (6, 2, 50) GT partial and a
+   (2,) verdict-bits chunk, three seeded inputs each; the device time of
+   one hop, of one whole gather and of ``Tensor.copy_``; with two or more
+   cards visible, the same across min(count, 4) cards (peer access);
+9. sharded slice: ``TorchBlsVerifier(devices=[cuda:0] * 2, sharded=True,
+   sharded_min_batch=256)`` with every launch counter set to 0 just
+   before: 256 valid sets verify, the ring kernel and every fused kernel
+   launched; a corrupted signature, a signature outside G2 in shard 1
+   give False; 150 live sets over 4 shards (shard 3 all padding) and the
+   ring combine give True; the XLA-graph flavour at bucket 16 over 2
+   shards, with every launch counter set to 0 just before, gives True /
+   False, every tower kernel and the ring kernel launched; the shards'
+   bucket-8 Miller partials, all-gathered, are bitwise equal on every
+   shard, and the sharded Miller product equals the CPU plain run
+   canonically; with two or more cards, valid and corrupted batches on
+   cuda:0 and cuda:1;
+10. sharded times: three fresh batches of 256 through the sharded tier
+    (pack + dispatch, sets/s, each shard's enqueue wall), one profiled
+    dispatch (the union of the device's busy intervals), the same sets
+    through one card as two chunks of 128; with two or more cards, the
+    same across 2 (and 4) cards and the scaling efficiency.
 
-The last lines: the two paths side by side, the ``kernels`` JSON object,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Signatures are made by a pool of host processes (the bigint oracle is
+pure Python); the pool is closed before the end.
+
+The last lines: the paths side by side, the ``kernels`` JSON object, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --sharded-only
+
+runs phases 1 and 8-10 alone (on a machine with several cards, for the
+cross-card legs) and ends with the card line and ``{"ok": true, ...}``
+without the ``kernels`` object.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -61,6 +95,8 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
+# NVLink between the cards of one host: 900 GB/s, 450 GB/s each way
+NVLINK_BYTES_PER_S = 450e9
 # int32 multiply-add on the CUDA cores: 64 lanes per SM per clock (half the
 # fp32 lanes) x 132 SMs x 1.98 GHz, 2 operations each = half of the
 # 67 TFLOP/s fp32 rate
@@ -68,6 +104,9 @@ INT32_OPS_PER_S = 33.5e12
 
 SEED = 20261016
 BUCKET = 128  # the node's MAX_SIGNATURE_SETS_PER_JOB
+SHARDED_BUCKET = 256  # the sharded tier's default smallest bucket (the largest)
+RING_SHAPES = ((6, 2, 50), (2,))  # a GT partial, the two verdict bits
+RING_SHARDS = (2, 4)
 # seeded inputs each kernel is held against its plain version on, per shape
 # (a miscompiled build can be wrong on a few rows in thousands)
 CHECKS = 3
@@ -264,17 +303,22 @@ def make_keys(n: int):
     return [(sk, PublicKey.from_bytes(sk.to_public_key().to_bytes())) for sk in sks]
 
 
-def make_sets(keys, tag: bytes):
+def _sign(job) -> bytes:
+    i, msg = job
+    from lodestar_tpu_torch.crypto.bls import interop_secret_key
+
+    return interop_secret_key(i).sign(msg).to_bytes()
+
+
+def make_sets(pool, keys, tag: bytes):
     """One valid single-key signature set per key, over messages that
-    ``tag`` makes new."""
+    ``tag`` makes new; the signing (pure Python) spread over ``pool``."""
     from lodestar_tpu_torch.crypto.bls import SingleSignatureSet
 
-    sets = []
-    for i, (sk, pk) in enumerate(keys):
-        msg = b"chip smoke %s %d" % (tag, i)
-        sets.append(SingleSignatureSet(
-            pubkey=pk, signing_root=msg, signature=sk.sign(msg).to_bytes()))
-    return sets
+    msgs = [b"chip smoke %s %d" % (tag, i) for i in range(len(keys))]
+    sigs = pool.map(_sign, list(enumerate(msgs)), chunksize=8)
+    return [SingleSignatureSet(pubkey=pk, signing_root=m, signature=sig)
+            for (_sk, pk), m, sig in zip(keys, msgs, sigs)]
 
 
 def non_subgroup_signature() -> bytes:
@@ -293,15 +337,15 @@ def check_verdicts(verifier, sets, path: str, kernels) -> dict:
     """The four batches through ``verifier``: valid, one corrupted
     signature, one signature outside G2, 100 live sets in the bucket ->
     True, False, False, True.  Every launch counter is 0 just before the
-    valid batch; returns the counts just after it, and fails if one of
-    ``kernels`` (the path's) was launched no time."""
+    valid batch; returns every counter's count just after it, and fails if
+    one of ``kernels`` (the path's) was launched no time."""
     from lodestar_tpu_torch.ops import fused_core
 
     fused_core.reset_launch_counts()
     t0 = time.perf_counter()
     ok = verifier.verify_signature_sets(sets)
     first_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in fused_core.KERNELS.items()}
+    launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
     log(f"{path} slice: valid batch of {len(sets)} -> {ok} (first run {first_s:.3f} s); "
         f"launches per batch {json.dumps(launches)}")
     if ok is not True:
@@ -331,22 +375,28 @@ def check_verdicts(verifier, sets, path: str, kernels) -> dict:
     return launches
 
 
-def time_batches(verifier, fresh, path: str, card: str):
-    """Phase 4 / 7: each fresh batch packed then dispatched to the verdict
-    on the host clock; returns (sets/s of the best, its dispatch seconds)."""
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def time_batches(verifier, fresh, path: str, card: str, after=None):
+    """Phase 4 / 7 / 10: each fresh batch packed then dispatched to the
+    verdict on the host clock; returns (sets/s of the best, its dispatch
+    seconds).  ``after()``, when given, adds to each batch's line."""
     cache = verifier.point_cache
     packs, dispatches = [], []
     for r, batch in enumerate(fresh):
-        torch.cuda.synchronize()
+        sync_all()
         hits, misses = cache.hits, cache.misses
         t0 = time.perf_counter()
         packed = verifier.pack(batch)
         t1 = time.perf_counter()
-        log(f"{path} times: batch {r} pack: point cache {cache.hits - hits} hits, "
-            f"{cache.misses - misses} misses")
         ok = bool(verifier.dispatch(packed))
-        torch.cuda.synchronize()
+        sync_all()
         t2 = time.perf_counter()
+        log(f"{path} times: batch {r} pack: point cache {cache.hits - hits} hits, "
+            f"{cache.misses - misses} misses" + (f"; {after()}" if after else ""))
         if not ok:
             raise AssertionError(f"{path}: timed batch {r} did not verify")
         packs.append(t1 - t0)
@@ -407,7 +457,7 @@ def profile_dispatch(packed, verifier, dispatch_s: float, card: str, kernels, pa
 # -- phases 3-5: the fused path ----------------------------------------------
 
 
-def run_fused(dev, card: str, keys, sets):
+def run_fused(dev, card: str, pool, keys, sets):
     from torch.profiler import ProfilerActivity
 
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
@@ -436,7 +486,7 @@ def run_fused(dev, card: str, keys, sets):
 
     # fresh signatures; the public keys stay in the point cache, as on a node
     with Phase("4 fused times"):
-        fresh = [make_sets(keys, b"timed %d" % r) for r in range(4)]
+        fresh = [make_sets(pool, keys, b"timed %d" % r) for r in range(4)]
         rate, dispatch_s = time_batches(verifier, fresh[:3], "fused", card)
     with Phase("5 fused profile"):
         idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, fused,
@@ -447,7 +497,7 @@ def run_fused(dev, card: str, keys, sets):
 # -- phases 6-7: the XLA-graph path -------------------------------------------
 
 
-def run_xla(dev, card: str, keys, sets):
+def run_xla(dev, card: str, pool, keys, sets):
     from torch.profiler import ProfilerActivity
 
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
@@ -467,41 +517,384 @@ def run_xla(dev, card: str, keys, sets):
             raise AssertionError("the card's XLA-path Miller product differs from the CPU run")
 
     with Phase("7 XLA times and profile"):
-        fresh = [make_sets(keys, b"xla timed %d" % r) for r in range(4)]
+        fresh = [make_sets(pool, keys, b"xla timed %d" % r) for r in range(4)]
         rate, dispatch_s = time_batches(verifier, fresh[:3], "xla", card)
         idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, TOWER,
                                 "xla", [ProfilerActivity.CUDA])
     return launches, rate, idle
 
+# -- phase 8: the ring hop kernel ---------------------------------------------
 
-def main() -> int:
+
+def ring_bound(chunk_bytes: int, cross_card: bool):
+    """(bound_ms, "bytes") of one hop: the chunk read and written once on
+    one card, or sent once over one NVLink direction."""
+    if cross_card:
+        return chunk_bytes / NVLINK_BYTES_PER_S * 1e3, "bytes"
+    return 2 * chunk_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def events_ms(streams, fn, reps: int = 20) -> float:
+    """Eager time of fn over ``streams`` (every stream forked from and
+    joined back into the first), by CUDA events on the first stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    sync_all()
+    start.record(streams[0])
+    for st in streams[1:]:
+        st.wait_event(start)
+    for _ in range(reps):
+        fn()
+    for st in streams[1:]:
+        streams[0].wait_stream(st)
+    end.record(streams[0])
+    sync_all()
+    return start.elapsed_time(end) / reps
+
+
+def check_ring(devices, rng: np.random.Generator, card: str, label: str) -> dict:
+    """The ring kernel against its plain version on ``devices`` (one shard
+    each; a card may repeat), gather and permute, each ring shape; then its
+    times at the (6, 2, 50) chunk."""
+    from lodestar_tpu_torch.ops import ring_gather as rg
+
+    n = len(devices)
+    streams = [torch.cuda.Stream(device=d) for d in devices]
+    err = 0.0
+    for shape in RING_SHAPES:
+        for _ in range(CHECKS):
+            chunks = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(d)
+                      for d in devices]
+            sync_all()
+            got = rg.ring_all_gather(chunks, streams=streams)
+            got_p = rg.ring_permute(chunks, streams=streams)
+            sync_all()
+            want = rg.ring_all_gather_plain(chunks, [torch.empty_like(g) for g in got])
+            want_p = rg.ring_permute_plain(chunks)
+            for g, w in zip(got + got_p, want + want_p):
+                if g.device != w.device or not torch.equal(g, w):
+                    raise AssertionError(f"ring {label} n={n} {shape}: kernel differs from plain")
+                err = max(err, float((g - w).abs().max()))
+    # times at the GT partial
+    shape = RING_SHAPES[0]
+    chunks = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(d)
+              for d in devices]
+    out = [torch.empty((n,) + shape, device=d) for d in devices]
+    cur = torch.cuda.current_stream(devices[0])
+    cross = devices[0] != devices[1 % n]
+    with torch.cuda.device(devices[0]):
+        if cross:  # a hop and a copy_ from card 0 to card 1 are not one-card graphs
+            hop = events_ms([cur], lambda: rg.launch_hop(out[0][0], out[1][0], cur))
+            plain = events_ms([cur], lambda: out[1][0].copy_(out[0][0]))
+            lib_dst = torch.empty(shape, device=devices[1])
+            lib = events_ms([cur], lambda: lib_dst.copy_(chunks[0]))
+        else:
+            hop = graph_ms(lambda: rg.launch_hop(out[0][0], out[1][0],
+                                                 torch.cuda.current_stream()))
+            plain = graph_ms(lambda: out[1][0].copy_(out[0][0]))
+            lib_dst = torch.empty(shape, device=devices[0])
+            lib = graph_ms(lambda: lib_dst.copy_(chunks[1]))
+    gather = events_ms(streams, lambda: rg.ring_all_gather(chunks, out, streams))
+    plain_gather = events_ms([cur], lambda: rg.ring_all_gather_plain(chunks, out))
+    launches = n * n  # n seeds and n (n - 1) hops
+    b_ms, b_by = ring_bound(4 * int(np.prod(shape)), cross)
+    log(f"ring {label} n={n}: gather and permute bitwise equal to plain on {RING_SHAPES}, "
+        f"{CHECKS} inputs each; one hop {hop:.5f} ms device (plain copy_ {plain:.5f} ms, "
+        f"Tensor.copy_ {lib:.5f} ms, bound {b_ms:.7f} ms by {b_by}); one gather "
+        f"{launches} launches, {gather:.5f} ms eager over {n} streams "
+        f"(plain {plain_gather:.5f} ms eager) [{card}]")
+    return dict(n=n, max_abs_err=err, ms=hop, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, gather_ms=gather, plain_gather_ms=plain_gather,
+                launches_per_gather=launches)
+
+
+def run_ring(dev, card: str) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    with Phase("8 ring"):
+        results = {n: check_ring([dev] * n, rng, card, "logical") for n in RING_SHARDS}
+        count = torch.cuda.device_count()
+        if count >= 2:
+            cards = [torch.device("cuda", i) for i in range(min(count, 4))]
+            native = {f"{a.index}->{b.index}": torch.cuda.can_device_access_peer(a.index, b.index)
+                      for a in cards for b in cards if a != b}
+            log(f"ring across {len(cards)} cards: peer access native {json.dumps(native)}")
+            results["cards"] = check_ring(cards, rng, card, "cards")
+        else:
+            log("ring across cards: did not run, 1 card visible")
+    return results
+
+
+# -- phases 9-10: the sharded tier ---------------------------------------------
+
+
+def busy_ms(prof) -> dict:
+    """Per card, the union of the device's busy intervals in a profile
+    (kernels and copies on every stream; overlapping intervals count once)."""
+    from torch.autograd import DeviceType
+
+    spans = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            spans.setdefault(ev.device_index, []).append((ev.time_range.start, ev.time_range.end))
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    out = {}
+    for index, card_spans in sorted(spans.items()):
+        card_spans.sort()
+        total, (cur_s, cur_e) = 0.0, card_spans[0]
+        for s0, e0 in card_spans[1:]:
+            if s0 > cur_e:
+                total += cur_e - cur_s
+                cur_s, cur_e = s0, e0
+            else:
+                cur_e = max(cur_e, e0)
+        out[index] = (total + cur_e - cur_s) / 1e3
+    return out
+
+
+def expect(verifier, sets, want, what: str) -> None:
+    """Verify ``sets``; fail unless the verdict is ``want``."""
+    t0 = time.perf_counter()
+    got = verifier.verify_signature_sets(sets)
+    log(f"sharded slice: {what} -> {got} ({time.perf_counter() - t0:.1f} s)")
+    if got is not want:
+        raise AssertionError(f"sharded: {what} gave {got}, expected {want}")
+
+
+def run_sharded(dev, card: str, sets):
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import fused_core, fused_verify
+    from lodestar_tpu_torch.ops.ring_gather import ring_all_gather
+    from lodestar_tpu_torch.ops.sharded_verify import Mesh, miller_product_sharded
+
+    fused = [name for name in fused_core.KERNELS if name not in TOWER] + ["ring_hop"]
+    logical = [dev, dev]
+    with Phase("9 sharded slice"):
+        verifier = TorchBlsVerifier(devices=logical, sharded=True,
+                                    sharded_min_batch=SHARDED_BUCKET,
+                                    rng=np.random.default_rng(SEED + 3))
+        fused_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        ok = verifier.verify_signature_sets(sets)
+        first_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+        log(f"sharded slice: valid batch of {len(sets)} over {verifier.mesh_devices} logical "
+            f"shards -> {ok} (first run {first_s:.3f} s, sharded batches "
+            f"{verifier.sharded_batches}); launches per batch {json.dumps(launches)}")
+        if ok is not True or verifier.sharded_batches != 1:
+            raise AssertionError("sharded: a valid batch of 256 did not verify on the mesh")
+        idle = [name for name in fused if launches[name] == 0]
+        if idle:
+            raise AssertionError(f"sharded: kernels never launched on the path: {idle}")
+
+        bad = list(sets)
+        bad[5] = dataclasses.replace(bad[5], signature=sets[6].signature)
+        expect(verifier, bad, False, "one corrupted signature")
+        bad = list(sets)
+        bad[130] = dataclasses.replace(bad[130], signature=non_subgroup_signature())
+        expect(verifier, bad, False, "a signature outside G2 in shard 1")
+        four = TorchBlsVerifier(devices=[dev] * 4, sharded_min_batch=SHARDED_BUCKET,
+                                rng=np.random.default_rng(SEED + 4))
+        expect(four, sets[:150], True,
+               "150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
+        if four.sharded_batches != 1:
+            raise AssertionError("sharded: the 4-shard batch did not ride the mesh")
+        ring = TorchBlsVerifier(devices=logical, sharded_min_batch=SHARDED_BUCKET,
+                                sharded_combine="ring", rng=np.random.default_rng(SEED + 5))
+        expect(ring, sets, True, "ring combine, valid batch")
+        xla = TorchBlsVerifier(devices=logical, fused=False, sharded_min_batch=16,
+                               rng=np.random.default_rng(SEED + 6))
+        fused_core.reset_launch_counts()
+        expect(xla, sets[:16], True, "XLA-graph flavour, bucket 16, valid")
+        xla_launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+        log(f"sharded slice: XLA-graph flavour launches per batch {json.dumps(xla_launches)}")
+        idle = [name for name in TOWER + ("ring_hop",) if xla_launches[name] == 0]
+        if idle:
+            raise AssertionError(f"sharded XLA-graph: kernels never launched on the path: {idle}")
+        bad = list(sets[:16])
+        bad[3] = dataclasses.replace(bad[3], signature=sets[4].signature)
+        expect(xla, bad, False, "XLA-graph flavour, bucket 16, corrupted")
+        if xla.sharded_batches != 2:
+            raise AssertionError("sharded: the XLA-graph batches did not ride the mesh")
+
+        # the gathered partials on every shard, and the card against the CPU
+        t0 = time.perf_counter()
+        small = fused_verify.example_inputs(8)
+        mesh = Mesh(logical)
+        parts = mesh.map(lambda s, sl: fused_verify.miller_product_parts(
+            *fused_verify.from_packed(sl, mesh.devices[s]))[0].a.contiguous(), mesh.split(small))
+        stacks = ring_all_gather(parts, streams=mesh.streams)
+        sync_all()
+        same_reps = all(torch.equal(st, torch.stack(parts)) for st in stacks)
+        f_gpu, ok_gpu = miller_product_sharded(logical, fused=True)(*small)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            f_cpu, ok_cpu = miller_product_sharded(["cpu"] * 2, fused=True)(*small)
+        finally:
+            torch.set_num_threads(threads)
+        same = torch.equal(fused_core.f_canon(fused_core.lv(f_gpu)).cpu(),
+                           fused_core.f_canon(fused_core.lv(f_cpu)))
+        log(f"sharded slice: bucket-8 Miller partials all-gathered, every shard's stack "
+            f"bitwise equal {same_reps}; the sharded product, card vs CPU plain: canonical f "
+            f"equal {same}, ok {bool(ok_gpu)} / {bool(ok_cpu)} ({time.perf_counter() - t0:.1f} s)")
+        if not (same and same_reps and bool(ok_gpu) and bool(ok_cpu)):
+            raise AssertionError("sharded: the card's Miller product differs from the CPU run")
+
+        count = torch.cuda.device_count()
+        if count >= 2:
+            cards = [torch.device("cuda", i) for i in range(2)]
+            two = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 7))
+            expect(two, sets, True, "valid batch on cuda:0 and cuda:1")
+            bad = list(sets)
+            bad[200] = dataclasses.replace(bad[200], signature=sets[201].signature)
+            expect(two, bad, False, "corrupted batch on cuda:0 and cuda:1")
+        else:
+            log("sharded slice: the cross-card batches did not run, 1 card visible")
+    return verifier, launches, xla_launches
+
+
+def profile_sharded(verifier, packed, dispatch_s: float, card: str, path: str) -> float:
+    """One dispatch under torch.profiler (device activity): each card's
+    busy time is the union of its intervals, as the shards' streams
+    overlap.  Returns the mean over the cards of the idle share of the
+    best unprofiled dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_all()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ok = bool(verifier.dispatch(packed))
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        raise AssertionError(f"{path}: the profiled batch did not verify")
+    busy = busy_ms(prof)
+    idle = {i: 1.0 - b / (dispatch_s * 1e3) for i, b in busy.items()}
+    log(f"{path} profile: " + json.dumps({
+        "card": card, "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": {i: 1.0 - b / wall_ms for i, b in busy.items()},
+        "unprofiled_dispatch_ms": dispatch_s * 1e3,
+        "device_idle_share_unprofiled": idle}))
+    return sum(idle.values()) / len(idle)
+
+
+def time_single_card(dev, fresh, warm, card: str) -> float:
+    """The same fresh batches of 256 through one card as two chunks of
+    128, packed and dispatched one after the other, both verdicts read at
+    the end (the public keys cached first); returns the best sets/s."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    single = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 8))
+    for half in (warm[:BUCKET], warm[BUCKET:]):
+        single.pack(half)
+    walls = []
+    for batch in fresh:
+        sync_all()
+        t0 = time.perf_counter()
+        verdicts = [single.dispatch(single.pack(half)) for half in (batch[:BUCKET], batch[BUCKET:])]
+        ok = all(bool(v) for v in verdicts)
+        sync_all()
+        walls.append(time.perf_counter() - t0)
+        if not ok:
+            raise AssertionError("single card: a timed batch did not verify")
+    rate = len(fresh[0]) / min(walls)
+    log(f"single-card times: {len(fresh[0])} fresh sets as 2 x {BUCKET}, best of {len(walls)}: "
+        f"{min(walls)} s = {rate} sets/s; all walls {walls} [{card}]")
+    return rate
+
+
+def run_sharded_times(dev, card: str, verifier, pool, keys, sets) -> dict:
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    out = {}
+    with Phase("10 sharded times"):
+        fresh = [make_sets(pool, keys, b"sharded timed %d" % r) for r in range(4)]
+        walls = lambda: f"shard enqueue walls {verifier.shard_enqueue_walls} s"  # noqa: E731
+        rate, dispatch_s = time_batches(verifier, fresh[:3], "sharded", card, after=walls)
+        idle = profile_sharded(verifier, verifier.pack(fresh[3]), dispatch_s, card, "sharded")
+        single = time_single_card(dev, fresh[:3], sets, card)
+        out["logical2"] = dict(rate=rate, idle=idle, single=single)
+        log(f"sharded times: 2 logical shards on one card {rate} sets/s, one card as 2 x "
+            f"{BUCKET} {single} sets/s, ratio {rate / single} [{card}]")
+        count = torch.cuda.device_count()
+        for k in (2, 4):
+            if count < k:
+                log(f"sharded times: {k} cards did not run, {count} visible")
+                continue
+            cards = [torch.device("cuda", i) for i in range(k)]
+            v = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 9 + k))
+            v.pack(sets)  # the public keys cached, as on a node
+            r_k, d_k = time_batches(v, fresh[:3], f"sharded {k} cards", card,
+                                    after=lambda: f"shard enqueue walls {v.shard_enqueue_walls} s")
+            idle_k = profile_sharded(v, v.pack(fresh[3]), d_k, card, f"sharded {k} cards")
+            eff = r_k / (k * single)
+            log(f"sharded times: {k} cards {r_k} sets/s, scaling efficiency {eff} "
+                f"(over {k} x the one-card rate) [{card}]")
+            out[f"cards{k}"] = dict(rate=r_k, idle=idle_k, efficiency=eff)
+    return out
+
+
+
+def main(argv) -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 2
+    sharded_only = argv == ["--sharded-only"]
+    if argv and not sharded_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     from lodestar_tpu_torch.ops import fused_ladder, tower_kernels  # noqa: F401 - registers them
+    from lodestar_tpu_torch.ops import ring_gather
     from lodestar_tpu_torch.ops.fused_core import KERNELS
     from lodestar_tpu_torch.ops.kernels import _build
 
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; {torch.cuda.device_count()} card(s) visible")
     with Phase("1 build"):
         t0 = time.perf_counter()
         _build.load()
         log(f"build: nvcc sm_90a library {_build.library_path()} in "
             f"{time.perf_counter() - t0:.1f} s")
 
-    with Phase("2 kernels"):
-        results = check_kernels(dev, card)
-    t0 = time.perf_counter()
-    keys = make_keys(BUCKET)
-    sets = make_sets(keys, b"slice")
-    log(f"slice: built {BUCKET} signature sets on the host in {time.perf_counter() - t0:.1f} s")
-    fused_launches, fused_rate, fused_idle = run_fused(dev, card, keys, sets)
-    xla_launches, xla_rate, xla_idle = run_xla(dev, card, keys, sets)
-    log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} of the "
-        f"dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the dispatch [{card}]")
+    keys = make_keys(SHARDED_BUCKET)
+    procs = min(8, os.cpu_count() or 1)
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        if not sharded_only:
+            with Phase("2 kernels"):
+                results = check_kernels(dev, card)
+            t0 = time.perf_counter()
+            sets = make_sets(pool, keys[:BUCKET], b"slice")
+            log(f"slice: built {BUCKET} signature sets in {procs} host processes in "
+                f"{time.perf_counter() - t0:.1f} s")
+            fused_launches, fused_rate, fused_idle = run_fused(dev, card, pool, keys[:BUCKET], sets)
+            xla_launches, xla_rate, xla_idle = run_xla(dev, card, pool, keys[:BUCKET], sets)
+            log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} "
+                f"of the dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the "
+                f"dispatch [{card}]")
+
+        ring = run_ring(dev, card)
+        t0 = time.perf_counter()
+        sets256 = make_sets(pool, keys, b"sharded slice")
+        log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes in "
+            f"{time.perf_counter() - t0:.1f} s")
+        verifier, sharded_launches, sharded_xla_launches = run_sharded(dev, card, sets256)
+        times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
+    log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at bucket "
+        f"{SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as 2 x {BUCKET} "
+        f"{times['logical2']['single']} sets/s; cross-card "
+        f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
+    if sharded_only:
+        print(card)
+        print(json.dumps({"ok": True, "phases": "1, 8-10", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     line = []
     for name, k in KERNELS.items():
@@ -522,8 +915,30 @@ def main() -> int:
             "library_ms": None,
             "rows": r["rows"],
             "issue_ms": r["issue_ms"],
-            "launches_by_path": {"fused": fused_launches[name], "xla": xla_launches[name]},
+            "launches_by_path": {"fused": fused_launches[name], "xla": xla_launches[name],
+                                 "sharded": sharded_launches[name],
+                                 "sharded_xla": sharded_xla_launches[name]},
         })
+    hop = ring[2]
+    line.append({
+        "name": "ring_hop",
+        "route": "cuda",
+        "source": "lodestar_tpu_torch/ops/kernels/ring_kernels.cu",
+        "replaces": ring_gather.RING_HOP.replaces,
+        "launches": sharded_launches["ring_hop"],
+        "max_abs_err": max(r["max_abs_err"] for r in ring.values()),
+        "ms": hop["ms"],
+        "plain_ms": hop["plain_ms"],
+        "bound_ms": hop["bound_ms"],
+        "bound_by": hop["bound_by"],
+        "library_ms": hop["library_ms"],
+        "chunk_bytes": 4 * int(np.prod(RING_SHAPES[0])),
+        "gather_ms": {str(k): v["gather_ms"] for k, v in ring.items()},
+        "launches_by_path": {"fused": fused_launches["ring_hop"],
+                             "xla": xla_launches["ring_hop"],
+                             "sharded": sharded_launches["ring_hop"],
+                             "sharded_xla": sharded_xla_launches["ring_hop"]},
+    })
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -533,4 +948,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,11 +12,16 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  Raises when a CUDA device is asked for and none exists."""
+    for the CPU.  A CUDA device comes back with its index (``"cuda"`` is
+    the current card of the calling thread, so that ``"cuda"`` and
+    ``"cuda:0"`` name one device).  Raises when a CUDA device is asked for
+    and none exists."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "lodestar_tpu_torch: no CUDA device available; pass device='cpu' "
             "to run the plain PyTorch versions"
         )
-    return dev
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())

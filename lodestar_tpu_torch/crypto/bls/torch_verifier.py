@@ -1,4 +1,4 @@
-"""TorchBlsVerifier: batched BLS signature-set verification on one CUDA card.
+"""TorchBlsVerifier: batched BLS signature-set verification on CUDA cards.
 
 The port's verifier boundary (``verify_signature_sets(sets) -> bool``): the
 host packs a batch into padded digit arrays (``pack``), and the device runs
@@ -10,8 +10,13 @@ one of two programs, both with the final exponentiation on the card:
   (``ops/batch_verify.verify_signature_sets_kernel``), which the JAX
   package runs on every backend but a TPU.
 
-The choice is the caller's.  A failed launch raises; there is no other
-path or tier to fall back to.
+With ``devices=[...]`` (a card may repeat: logical shards) the verifier
+has two tiers, as the JAX verifier's pool does: a batch whose bucket is at
+least ``sharded_min_batch`` and divisible by the shard count rides the
+sharded tier (``ops/sharded_verify``, one batch split over every shard);
+any other batch runs whole on one card, round-robin over the distinct
+cards.  The choices are the caller's.  A failed launch raises; there is no
+other path or tier to fall back to.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ...ops import limbs as fl
 from ...ops.batch_verify import verify_signature_sets_kernel
 from ...ops.fused_verify import from_packed, verify_signature_sets_fused
 from ...ops.htc import hash_to_field_limbs
+from ...ops.sharded_verify import verify_signature_sets_sharded
 from .curve import g2_from_bytes, to_affine_batch
 from .verifier import PointCache, SignatureSet, SingleSignatureSet, get_aggregated_pubkey
 
@@ -37,22 +43,50 @@ BUCKETS = (4, 16, 64, 128, 256)
 
 class TorchBlsVerifier:
     """Verifies signature sets on ``device`` (the card unless the caller
-    asks for ``"cpu"``, which runs the kernels' plain versions).
+    asks for ``"cpu"``, which runs the kernels' plain versions), or on the
+    shards of ``devices``.
 
     ``fused``: the fused program (True) or the XLA-graph program (False).
     ``rng``: a ``numpy.random.Generator`` for the RLC coefficients, for
-    reproducible runs; None (the default) draws them from ``secrets``."""
+    reproducible runs; None (the default) draws them from ``secrets``.
+    ``devices``: the shards of the sharded tier, in mesh order (None: the
+    single ``device``).  ``sharded``: the tier on or off (None: on when
+    ``devices`` has two or more entries).  ``sharded_min_batch``: the
+    smallest bucket the tier takes (None: the largest bucket).
+    ``sharded_combine``: ``"all_gather"`` or ``"ring"``."""
 
     def __init__(self, device="cuda", rng: Optional[np.random.Generator] = None,
-                 fused: bool = True):
-        self.device = resolve_device(device)
+                 fused: bool = True, devices: Optional[Sequence] = None,
+                 sharded: Optional[bool] = None, sharded_min_batch: Optional[int] = None,
+                 sharded_combine: str = "all_gather"):
         self.point_cache = PointCache()
         self.rng = rng
         self.fused = fused
+        if devices is None:
+            self.devices = [resolve_device(device)]
+        elif not devices:
+            raise ValueError("devices: at least one device")
+        else:
+            self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
+        self.sharded = len(self.devices) >= 2 if sharded is None else bool(sharded)
+        self.sharded_min_batch = BUCKETS[-1] if sharded_min_batch is None else sharded_min_batch
+        self._mesh_program = (
+            verify_signature_sets_sharded(self.devices, fused, sharded_combine)
+            if self.sharded else None
+        )
+        #: the shard count of the sharded tier (0 when it is off)
+        self.mesh_devices = len(self.devices) if self.sharded else 0
+        #: batches the sharded tier verified
+        self.sharded_batches = 0
+        # the per-card tier: the distinct cards of ``devices``, in order
+        self._cards = list(dict.fromkeys(self.devices))
+        self._next_card = 0
 
     def verify_signature_sets(self, sets: Sequence[SignatureSet]) -> bool:
         """True iff every set verifies.  Batches above the largest bucket
-        are verified in chunks of that size."""
+        are verified in chunks of that size; every chunk is enqueued before
+        any verdict is read."""
         if not sets:
             raise ValueError("verify_signature_sets: empty batch of signature sets")
         largest = BUCKETS[-1]
@@ -65,11 +99,29 @@ class TorchBlsVerifier:
             verdicts.append(self.dispatch(packed))
         return all(bool(v) for v in verdicts)
 
+    def sharded_eligible(self, bucket: int) -> bool:
+        """A bucket rides the sharded tier: the tier is on, the bucket is at
+        least ``sharded_min_batch`` and splits evenly over the shards."""
+        return (self.sharded and bucket >= self.sharded_min_batch
+                and bucket % len(self.devices) == 0)
+
+    @property
+    def shard_enqueue_walls(self) -> List[float]:
+        """Host seconds each shard took to enqueue its slice of the last
+        sharded batch (empty when the tier is off or has not run)."""
+        return list(self._mesh_program.mesh.enqueue_walls) if self._mesh_program else []
+
     def dispatch(self, packed) -> torch.Tensor:
-        """Enqueue one packed batch on the device; returns the verdict as a
-        bool scalar tensor there (reading it is the only synchronisation)."""
+        """Enqueue one packed batch; returns the verdict as a bool scalar
+        tensor on the card that holds it (reading it is the only
+        synchronisation)."""
+        if self.sharded_eligible(packed[0].shape[0]):
+            self.sharded_batches += 1
+            return self._mesh_program(*packed)
+        dev = self._cards[self._next_card % len(self._cards)]
+        self._next_card += 1
         program = verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
-        return program(*from_packed(packed, self.device))
+        return program(*from_packed(packed, dev))
 
     def _coefficients(self, b: int) -> np.ndarray:
         """b fresh odd 64-bit RLC coefficients."""

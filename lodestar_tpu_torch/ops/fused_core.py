@@ -24,6 +24,7 @@ use no matmul at all.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -306,11 +307,34 @@ def _canon_plain(c, x):
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
-#: every kernel of the port, by name
+#: every row kernel of the port, by name
 KERNELS: Dict[str, "Kernel"] = {}
+#: every kernel wrapper that counts its launches, by name: the row kernels
+#: and the ring hop (``ring_gather.RING_HOP``)
+COUNTED: Dict[str, "LaunchCounter"] = {}
 
 
-class Kernel:
+class LaunchCounter:
+    """A kernel wrapper's count of launches, exact also when several host
+    threads launch (a caller may drive verifiers from threads)."""
+
+    def __init__(self, name: str, replaces: str):
+        self.name = name
+        self.replaces = replaces
+        self.launches = 0
+        self._lock = threading.Lock()
+        COUNTED[name] = self
+
+    def count_launch(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+
+
+class Kernel(LaunchCounter):
     """One hand-written CUDA kernel and its plain PyTorch version.
 
     ``kernel(*rows)`` takes float32 tensors shaped (N, *tail), all on one
@@ -323,14 +347,12 @@ class Kernel:
 
     def __init__(self, name: str, replaces: str, n_in: int, n_out: int,
                  tail: Tuple[int, ...], plain: Callable, loose_in: Optional[int] = None):
-        self.name = name
-        self.replaces = replaces
+        super().__init__(name, replaces)
         self.n_in = n_in
         self.n_out = n_out
         self.tail = tail
         self._plain = plain
         self.loose_in = n_in if loose_in is None else loose_in
-        self.launches = 0
         KERNELS[name] = self
 
     def plain(self, *rows: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -379,7 +401,7 @@ class Kernel:
             rc = getattr(lib, f"launch_{self.name}")(ins_arr, outs_arr, n, table.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"kernel {self.name} launch failed: cudaError {rc}")
-        self.launches += 1
+        self.count_launch()
         return outs
 
 
@@ -397,8 +419,8 @@ K_CANON = Kernel("canon", f"{_SRC}:504", 1, 1, _F, _canon_plain)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    for k in COUNTED.values():
+        k.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (nvcc into a shared library with
 a plain C interface, loaded with ctypes).
 
-``fused_kernels.cu`` (the fused path's ten kernels) and ``tower_kernels.cu``
-(the XLA-graph path's four tower products) are compiled once per kernel
-(``-DLF_KERNEL_<name>``), all fourteen nvcc processes started together, and
+``fused_kernels.cu`` (the fused path's ten kernels), ``tower_kernels.cu``
+(the XLA-graph path's four tower products) and ``ring_kernels.cu`` (the
+sharded tier's ring hop) are compiled once per kernel
+(``-DLF_KERNEL_<name>``), all fifteen nvcc processes started together, and
 the objects are linked into one library.  It is built at first use into ``build/lodestar_tpu_torch/``
 under the repository root, named by a hash of the sources and the flags,
 so an edited source rebuilds and an unchanged one loads at once.  Nothing
@@ -28,7 +29,7 @@ from typing import Dict, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "lodestar_tpu_torch")
-SOURCES = ("field.cuh", "fused_kernels.cu", "tower.cuh", "tower_kernels.cu")
+SOURCES = ("field.cuh", "fused_kernels.cu", "tower.cuh", "tower_kernels.cu", "ring_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -38,7 +39,8 @@ _FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul",
 _TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
 #: every launcher, by the source file that holds its kernel
 LAUNCHERS = {**{name: "fused_kernels.cu" for name in _FUSED},
-             **{name: "tower_kernels.cu" for name in _TOWER}}
+             **{name: "tower_kernels.cu" for name in _TOWER},
+             "ring_hop": "ring_kernels.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
@@ -104,7 +106,8 @@ def build(extra: Tuple[str, ...] = ()) -> str:
 
 def load(extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every
-    launcher's argument types declared."""
+    launcher's argument types declared: the row kernels' (ins, outs, n,
+    constant table, stream), the ring hop's (src, dst, n, stream)."""
     global build_seconds
     with _lock:
         lib = _libs.get(extra)
@@ -112,11 +115,16 @@ def load(extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
             t0 = time.perf_counter()
             lib = ctypes.CDLL(build(extra))
             ptr_array = ctypes.POINTER(ctypes.c_void_p)
-            for name in LAUNCHERS:
+            for name in _FUSED + _TOWER:
                 fn = getattr(lib, f"launch_{name}")
                 fn.argtypes = [ptr_array, ptr_array, ctypes.c_int,
                                ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            lib.launch_ring_hop.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                            ctypes.c_longlong, ctypes.c_void_p]
+            lib.launch_ring_hop.restype = ctypes.c_int
+            lib.ring_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.ring_enable_peer.restype = ctypes.c_int
             build_seconds = time.perf_counter() - t0
             _libs[extra] = lib
     return lib

@@ -30,6 +30,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..crypto.bls.fields import P as P_INT
 
 LIMB_BITS = 8
@@ -113,12 +114,20 @@ def _exp_windows(e: int) -> np.ndarray:
 _TENSOR_CACHE: Dict[tuple, tuple] = {}
 
 
+def _const_key(arr: np.ndarray, device, dtype) -> tuple:
+    """The cache key of a constant: the array, the indexed device, the type."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = resolve_device(dev)
+    return (id(arr), dev, dtype)
+
+
 def const_tensor(arr: np.ndarray, device, dtype=torch.float32) -> torch.Tensor:
     """A numpy constant as a tensor on ``device``, made once per device.
     The cache holds the array itself too, so its id is never reused: pass
     long-lived module-level arrays only."""
-    dev = torch.device(device)
-    key = (id(arr), dev, dtype)
+    key = _const_key(arr, device, dtype)
+    dev = key[1]
     hit = _TENSOR_CACHE.get(key)
     if hit is None:
         hit = (arr, torch.as_tensor(np.ascontiguousarray(arr)).to(device=dev, dtype=dtype))

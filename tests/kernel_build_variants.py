@@ -14,9 +14,10 @@ shows which stage of the compiler the fault follows.
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 512 and 2,560 rows and three seeds,
-and the first differing row's digits; then, for the fq2sqr and
-tower_fq12_mul kernels, ptxas's register, stack and spill report.  Needs a
-CUDA card and nvcc.
+and the first differing row's digits (for the ring hop: the chunks, of
+the ring's two shapes, that differ from a copy); then, for the fq2sqr,
+tower_fq12_mul and ring_hop kernels, ptxas's register, stack and spill
+report.  Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -89,6 +90,25 @@ def check(lib, k, dev) -> dict:
     return {"rows_checked": checked, "rows_differ": differ, "first": first}
 
 
+def check_ring(lib, dev) -> dict:
+    """Chunks that the variant's ring hop copies wrong, over the ring's
+    shapes and three seeds (the plain version of a hop is a copy)."""
+    differ, checked = 0, 0
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in chip_smoke.RING_SHAPES:
+        for seed in SEEDS:
+            src = torch.from_numpy(
+                np.random.default_rng(seed).standard_normal(shape).astype(np.float32)).to(dev)
+            dst = torch.full_like(src, float("nan"))
+            rc = lib.launch_ring_hop(src.data_ptr(), dst.data_ptr(), src.numel(), stream)
+            if rc != 0:
+                raise RuntimeError(f"launch_ring_hop failed: cudaError {rc}")
+            torch.cuda.synchronize()
+            differ += int(not torch.equal(src, dst))
+            checked += 1
+    return {"chunks_checked": checked, "chunks_differ": differ}
+
+
 def ptxas_report(extra, name: str) -> list:
     """ptxas's resource lines for kernel ``name`` of a variant."""
     src = os.path.join(os.path.dirname(_build.__file__), _build.LAUNCHERS[name])
@@ -110,7 +130,9 @@ def main(names) -> int:
         for name, k in fc.KERNELS.items():
             print(json.dumps({"variant": variant, "kernel": name, **check(lib, k, dev)}),
                   flush=True)
-        for name in ("fq2sqr", "tower_fq12_mul"):
+        print(json.dumps({"variant": variant, "kernel": "ring_hop", **check_ring(lib, dev)}),
+              flush=True)
+        for name in ("fq2sqr", "tower_fq12_mul", "ring_hop"):
             print(json.dumps({"variant": variant, f"ptxas_{name}": ptxas_report(VARIANTS[variant], name)}),
                   flush=True)
     return 0

@@ -1,6 +1,6 @@
 """Golden vectors of the JAX package for the PyTorch port's tests.
 
-    JAX_PLATFORMS=cpu python tests/port_vectors/generate.py [fused] [tower] [xla]
+    JAX_PLATFORMS=cpu python tests/port_vectors/generate.py [fused] [tower] [xla] [sharded]
 
 With no argument it writes every file; each takes the JAX package on the
 CPU and inputs made with numpy from a fixed seed, and writes inputs and
@@ -15,7 +15,14 @@ outputs beside this file:
 - ``xla_path.npz`` (``xla``, a few minutes of XLA compiles): the ``limbs``
   ops in their default ``ladder`` mode, ``htc.hash_to_g2_device`` at 2
   messages, ``points.g2_subgroup_check`` on a member and a non-member, and
-  ``batch_verify``'s Miller product and verdicts at bucket 4.
+  ``batch_verify``'s Miller product and verdicts at bucket 4;
+- ``sharded.npz`` (``sharded``, on a CPU mesh of 4 virtual devices; the
+  entry verdicts are about half an hour of XLA compiles): ``lax.all_gather``
+  inside ``shard_map`` of seeded GT partials and verdict bits at 2 and 4
+  shards, ``fused_pairing.f12_product_tree`` over the gathered partials
+  (interpret mode), the ``sharded_verify`` combines at 4 shards, and the
+  verdicts of ``verify_signature_sets_sharded(fused=False)`` at bucket 8:
+  valid and corrupted over 2 shards, 5 live sets over 4 shards.
 
 The tests rebuild the inputs with the ``*_inputs`` functions below, check
 them against the stored ones, and hold the port to the stored outputs.
@@ -35,6 +42,7 @@ CORE_NPZ = os.path.join(HERE, "fused_core.npz")
 LADDER_NPZ = os.path.join(HERE, "fused_ladder.npz")
 TOWER_NPZ = os.path.join(HERE, "tower_kernels.npz")
 XLA_NPZ = os.path.join(HERE, "xla_path.npz")
+SHARDED_NPZ = os.path.join(HERE, "sharded.npz")
 SEED = 20261016
 ROWS = 8
 LOOSE_MAX = (1 << 22) - 1
@@ -164,6 +172,89 @@ def bucket4(ins: dict, corrupted: bool = False) -> tuple:
             ins["b4_bits"], ins["b4_mask"])
 
 
+SHARD_COUNTS = (2, 4)
+
+
+def sharded_inputs() -> dict:
+    """Per shard count n: seeded semi-strict GT partials (n, 6, 2, 50),
+    shard 0's first four Fq2 components the edges (zero, p, 2p, every
+    digit 256), and 0/1 verdict bits (n, 2); then the bucket-8 example batch
+    with lane 7 padding, its corrupted twin (one digit of signature 0
+    bumped) and the mask of 5 live sets."""
+    from lodestar_tpu_torch.ops import batch_verify
+
+    rng = np.random.default_rng(SEED + 4)
+    out = {}
+    for n in SHARD_COUNTS:
+        parts = rng.integers(0, 257, size=(n, 6, 2, 50)).astype(np.float32)
+        _edge_rows(parts[0], 256)  # Fq2 components 0-3 of shard 0: zero, p, 2p, all 256
+        out[f"parts{n}"] = parts
+        out[f"bits{n}"] = rng.integers(0, 2, size=(n, 2)).astype(np.float32)
+    pk_x, pk_y, sig_x, sig_y, msg_u, bits, mask = batch_verify.example_inputs(8)
+    mask = mask.copy()
+    mask[7] = False
+    for name, arr in zip(("pk_x", "pk_y", "sig_x", "sig_y", "msg_u", "bits", "mask"),
+                         (pk_x, pk_y, sig_x, sig_y, msg_u, bits, mask)):
+        out[f"b8_{name}"] = arr
+    bad = sig_x.copy()
+    bad[0, 0, 0] += 1
+    out["b8_bad_sig_x"] = bad
+    live5 = np.zeros(8, dtype=bool)
+    live5[:5] = True
+    out["b8_live5_mask"] = live5
+    return out
+
+
+def bucket8(ins: dict, case: str = "valid") -> tuple:
+    """The packed bucket-8 7-tuple of sharded_inputs: ``valid``,
+    ``corrupted`` or ``live5``."""
+    sig_x = ins["b8_bad_sig_x"] if case == "corrupted" else ins["b8_sig_x"]
+    mask = ins["b8_live5_mask"] if case == "live5" else ins["b8_mask"]
+    return (ins["b8_pk_x"], ins["b8_pk_y"], sig_x, ins["b8_sig_y"], ins["b8_msg_u"],
+            ins["b8_bits"], mask)
+
+
+def _write_sharded() -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import shard_map as sm
+    from jax.sharding import PartitionSpec as P
+
+    from lodestar_tpu.ops import fused_pairing
+    from lodestar_tpu.ops import sharded_verify as sv
+    from lodestar_tpu.ops.fused_core import LV
+
+    def mapped(mesh, body, n_in):
+        return jax.jit(sm.shard_map(body, mesh=mesh, in_specs=(P(sv.MESH_AXIS),) * n_in,
+                                    out_specs=P(sv.MESH_AXIS), check_rep=False))
+
+    ins = sharded_inputs()
+    outs = {}
+    for n in SHARD_COUNTS:
+        mesh = sv.make_mesh(n_devices=n)
+        gather = mapped(mesh, lambda x: jax.lax.all_gather(x[0], sv.MESH_AXIS)[None], 1)
+        # every shard's replica, stacked: (n, n, ...)
+        outs[f"gather_parts{n}"] = gather(jnp.asarray(ins[f"parts{n}"]))
+        outs[f"gather_bits{n}"] = gather(jnp.asarray(ins[f"bits{n}"]))
+        tree = fused_pairing.f12_product_tree(LV(jnp.asarray(ins[f"parts{n}"]), 256), True)
+        outs[f"f12_tree{n}"] = tree.a
+    mesh = sv.make_mesh(n_devices=4)
+    combines = {
+        "fq12_all_gather": lambda x: sv.fq12_combine_all_gather(x[0])[None],
+        "fq12_ring": lambda x: sv.fq12_combine_ring(x[0], 4)[None],
+        "f12_ring": lambda x: sv.f12_combine_ring_lv(LV(x[0], 256), 4, True).a[None],
+    }
+    for name, body in combines.items():
+        outs[f"combine_{name}4"] = mapped(mesh, body, 1)(jnp.asarray(ins["parts4"]))
+    print("sharded: gathers, trees and combines done; compiling the entries", flush=True)
+    for n, case in ((2, "valid"), (2, "corrupted"), (4, "live5")):
+        full = jax.jit(sv.verify_signature_sets_sharded(sv.make_mesh(n_devices=n), fused=False))
+        outs[f"verdict_{case}{n}"] = full(*map(jnp.asarray, bucket8(ins, case)))
+        print(f"sharded entry {case} over {n} shards -> {bool(outs[f'verdict_{case}{n}'])}",
+              flush=True)
+    np.savez_compressed(SHARDED_NPZ, **ins, **{k: np.asarray(v) for k, v in outs.items()})
+
+
 def _write_tower() -> None:
     import jax.numpy as jnp
 
@@ -241,11 +332,16 @@ def _write_fused() -> None:
     )
 
 
-WRITERS = {"fused": _write_fused, "tower": _write_tower, "xla": _write_xla}
+WRITERS = {"fused": _write_fused, "tower": _write_tower, "xla": _write_xla,
+           "sharded": _write_sharded}
 
 
 def main(names) -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    # the sharded vectors' mesh: 4 virtual CPU devices, set before JAX loads
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = f"{flags} --xla_force_host_platform_device_count=4".strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")

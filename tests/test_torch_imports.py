@@ -35,7 +35,8 @@ def _absolute_imports(path):
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 20
-    for module in ("limbs", "tower", "tower_kernels", "points", "htc", "pairing", "batch_verify"):
+    for module in ("limbs", "tower", "tower_kernels", "points", "htc", "pairing", "batch_verify",
+                   "ring_gather", "sharded_verify"):
         assert os.path.join(PORT, "ops", f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -55,6 +56,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.ops.fused_verify\n"
         "import lodestar_tpu_torch.ops.batch_verify\n"
         "import lodestar_tpu_torch.ops.tower_kernels\n"
+        "import lodestar_tpu_torch.ops.ring_gather\n"
+        "import lodestar_tpu_torch.ops.sharded_verify\n"
         "import lodestar_tpu_torch.ops.kernels._build\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
