@@ -7,17 +7,27 @@ Phases, each of which must pass (any failure exits non-zero); each prints
 its wall time on a line of its own:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions, and
-   the nvcc build of the fifteen kernels from this checkout's sources;
-2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, on seeded inputs at the shapes its path gives it (the fused
-   field kernels at 512 and 2,560 rows, the ladder kernels at 512 rows,
-   the tower kernels at 1 row and at the most rows the XLA-graph path
-   gives them at bucket 128), three inputs a shape — bitwise, tolerance
-   zero, since both are exact integer arithmetic.  Times are device
-   times: 20 calls captured in one CUDA graph, the replays timed by CUDA
-   events, so the host's cost of issuing a launch is outside the window
-   (it is printed beside them as ``issue_ms``, 20 eager calls between
-   events);
+   the nvcc build of the sixteen kernels from this checkout's sources;
+2. kernels: the kernel registry (``ops/library_fuse.kernel_entry_points``,
+   the path of the library kernel ``library_fq2_mul``, as the JAX
+   registry is its instance's) run once at its example shapes with every
+   launch counter set to 0 just before, each entry bitwise equal to its
+   plain version and every kernel launched; then each CUDA kernel against
+   its plain PyTorch version on the card, on seeded inputs at the shapes
+   its path gives it (the fused field kernels at 512 and 2,560 rows, the
+   ladder kernels at 512 rows, the tower kernels at 1 row and at the most
+   rows the XLA-graph path gives them at bucket 128, the library kernel at
+   4 rows and at the tower Fq2 product's 1,548), three inputs a shape —
+   bitwise, tolerance zero, since both are exact integer arithmetic.
+   Times are device times: 20 calls captured in one CUDA graph, the
+   replays timed by CUDA events, so the host's cost of issuing a launch
+   is outside the window (it is printed beside them as ``issue_ms``, 20
+   eager calls between events).
+
+Phases 3-10 measure the full-device mode (``host_final_exp=False``: the
+final exponentiation on the card), as before the split dispatch was
+ported; phases 11-12 the split default.
+
 3. fused slice: 128 real signature sets (interop keys, the port's own
    oracle) through ``TorchBlsVerifier.verify_signature_sets`` at bucket
    128 with every launch counter set to 0 just before: the valid batch
@@ -65,7 +75,29 @@ its wall time on a line of its own:
     (pack + dispatch, sets/s, each shard's enqueue wall), one profiled
     dispatch (the union of the device's busy intervals), the same sets
     through one card as two chunks of 128; with two or more cards, the
-    same across 2 (and 4) cards and the scaling efficiency.
+    same across 2 (and 4) cards and the scaling efficiency;
+11. split: ``TorchBlsVerifier()``, the split default (the device Miller
+    product, the host C final exponentiation), on the four batches of
+    phase 3 (True, False, False, True) with every launch counter set to 0
+    just before the valid one, each fused kernel launched; three fresh
+    batches of 128, each split into pack, device Miller product (enqueue
+    plus the sync on the event after the copies of ok and f to the host),
+    read of f's host copy and host final exponentiation, and sets/s beside
+    phase 4's; the XLA-graph split at bucket 16 (valid, corrupted; its
+    kernels but the Fq6 product, which only the final exponentiation runs,
+    launched); the sharded split at bucket 256 over 2 logical shards
+    (valid, corrupted, a signature outside G2 in shard 1, one fresh timed
+    batch) and over 4 (150 live sets: shard 3 all padding); with two or
+    more cards, the sharded split across cuda:0 and cuda:1;
+12. pool: ``BlsBatchPool(TorchBlsVerifier(), pipeline_depth=2,
+    flush_threshold=128, max_buffer_wait=0.02)`` given 512 fresh sets at
+    once as 256 gossip jobs of 1-3 sets and one 64-set job at
+    block-proposal priority, every launch counter set to 0 just before:
+    every verdict True, each fused kernel launched, sets/s, batches
+    flushed, the in-flight peak and the share of the wall in which two
+    batches' host spans (pack start to verdict read) were open; then 4 jobs, one holding a corrupted set, after
+    which exactly that job is False; then a job past its deadline is
+    dropped with ``VerificationDroppedError``.
 
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
@@ -74,14 +106,16 @@ The last lines: the paths side by side, the ``kernels`` JSON object, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --sharded-only
+    python3 chip_smoke.py --split-only
 
-runs phases 1 and 8-10 alone (on a machine with several cards, for the
-cross-card legs) and ends with the card line and ``{"ok": true, ...}``
-without the ``kernels`` object.
+run phases 1 and 8-10 alone (on a machine with several cards, for the
+cross-card legs), or phases 1, 2, 11 and 12, and end with the card line
+and ``{"ok": true, ...}`` without the ``kernels`` object.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import multiprocessing
@@ -173,6 +207,9 @@ MACS_PER_ROW = {
     "tower_fq2_sqr": 2 * _MUL + 3 * _SMALL,
     "tower_fq6_mul": _TF6MUL,
     "tower_fq12_mul": _TF12MUL,
+    # the JAX limbs algorithm: three products, two strict sums (carry at
+    # bound 24, 52 columns) and two subtractions (53 columns) folded
+    "library_fq2_mul": 3 * _MUL + 2 * _fold(50, 24) + 2 * _fold(51, 24),
 }
 # rows each kernel is held and timed at: the shapes its path gives it at
 # bucket 128 (the last is the one the kernels line reports).  The XLA-graph
@@ -185,9 +222,20 @@ SHAPES = {
     "tower_fq2_sqr": (1, 2 * BUCKET),
     "tower_fq6_mul": (1,),
     "tower_fq12_mul": (1, BUCKET + 1),
+    # the registry's B = 4, and the tower Fq2 product's largest shape
+    "library_fq2_mul": (4, 12 * (BUCKET + 1)),
 }
 FUSED_SHAPES = (512, 2560)
+FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
+         "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
+LIBRARY = ("library_fq2_mul",)
+# the split XLA-graph path's kernels: the Fq6 product runs only in the
+# final exponentiation, which the split dispatch leaves to the host
+XLA_SPLIT = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq12_mul")
+SPLIT_XLA_BUCKET = 16  # the XLA-graph split's verdicts, at a bucket that keeps the run short
+POOL_SETS = 512  # gossip sets phase 12 submits at once
+POOL_BLOCK_SETS = 64  # the block-proposal job's sets
 
 
 def bound(kernel, rows: int):
@@ -259,8 +307,44 @@ def kernel_inputs(kernel, rows: int, rng: np.random.Generator, dev):
     return out
 
 
+def run_registry(dev, card: str) -> dict:
+    """The library kernel's path: every entry of the kernel registry run
+    once on the card at its example shapes, every launch counter 0 just
+    before; returns each counter's count just after, and fails if a
+    kernel was launched no time or an entry differs from its plain
+    version."""
+    from lodestar_tpu_torch.ops import fused_core
+    from lodestar_tpu_torch.ops.library_fuse import kernel_entry_points
+
+    rng = np.random.default_rng(SEED + 20)
+    entries = kernel_entry_points()
+    inputs = {}
+    for name, e in entries.items():
+        k = fused_core.KERNELS.get(name)
+        if k is not None:
+            inputs[name] = kernel_inputs(k, e["args"][0][0], rng, dev)
+        else:
+            inputs[name] = [torch.from_numpy(rng.standard_normal(a).astype(np.float32)).to(dev)
+                            for a in e["args"]]
+    sync_all()
+    fused_core.reset_launch_counts()
+    outs = {name: e["fn"](*inputs[name]) for name, e in entries.items()}
+    sync_all()
+    launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+    for name, e in entries.items():
+        want = e["plain"](*inputs[name])
+        if not all(torch.equal(g, w) for g, w in zip(outs[name], want)):
+            raise AssertionError(f"registry: entry {name} differs from its plain version")
+    idle = [name for name in entries if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"registry: kernels never launched: {idle}")
+    log(f"registry: {len(entries)} entries at their example shapes, each bitwise equal to "
+        f"its plain version; launches {json.dumps(launches)} [{card}]")
+    return launches
+
+
 def check_kernels(dev, card: str):
-    from lodestar_tpu_torch.ops import fused_ladder, tower_kernels  # noqa: F401 - registers them
+    from lodestar_tpu_torch.ops import fused_ladder, library_fuse, tower_kernels  # noqa: F401
     from lodestar_tpu_torch.ops.fused_core import KERNELS
 
     rng = np.random.default_rng(SEED)
@@ -392,7 +476,7 @@ def time_batches(verifier, fresh, path: str, card: str, after=None):
         t0 = time.perf_counter()
         packed = verifier.pack(batch)
         t1 = time.perf_counter()
-        ok = bool(verifier.dispatch(packed))
+        ok = verifier.dispatch(packed).result()
         sync_all()
         t2 = time.perf_counter()
         log(f"{path} times: batch {r} pack: point cache {cache.hits - hits} hits, "
@@ -422,7 +506,7 @@ def profile_dispatch(packed, verifier, dispatch_s: float, card: str, kernels, pa
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        ok = bool(verifier.dispatch(packed))
+        ok = verifier.dispatch(packed).result()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not ok:
@@ -463,10 +547,10 @@ def run_fused(dev, card: str, pool, keys, sets):
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import fused_core, fused_verify
 
-    fused = [name for name in fused_core.KERNELS if name not in TOWER]
     with Phase("3 fused slice"):
-        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED))
-        launches = check_verdicts(verifier, sets, "fused", fused)
+        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED),
+                                    host_final_exp=False)
+        launches = check_verdicts(verifier, sets, "fused", FUSED)
 
         args = fused_verify.from_packed(fused_verify.example_inputs(BUCKET), dev)
         got = bool(fused_verify.verify_signature_sets_fused(*args))
@@ -489,7 +573,7 @@ def run_fused(dev, card: str, pool, keys, sets):
         fresh = [make_sets(pool, keys, b"timed %d" % r) for r in range(4)]
         rate, dispatch_s = time_batches(verifier, fresh[:3], "fused", card)
     with Phase("5 fused profile"):
-        idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, fused,
+        idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, FUSED,
                                 "fused", [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     return launches, rate, idle
 
@@ -504,7 +588,8 @@ def run_xla(dev, card: str, pool, keys, sets):
     from lodestar_tpu_torch.ops import batch_verify, limbs
 
     with Phase("6 XLA slice"):
-        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 1), fused=False)
+        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 1), fused=False,
+                                    host_final_exp=False)
         launches = check_verdicts(verifier, sets, "xla", TOWER)
 
         small = batch_verify.example_inputs(4)
@@ -668,12 +753,12 @@ def run_sharded(dev, card: str, sets):
     from lodestar_tpu_torch.ops.ring_gather import ring_all_gather
     from lodestar_tpu_torch.ops.sharded_verify import Mesh, miller_product_sharded
 
-    fused = [name for name in fused_core.KERNELS if name not in TOWER] + ["ring_hop"]
+    fused = FUSED + ("ring_hop",)
     logical = [dev, dev]
     with Phase("9 sharded slice"):
         verifier = TorchBlsVerifier(devices=logical, sharded=True,
                                     sharded_min_batch=SHARDED_BUCKET,
-                                    rng=np.random.default_rng(SEED + 3))
+                                    rng=np.random.default_rng(SEED + 3), host_final_exp=False)
         fused_core.reset_launch_counts()
         t0 = time.perf_counter()
         ok = verifier.verify_signature_sets(sets)
@@ -695,16 +780,17 @@ def run_sharded(dev, card: str, sets):
         bad[130] = dataclasses.replace(bad[130], signature=non_subgroup_signature())
         expect(verifier, bad, False, "a signature outside G2 in shard 1")
         four = TorchBlsVerifier(devices=[dev] * 4, sharded_min_batch=SHARDED_BUCKET,
-                                rng=np.random.default_rng(SEED + 4))
+                                rng=np.random.default_rng(SEED + 4), host_final_exp=False)
         expect(four, sets[:150], True,
                "150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
         if four.sharded_batches != 1:
             raise AssertionError("sharded: the 4-shard batch did not ride the mesh")
         ring = TorchBlsVerifier(devices=logical, sharded_min_batch=SHARDED_BUCKET,
-                                sharded_combine="ring", rng=np.random.default_rng(SEED + 5))
+                                sharded_combine="ring", rng=np.random.default_rng(SEED + 5),
+                                host_final_exp=False)
         expect(ring, sets, True, "ring combine, valid batch")
         xla = TorchBlsVerifier(devices=logical, fused=False, sharded_min_batch=16,
-                               rng=np.random.default_rng(SEED + 6))
+                               rng=np.random.default_rng(SEED + 6), host_final_exp=False)
         fused_core.reset_launch_counts()
         expect(xla, sets[:16], True, "XLA-graph flavour, bucket 16, valid")
         xla_launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
@@ -745,7 +831,8 @@ def run_sharded(dev, card: str, sets):
         count = torch.cuda.device_count()
         if count >= 2:
             cards = [torch.device("cuda", i) for i in range(2)]
-            two = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 7))
+            two = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 7),
+                                   host_final_exp=False)
             expect(two, sets, True, "valid batch on cuda:0 and cuda:1")
             bad = list(sets)
             bad[200] = dataclasses.replace(bad[200], signature=sets[201].signature)
@@ -765,7 +852,7 @@ def profile_sharded(verifier, packed, dispatch_s: float, card: str, path: str) -
     sync_all()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ok = bool(verifier.dispatch(packed))
+        ok = verifier.dispatch(packed).result()
         sync_all()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not ok:
@@ -786,7 +873,8 @@ def time_single_card(dev, fresh, warm, card: str) -> float:
     the end (the public keys cached first); returns the best sets/s."""
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
 
-    single = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 8))
+    single = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 8),
+                              host_final_exp=False)
     for half in (warm[:BUCKET], warm[BUCKET:]):
         single.pack(half)
     walls = []
@@ -794,7 +882,7 @@ def time_single_card(dev, fresh, warm, card: str) -> float:
         sync_all()
         t0 = time.perf_counter()
         verdicts = [single.dispatch(single.pack(half)) for half in (batch[:BUCKET], batch[BUCKET:])]
-        ok = all(bool(v) for v in verdicts)
+        ok = all([v.result() for v in verdicts])
         sync_all()
         walls.append(time.perf_counter() - t0)
         if not ok:
@@ -824,7 +912,8 @@ def run_sharded_times(dev, card: str, verifier, pool, keys, sets) -> dict:
                 log(f"sharded times: {k} cards did not run, {count} visible")
                 continue
             cards = [torch.device("cuda", i) for i in range(k)]
-            v = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 9 + k))
+            v = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 9 + k),
+                                 host_final_exp=False)
             v.pack(sets)  # the public keys cached, as on a node
             r_k, d_k = time_batches(v, fresh[:3], f"sharded {k} cards", card,
                                     after=lambda: f"shard enqueue walls {v.shard_enqueue_walls} s")
@@ -836,17 +925,217 @@ def run_sharded_times(dev, card: str, verifier, pool, keys, sets) -> dict:
     return out
 
 
+# -- phases 11-12: the split dispatch and the pool -----------------------------
+
+
+def time_split(verifier, fresh, card: str):
+    """Each fresh batch packed, its device Miller product enqueued, the
+    event after the copies of ok and f to the host waited on (the sync),
+    f's host copy read and finished by the host C final exponentiation,
+    on the host clock (the last three from the verifier's stage clocks);
+    returns (sets/s of the best batch, its stages)."""
+    rows = []
+    for r, batch in enumerate(fresh):
+        sync_all()
+        before = dict(verifier.stage_seconds)
+        t0 = time.perf_counter()
+        packed = verifier.pack(batch)
+        t1 = time.perf_counter()
+        pending = verifier.dispatch(packed)
+        t2 = time.perf_counter()
+        ok = pending.result()
+        t3 = time.perf_counter()
+        if ok is not True:
+            raise AssertionError(f"split: timed batch {r} did not verify")
+        st = {k: verifier.stage_seconds[k] - before[k] for k in ("sync", "readback", "final_exp")}
+        rows.append(dict(wall=t3 - t0, pack=t1 - t0, enqueue=t2 - t1, sync_ok=st["sync"],
+                         device_miller=t2 - t1 + st["sync"], readback=st["readback"],
+                         host_final_exp=st["final_exp"]))
+        log(f"split times: batch {r} " + json.dumps(rows[-1]))
+    best = min(rows, key=lambda x: x["wall"])
+    rate = len(fresh[0]) / best["wall"]
+    log(f"split times: batch of {len(fresh[0])} fresh signatures, best of {len(rows)}: "
+        f"{best['wall']} s = {rate} sets/s (pack {best['pack']} s, device Miller product "
+        f"{best['device_miller']} s = enqueue {best['enqueue']} s + sync on ok "
+        f"{best['sync_ok']} s, readback {best['readback']} s, host final exponentiation "
+        f"{best['host_final_exp']} s) [{card}]")
+    return rate, best
+
+
+def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import fused_core
+
+    out = {}
+    with Phase("11 split"):
+        verifier = TorchBlsVerifier()
+        if verifier.device != dev or not verifier.host_final_exp:
+            raise AssertionError(f"split: the default verifier is {verifier.device}, "
+                                 f"host_final_exp={verifier.host_final_exp}")
+        out["launches"] = check_verdicts(verifier, sets, "split", FUSED)
+        fresh = [make_sets(pool, keys[:BUCKET], b"split timed %d" % r) for r in range(3)]
+        out["rate"], out["stages"] = time_split(verifier, fresh, card)
+
+        xla = TorchBlsVerifier(fused=False, rng=np.random.default_rng(SEED + 30))
+        small = sets[:SPLIT_XLA_BUCKET]
+        fused_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = xla.verify_signature_sets(small)
+        launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+        log(f"split xla: valid batch of {len(small)} -> {got} ({time.perf_counter() - t0:.1f} s); "
+            f"launches per batch {json.dumps(launches)}")
+        idle = [name for name in XLA_SPLIT if launches[name] == 0]
+        if got is not True or idle:
+            raise AssertionError(f"split xla: verdict {got}, kernels never launched {idle}")
+        out["xla_launches"] = launches
+        bad = list(small)
+        bad[3] = dataclasses.replace(bad[3], signature=sets[4].signature)
+        got = xla.verify_signature_sets(bad)
+        log(f"split xla: one corrupted signature -> {got}")
+        if got is not False:
+            raise AssertionError("split xla: a corrupted batch verified")
+
+        mesh = TorchBlsVerifier(devices=[dev, dev], sharded_min_batch=SHARDED_BUCKET,
+                                rng=np.random.default_rng(SEED + 31))
+        fused_core.reset_launch_counts()
+        expect(mesh, sets256, True, "split, 2 logical shards, valid batch of 256")
+        launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+        idle = [name for name in FUSED + ("ring_hop",) if launches[name] == 0]
+        if idle or mesh.sharded_batches != 1:
+            raise AssertionError(f"split sharded: kernels never launched {idle}, "
+                                 f"sharded batches {mesh.sharded_batches}")
+        out["sharded_launches"] = launches
+        bad = list(sets256)
+        bad[200] = dataclasses.replace(bad[200], signature=sets256[201].signature)
+        expect(mesh, bad, False, "split, 2 logical shards, one corrupted signature")
+        outside = list(sets256)
+        outside[130] = dataclasses.replace(outside[130], signature=non_subgroup_signature())
+        finished = mesh.host_final_exps
+        expect(mesh, outside, False, "split, 2 logical shards, a signature outside G2 in shard 1")
+        if mesh.host_final_exps != finished:
+            raise AssertionError("split sharded: the host final exponentiation ran although "
+                                 "the combined ok bits were False")
+        four = TorchBlsVerifier(devices=[dev] * 4, sharded_min_batch=SHARDED_BUCKET,
+                                rng=np.random.default_rng(SEED + 33))
+        expect(four, sets256[:150], True,
+               "split, 150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
+        if mesh.sharded_batches != 3 or four.sharded_batches != 1:
+            raise AssertionError("split sharded: a batch of 256 did not ride the mesh")
+        timed = make_sets(pool, keys, b"split sharded timed")
+        mesh_rate, mesh_stages = time_split(mesh, [timed], card)
+        out["sharded_rate"], out["sharded_stages"] = mesh_rate, mesh_stages
+        log(f"split sharded: {mesh_rate} sets/s at bucket {SHARDED_BUCKET} over 2 logical "
+            f"shards, enqueue walls {mesh.shard_enqueue_walls} s [{card}]")
+        if torch.cuda.device_count() >= 2:
+            cards = [torch.device("cuda", i) for i in range(2)]
+            two = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 32))
+            expect(two, sets256, True, "split, valid batch on cuda:0 and cuda:1")
+            expect(two, bad, False, "split, corrupted batch on cuda:0 and cuda:1")
+        else:
+            log("split sharded: the cross-card batches did not run, 1 card visible")
+    return out
+
+
+def overlap_share(spans, k: int = 2) -> float:
+    """The share of the wall from the first span's start to the last's end
+    in which at least k spans were open."""
+    edges = sorted([(t0, 1) for t0, _ in spans] + [(t1, -1) for _, t1 in spans])
+    wall = edges[-1][0] - edges[0][0]
+    open_, covered, last = 0, 0.0, edges[0][0]
+    for t, d in edges:
+        if open_ >= k:
+            covered += t - last
+        open_ += d
+        last = t
+    return covered / wall if wall > 0 else 0.0
+
+
+async def _pool_rounds(pool, gossip, block, retry_jobs, late):
+    from lodestar_tpu_torch.crypto.bls.verifier import (
+        SignatureSetPriority,
+        VerificationDroppedError,
+    )
+
+    t0 = time.perf_counter()
+    results = await asyncio.gather(
+        *[pool.verify_signature_sets(job) for job in gossip],
+        pool.verify_signature_sets(block, priority=SignatureSetPriority.BLOCK_PROPOSAL))
+    wall = time.perf_counter() - t0
+    spans = list(pool.batch_spans)
+    t1 = time.perf_counter()
+    retried = await asyncio.gather(*[pool.verify_signature_sets(job) for job in retry_jobs])
+    retry_wall = time.perf_counter() - t1
+    try:
+        await pool.verify_signature_sets(late, deadline=time.monotonic() - 1.0)
+        dropped = None
+    except VerificationDroppedError as e:
+        dropped = e.reason
+    return results, wall, spans, retried, retry_wall, dropped
+
+
+def run_pool(dev, card: str, pool, keys) -> dict:
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import fused_core
+
+    with Phase("12 pool"):
+        verifier = TorchBlsVerifier()
+        fresh = (make_sets(pool, keys, b"pool 0") + make_sets(pool, keys, b"pool 1"))[:POOL_SETS]
+        block = make_sets(pool, keys[:POOL_BLOCK_SETS], b"pool block")
+        verifier.pack(fresh[:BUCKET])  # the public keys cached, as on a node
+        verifier.pack(fresh[BUCKET:2 * BUCKET])
+        gossip, i = [], 0
+        while i < len(fresh):  # jobs of 1, 2, 3, 2, 1, 2, 3, ... sets
+            size = (1, 2, 3, 2)[len(gossip) % 4]
+            gossip.append(fresh[i:i + size])
+            i += size
+        retry_sets = make_sets(pool, keys[:8], b"pool retry")
+        retry_sets[5] = dataclasses.replace(retry_sets[5], signature=retry_sets[6].signature)
+        retry_jobs = [retry_sets[j:j + 2] for j in range(0, 8, 2)]  # job 2 holds the bad set
+        bls = BlsBatchPool(verifier, pipeline_depth=2, flush_threshold=BUCKET,
+                           max_buffer_wait=0.02)
+        sync_all()
+        fused_core.reset_launch_counts()
+        results, wall, first, retried, retry_wall, dropped = asyncio.run(
+            _pool_rounds(bls, gossip, block, retry_jobs, fresh[:2]))
+        bls.close()
+        n_sets = len(fresh) + len(block)
+        launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+        share = overlap_share(first)
+        rate = n_sets / wall
+        log(f"pool: {len(gossip)} gossip jobs ({len(fresh)} sets) and one block-proposal job "
+            f"({len(block)} sets) -> all True {all(r is True for r in results)}; {rate} sets/s "
+            f"({wall} s), {len(first)} batches flushed, inflight peak {bls.inflight_peak}, "
+            f"two batches' host spans (pack start to verdict) open {share} of the wall; "
+            f"launches {json.dumps(launches)} [{card}]")
+        if not all(r is True for r in results) or len(results) != len(gossip) + 1:
+            raise AssertionError("pool: a valid job did not verify")
+        idle = [name for name in FUSED if launches[name] == 0]
+        if idle:
+            raise AssertionError(f"pool: kernels never launched on the path: {idle}")
+        log(f"pool: retry round, 4 jobs, job 2 holds a corrupted set -> {retried} "
+            f"({retry_wall} s, batch retries {bls.batch_retries})")
+        if retried != [True, True, False, True] or bls.batch_retries != 1:
+            raise AssertionError("pool: the retry round did not isolate the corrupted job")
+        log(f"pool: a job past its deadline -> dropped ({dropped}); dropped sets "
+            f"{dict((f'{r}/{ln}', n) for (r, ln), n in bls.dropped_sets.items())}")
+        if dropped != "deadline":
+            raise AssertionError("pool: an expired job was not dropped")
+    return dict(rate=rate, batches=len(first), inflight_peak=bls.inflight_peak,
+                overlap_share=share, launches=launches)
+
+
 
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 2
-    sharded_only = argv == ["--sharded-only"]
-    if argv and not sharded_only:
+    mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split"}.get(tuple(argv))
+    if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
-    from lodestar_tpu_torch.ops import fused_ladder, tower_kernels  # noqa: F401 - registers them
+    from lodestar_tpu_torch.ops import fused_ladder, library_fuse, tower_kernels  # noqa: F401
     from lodestar_tpu_torch.ops import ring_gather
     from lodestar_tpu_torch.ops.fused_core import KERNELS
     from lodestar_tpu_torch.ops.kernels import _build
@@ -864,49 +1153,72 @@ def main(argv) -> int:
     keys = make_keys(SHARDED_BUCKET)
     procs = min(8, os.cpu_count() or 1)
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
-        if not sharded_only:
+        if mode != "sharded":
             with Phase("2 kernels"):
+                registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
             t0 = time.perf_counter()
             sets = make_sets(pool, keys[:BUCKET], b"slice")
             log(f"slice: built {BUCKET} signature sets in {procs} host processes in "
                 f"{time.perf_counter() - t0:.1f} s")
+        if mode == "all":
             fused_launches, fused_rate, fused_idle = run_fused(dev, card, pool, keys[:BUCKET], sets)
             xla_launches, xla_rate, xla_idle = run_xla(dev, card, pool, keys[:BUCKET], sets)
             log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} "
                 f"of the dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the "
                 f"dispatch [{card}]")
-
-        ring = run_ring(dev, card)
+        if mode != "split":
+            ring = run_ring(dev, card)
         t0 = time.perf_counter()
         sets256 = make_sets(pool, keys, b"sharded slice")
         log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes in "
             f"{time.perf_counter() - t0:.1f} s")
-        verifier, sharded_launches, sharded_xla_launches = run_sharded(dev, card, sets256)
-        times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
-    log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at bucket "
-        f"{SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as 2 x {BUCKET} "
-        f"{times['logical2']['single']} sets/s; cross-card "
-        f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
+        if mode != "split":
+            verifier, sharded_launches, sharded_xla_launches = run_sharded(dev, card, sets256)
+            times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
+            log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
+                f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
+                f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
+                f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
+        if mode != "sharded":
+            split = run_split(dev, card, pool, keys, sets, sets256)
+            pooled = run_pool(dev, card, pool, keys)
+            full = f"{fused_rate} sets/s" if mode == "all" else "not run"
+            log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s beside the full-device "
+                f"{full} (phase 4); split sharded {split['sharded_rate']} sets/s at bucket "
+                f"{SHARDED_BUCKET}; pool {pooled['rate']} sets/s, {pooled['batches']} batches, "
+                f"inflight peak {pooled['inflight_peak']}, two host spans open "
+                f"{pooled['overlap_share']} of the wall [{card}]")
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
-    if sharded_only:
+    if mode != "all":
         print(card)
-        print(json.dumps({"ok": True, "phases": "1, 8-10", "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        print(json.dumps({"ok": True, "phases": "1, 8-10" if mode == "sharded" else "1, 2, 11, 12",
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
         return 0
 
+    def by_path(name):
+        return {"registry": registry_launches[name], "fused": fused_launches[name],
+                "xla": xla_launches[name], "sharded": sharded_launches[name],
+                "sharded_xla": sharded_xla_launches[name],
+                "split": split["launches"][name], "split_xla": split["xla_launches"][name],
+                "split_sharded": split["sharded_launches"][name],
+                "pool": pooled["launches"][name]}
+
+    # each kernel's launches from its own path: the fused kernels' phase 3,
+    # the tower kernels' phase 6, the library kernel's registry run, the
+    # ring hop's phase 9
+    main_path = {**{n: fused_launches for n in FUSED}, **{n: xla_launches for n in TOWER},
+                 **{n: registry_launches for n in LIBRARY}, "ring_hop": sharded_launches}
     line = []
     for name, k in KERNELS.items():
         r = results[name]
-        on_xla = name in TOWER
         line.append({
             "name": name,
             "route": "cuda",
-            "source": "lodestar_tpu_torch/ops/kernels/"
-                      + ("tower_kernels.cu" if on_xla else "fused_kernels.cu"),
+            "source": "lodestar_tpu_torch/ops/kernels/" + _build.LAUNCHERS[name],
             "replaces": k.replaces,
-            "launches": (xla_launches if on_xla else fused_launches)[name],
+            "launches": main_path[name][name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -915,17 +1227,15 @@ def main(argv) -> int:
             "library_ms": None,
             "rows": r["rows"],
             "issue_ms": r["issue_ms"],
-            "launches_by_path": {"fused": fused_launches[name], "xla": xla_launches[name],
-                                 "sharded": sharded_launches[name],
-                                 "sharded_xla": sharded_xla_launches[name]},
+            "launches_by_path": by_path(name),
         })
     hop = ring[2]
     line.append({
         "name": "ring_hop",
         "route": "cuda",
-        "source": "lodestar_tpu_torch/ops/kernels/ring_kernels.cu",
+        "source": "lodestar_tpu_torch/ops/kernels/" + _build.LAUNCHERS["ring_hop"],
         "replaces": ring_gather.RING_HOP.replaces,
-        "launches": sharded_launches["ring_hop"],
+        "launches": main_path["ring_hop"]["ring_hop"],
         "max_abs_err": max(r["max_abs_err"] for r in ring.values()),
         "ms": hop["ms"],
         "plain_ms": hop["plain_ms"],
@@ -934,10 +1244,7 @@ def main(argv) -> int:
         "library_ms": hop["library_ms"],
         "chunk_bytes": 4 * int(np.prod(RING_SHAPES[0])),
         "gather_ms": {str(k): v["gather_ms"] for k, v in ring.items()},
-        "launches_by_path": {"fused": fused_launches["ring_hop"],
-                             "xla": xla_launches["ring_hop"],
-                             "sharded": sharded_launches["ring_hop"],
-                             "sharded_xla": sharded_xla_launches["ring_hop"]},
+        "launches_by_path": by_path("ring_hop"),
     })
     print(json.dumps({"kernels": line}))
     print(card)

@@ -2,17 +2,21 @@
 
 The port's trimmed copy of the key and signature surface: signing is the
 plain bigint ladder ``sk * H(msg)`` (variable time — for test and interop
-keys only), and points are serialized in the ZCash compressed format.
+keys only), points are serialized in the ZCash compressed format, and
+``verify`` / ``verify_multiple_signatures`` check with the bigint pairing
+(``pairing.py``), the host verifier behind ``verifier.PyBlsVerifier``.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List, Optional
+import secrets
+from typing import List, Optional, Sequence, Tuple
 
-from .curve import G1_GEN, Point, g1_from_bytes, g1_to_bytes, g2_from_bytes, g2_to_bytes
+from .curve import B2, G1_GEN, Point, g1_from_bytes, g1_to_bytes, g2_from_bytes, g2_to_bytes
 from .fields import Fq, Fq2, R
 from .hash_to_curve import hash_to_g2
+from .pairing import multi_pairing
 
 
 class SecretKey:
@@ -122,6 +126,34 @@ def aggregate_pubkeys(pubkeys: List[PublicKey]) -> PublicKey:
     for pk in pubkeys[1:]:
         acc = acc + pk.point
     return PublicKey(acc)
+
+
+def verify(pk: PublicKey, msg: bytes, sig: Signature) -> bool:
+    """Core verify (PoP scheme): e(g1, sig) == e(pk, H(msg))."""
+    if pk.point.is_infinity() or sig.point.is_infinity():
+        return False
+    return multi_pairing([(-G1_GEN, sig.point), (pk.point, hash_to_g2(msg))]).is_one()
+
+
+def verify_multiple_signatures(
+    sets: Sequence[Tuple[PublicKey, bytes, Signature]],
+    rand_bits: int = 64,
+) -> bool:
+    """Batch verify with a random linear combination: fresh odd
+    ``rand_bits``-bit coefficients c_i, then one multi-pairing
+    e(-g1, sum_i c_i sig_i) * prod_i e(c_i pk_i, H(msg_i)) == 1."""
+    if not sets:
+        return False
+    if any(pk.point.is_infinity() or s.point.is_infinity() for pk, _, s in sets):
+        return False
+    coeffs = [secrets.randbits(rand_bits) | 1 for _ in sets]
+    sig_acc: Point[Fq2] = Point.infinity(B2)
+    pairs: List[Tuple[Point[Fq], Point[Fq2]]] = []
+    for (pk, msg, sig), c in zip(sets, coeffs):
+        sig_acc = sig_acc + sig.point * c
+        pairs.append((pk.point * c, hash_to_g2(msg)))
+    pairs.append((-G1_GEN, sig_acc))
+    return multi_pairing(pairs).is_one()
 
 
 def interop_secret_key(index: int) -> SecretKey:

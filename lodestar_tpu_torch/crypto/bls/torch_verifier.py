@@ -1,44 +1,149 @@
 """TorchBlsVerifier: batched BLS signature-set verification on CUDA cards.
 
-The port's verifier boundary (``verify_signature_sets(sets) -> bool``): the
-host packs a batch into padded digit arrays (``pack``), and the device runs
-one of two programs, both with the final exponentiation on the card:
+The port's verifier boundary (``verify_signature_sets(sets) -> bool``, and
+``verify_signature_sets_async(sets) -> PendingVerdict`` for the scheduling
+layer, ``chain/bls_pool``).  The host packs a batch into padded digit
+arrays (``pack``), and the device runs one of two programs:
 
-- ``fused=True`` (the default): the fused program
-  (``ops/fused_verify.verify_signature_sets_fused``);
-- ``fused=False``: the XLA-graph program
-  (``ops/batch_verify.verify_signature_sets_kernel``), which the JAX
-  package runs on every backend but a TPU.
+- ``fused=True`` (the default): the fused program (``ops/fused_verify``);
+- ``fused=False``: the XLA-graph program (``ops/batch_verify``), which the
+  JAX package runs on every backend but a TPU.
+
+With ``host_final_exp=True`` (the default, as in the JAX package) the
+split dispatch: the device returns the Miller product f and the verdict
+bits ok, and the host finishes with the C final exponentiation
+(``native/fastbls``).  On a card, ok and f are copied to pinned host
+memory behind the batch's work and an event is recorded after the
+copies; waiting on that event is the sync, so that a verdict does not
+wait for batches enqueued after it on the same stream.  With ``host_final_exp=False``
+the final exponentiation runs on the card too, and the device returns the
+verdict.
 
 With ``devices=[...]`` (a card may repeat: logical shards) the verifier
 has two tiers, as the JAX verifier's pool does: a batch whose bucket is at
 least ``sharded_min_batch`` and divisible by the shard count rides the
 sharded tier (``ops/sharded_verify``, one batch split over every shard);
-any other batch runs whole on one card, round-robin over the distinct
-cards.  The choices are the caller's.  A failed launch raises; there is no
-other path or tier to fall back to.
+any other batch runs whole on one card, the least loaded (batches in
+flight), round-robin among equals.  A failed launch or sync raises; there
+is no other path or tier to fall back to, and no batch is requeued.
 """
 
 from __future__ import annotations
 
 import secrets
-from typing import List, Optional, Sequence
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ... import resolve_device
+from ...native import fastbls
 from ...ops import limbs as fl
-from ...ops.batch_verify import verify_signature_sets_kernel
-from ...ops.fused_verify import from_packed, verify_signature_sets_fused
+from ...ops.batch_verify import miller_product_kernel, verify_signature_sets_kernel
+from ...ops.fused_core import LV
+from ...ops.fused_verify import from_packed, miller_product_fused, verify_signature_sets_fused
 from ...ops.htc import hash_to_field_limbs
-from ...ops.sharded_verify import verify_signature_sets_sharded
+from ...ops.sharded_verify import miller_product_sharded, verify_signature_sets_sharded
 from .curve import g2_from_bytes, to_affine_batch
 from .verifier import PointCache, SignatureSet, SingleSignatureSet, get_aggregated_pubkey
 
 # Padding buckets: the smallest that fits the batch is used.  128 is the
 # node's MAX_SIGNATURE_SETS_PER_JOB; larger buckets amortize sync batches.
 BUCKETS = (4, 16, 64, 128, 256)
+#: the in-flight key of the sharded tier's batches (one program over the mesh)
+MESH = "mesh"
+
+
+def fq12_blob(digits) -> bytes:
+    """(6, 2, 50) digits of any looseness -> the C library's Fq12 blob: the
+    12 components reduced mod p, 48 big-endian bytes each, in tower order."""
+    arr = np.asarray(digits, dtype=np.float64)
+    return b"".join((fl.limbs_to_int(arr[i, j]) % fl.P_INT).to_bytes(48, "big")
+                    for i in range(6) for j in range(2))
+
+
+def _stage_readback(f, ok):
+    """(f's digits, ok, event): on a card, ok and f's digits (an LV's
+    loose digits on the fused program) are copied to pinned host memory on
+    the stream that made them, and the event is recorded after the copies;
+    on the CPU they are returned as they are, with no event."""
+    digits = f.a if isinstance(f, LV) else f
+    if digits.device.type != "cuda":
+        return digits, ok, None
+    host = []
+    for t in (digits, ok):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(digits.device))
+    return host[0], host[1], ready
+
+
+class PendingVerdict:
+    """A dispatched batch whose verdict has not been read back.
+
+    Construction never blocks: the device work is enqueued, and
+    ``result()`` is the only synchronisation (the device readback and, on
+    the split path, the host final exponentiation).  ``result()`` is
+    idempotent: the verdict, or the failure, is kept and given again.
+    ``release``, the verifier's in-flight slot, is returned exactly once,
+    when the first ``result()`` ends, whether it returns or raises."""
+
+    __slots__ = ("_verifier", "_f", "_ok", "_ready", "_out", "_value", "_parts",
+                 "_release", "_exc", "device")
+
+    def __init__(self, verifier=None, f=None, ok=None, ready=None, out=None, value=None,
+                 parts=None, release: Optional[Callable[[], None]] = None,
+                 device: Optional[str] = None):
+        self._verifier = verifier
+        self._f = f
+        self._ok = ok
+        self._ready = ready
+        self._out = out
+        self._value = value
+        self._parts = parts
+        self._release = release
+        self._exc: Optional[Exception] = None
+        #: where the batch runs: a card, ``MESH``, or None (chunked)
+        self.device = device
+
+    def _release_once(self) -> None:
+        release, self._release = self._release, None
+        if release is not None:
+            release()
+
+    def _compute(self) -> bool:
+        if self._parts is not None:
+            # read every chunk, so that each returns its slot, then report
+            results, error = [], None
+            for part in self._parts:
+                try:
+                    results.append(part.result())
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    error = error or e
+            if error is not None:
+                raise error
+            return all(results)
+        if self._f is not None:
+            return self._verifier._host_final_exp_verdict(self._f, self._ok, self._ready)
+        return bool(self._out)
+
+    def result(self) -> bool:
+        if self._value is not None:
+            return self._value
+        if self._exc is not None:
+            raise self._exc
+        try:
+            self._value = self._compute()
+            return self._value
+        except Exception as e:
+            self._exc = e
+            raise
+        finally:
+            self._release_once()
 
 
 class TorchBlsVerifier:
@@ -47,21 +152,28 @@ class TorchBlsVerifier:
     shards of ``devices``.
 
     ``fused``: the fused program (True) or the XLA-graph program (False).
+    ``host_final_exp``: the split dispatch, the final exponentiation on the
+    host (True, the default), or the whole verification on the device.
     ``rng``: a ``numpy.random.Generator`` for the RLC coefficients, for
     reproducible runs; None (the default) draws them from ``secrets``.
     ``devices``: the shards of the sharded tier, in mesh order (None: the
     single ``device``).  ``sharded``: the tier on or off (None: on when
     ``devices`` has two or more entries).  ``sharded_min_batch``: the
     smallest bucket the tier takes (None: the largest bucket).
-    ``sharded_combine``: ``"all_gather"`` or ``"ring"``."""
+    ``sharded_combine``: ``"all_gather"`` or ``"ring"``.
+
+    Several host threads may pack and dispatch at once (the pool keeps
+    batches in flight from worker threads): the coefficient draws, the
+    placement and the counters take locks."""
 
     def __init__(self, device="cuda", rng: Optional[np.random.Generator] = None,
                  fused: bool = True, devices: Optional[Sequence] = None,
                  sharded: Optional[bool] = None, sharded_min_batch: Optional[int] = None,
-                 sharded_combine: str = "all_gather"):
+                 sharded_combine: str = "all_gather", host_final_exp: bool = True):
         self.point_cache = PointCache()
         self.rng = rng
         self.fused = fused
+        self.host_final_exp = host_final_exp
         if devices is None:
             self.devices = [resolve_device(device)]
         elif not devices:
@@ -71,33 +183,74 @@ class TorchBlsVerifier:
         self.device = self.devices[0]
         self.sharded = len(self.devices) >= 2 if sharded is None else bool(sharded)
         self.sharded_min_batch = BUCKETS[-1] if sharded_min_batch is None else sharded_min_batch
-        self._mesh_program = (
-            verify_signature_sets_sharded(self.devices, fused, sharded_combine)
-            if self.sharded else None
-        )
+        entry = miller_product_sharded if host_final_exp else verify_signature_sets_sharded
+        self._mesh_program = entry(self.devices, fused, sharded_combine) if self.sharded else None
         #: the shard count of the sharded tier (0 when it is off)
         self.mesh_devices = len(self.devices) if self.sharded else 0
         #: batches the sharded tier verified
         self.sharded_batches = 0
+        #: split dispatches finished on the host
+        self.host_final_exps = 0
+        #: host seconds, summed over batches: packing, enqueueing the device
+        #: program (and, split, the copies of ok and f to the host), the
+        #: sync (on the event after those copies, or on the verdict), the
+        #: read of f's host copy and the C final exponentiation
+        self.stage_seconds: Dict[str, float] = dict.fromkeys(
+            ("pack", "dispatch", "sync", "readback", "final_exp"), 0.0)
         # the per-card tier: the distinct cards of ``devices``, in order
         self._cards = list(dict.fromkeys(self.devices))
-        self._next_card = 0
+        self._next_card = 0  # the round-robin tie-break cursor
+        self._inflight: Dict[object, int] = {}
+        self._sched_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._rng_lock = threading.Lock()
+
+    @property
+    def n_devices(self) -> int:
+        """The distinct cards batches are placed on."""
+        return len(self._cards)
+
+    def device_inflight(self) -> Dict[str, int]:
+        """Batches in flight per card (and on the mesh), a snapshot."""
+        with self._sched_lock:
+            return {str(k): n for k, n in self._inflight.items()}
+
+    def _add_stage(self, stage: str, seconds: float) -> None:
+        with self._stats_lock:
+            self.stage_seconds[stage] += seconds
 
     def verify_signature_sets(self, sets: Sequence[SignatureSet]) -> bool:
-        """True iff every set verifies.  Batches above the largest bucket
-        are verified in chunks of that size; every chunk is enqueued before
-        any verdict is read."""
+        """True iff every set verifies."""
+        return self.verify_signature_sets_async(sets).result()
+
+    def verify_signature_sets_async(self, sets: Sequence[SignatureSet]) -> PendingVerdict:
+        """Pack and enqueue without waiting for the device; the handle's
+        ``result()`` is the only sync.  Batches above the largest bucket
+        are verified in chunks of that size, every chunk enqueued before
+        any verdict is read; when a chunk's pack or enqueue raises, the
+        chunks already enqueued are read, so that each returns its slot."""
         if not sets:
             raise ValueError("verify_signature_sets: empty batch of signature sets")
         largest = BUCKETS[-1]
-        chunks = [sets[i : i + largest] for i in range(0, len(sets), largest)]
-        verdicts = []
-        for chunk in chunks:
-            packed = self.pack(chunk)
-            if packed is None:
-                return False  # malformed bytes or a point at infinity
-            verdicts.append(self.dispatch(packed))
-        return all(bool(v) for v in verdicts)
+        if len(sets) > largest:
+            parts = []
+            try:
+                for i in range(0, len(sets), largest):
+                    parts.append(self.verify_signature_sets_async(sets[i : i + largest]))
+            except BaseException:
+                for part in parts:
+                    try:
+                        part.result()
+                    except Exception:  # noqa: BLE001 - the enqueue failure is raised
+                        pass
+                raise
+            return PendingVerdict(parts=parts)
+        t0 = time.perf_counter()
+        packed = self.pack(sets)
+        self._add_stage("pack", time.perf_counter() - t0)
+        if packed is None:
+            return PendingVerdict(value=False)  # malformed bytes or infinity
+        return self.dispatch(packed)
 
     def sharded_eligible(self, bucket: int) -> bool:
         """A bucket rides the sharded tier: the tier is on, the bucket is at
@@ -111,25 +264,85 @@ class TorchBlsVerifier:
         sharded batch (empty when the tier is off or has not run)."""
         return list(self._mesh_program.mesh.enqueue_walls) if self._mesh_program else []
 
-    def dispatch(self, packed) -> torch.Tensor:
-        """Enqueue one packed batch; returns the verdict as a bool scalar
-        tensor on the card that holds it (reading it is the only
-        synchronisation)."""
-        if self.sharded_eligible(packed[0].shape[0]):
-            self.sharded_batches += 1
-            return self._mesh_program(*packed)
-        dev = self._cards[self._next_card % len(self._cards)]
-        self._next_card += 1
-        program = verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
-        return program(*from_packed(packed, dev))
+    def _acquire(self, key=None):
+        """Take an in-flight slot: on ``key`` (the mesh), or on the least
+        loaded card, the rotating cursor breaking ties.  Returns the key."""
+        with self._sched_lock:
+            if key is None:
+                k = len(self._cards)
+                start = self._next_card % k
+                self._next_card += 1
+                key = min((self._cards[(start + i) % k] for i in range(k)),
+                          key=lambda d: self._inflight.get(d, 0))
+            self._inflight[key] = self._inflight.get(key, 0) + 1
+        return key
+
+    def _release(self, key) -> None:
+        with self._sched_lock:
+            self._inflight[key] -= 1
+
+    def dispatch(self, packed) -> PendingVerdict:
+        """Enqueue one packed batch on the mesh or on the least loaded card;
+        returns at once with its ``PendingVerdict``.  The batch holds its
+        in-flight slot until the verdict's first ``result()`` ends."""
+        t0 = time.perf_counter()
+        mesh = self.sharded_eligible(packed[0].shape[0])
+        key = self._acquire(MESH if mesh else None)
+        try:
+            if mesh:
+                with self._stats_lock:
+                    self.sharded_batches += 1
+                out = self._mesh_program(*packed)
+            else:
+                args = from_packed(packed, key)
+                if self.host_final_exp:
+                    program = miller_product_fused if self.fused else miller_product_kernel
+                else:
+                    program = verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
+                out = program(*args)
+            if self.host_final_exp:
+                f, ok, ready = _stage_readback(*out)
+        except BaseException:
+            self._release(key)
+            raise
+        self._add_stage("dispatch", time.perf_counter() - t0)
+        common = dict(verifier=self, release=lambda: self._release(key), device=str(key))
+        if self.host_final_exp:
+            return PendingVerdict(f=f, ok=ok, ready=ready, **common)
+        return PendingVerdict(out=out, **common)
+
+    def _host_final_exp_verdict(self, f, ok, ready=None) -> bool:
+        """The split dispatch's host stage: wait for ``ready``, the event
+        after the batch's copies to the host (the sync; on the CPU there is
+        none), read ok first, then f's digits (``_stage_readback``), reduce
+        each component mod p and run the C final exponentiation and is-one
+        check."""
+        t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
+        live = bool(ok)
+        t1 = time.perf_counter()
+        self._add_stage("sync", t1 - t0)
+        if not live:
+            return False
+        arr = f.detach().to("cpu").numpy()
+        t2 = time.perf_counter()
+        verdict = fastbls.final_exp_is_one(fq12_blob(arr))
+        t3 = time.perf_counter()
+        with self._stats_lock:
+            self.stage_seconds["readback"] += t2 - t1
+            self.stage_seconds["final_exp"] += t3 - t2
+            self.host_final_exps += 1
+        return verdict
 
     def _coefficients(self, b: int) -> np.ndarray:
         """b fresh odd 64-bit RLC coefficients."""
         if self.rng is None:
             coeffs = np.frombuffer(secrets.token_bytes(8 * b), dtype=np.uint64)
         else:
-            coeffs = self.rng.integers(0, np.iinfo(np.uint64).max, size=b,
-                                       dtype=np.uint64, endpoint=True)
+            with self._rng_lock:  # a Generator is not safe across threads
+                coeffs = self.rng.integers(0, np.iinfo(np.uint64).max, size=b,
+                                           dtype=np.uint64, endpoint=True)
         return coeffs | np.uint64(1)
 
     def pack(self, sets: Sequence[SignatureSet]):

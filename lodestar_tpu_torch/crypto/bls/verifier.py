@@ -2,17 +2,59 @@
 
 ``SingleSignatureSet`` / ``AggregatedSignatureSet`` are what a caller
 hands ``TorchBlsVerifier.verify_signature_sets``; ``PointCache`` keeps
-pack-ready affine coordinates of keys and signatures seen before.
+pack-ready affine coordinates of keys and signatures seen before.  The
+scheduling layer (``chain/bls_pool``) adds the QoS lanes
+(``SignatureSetPriority``), the typed drop (``VerificationDroppedError``),
+the ``IBlsVerifier`` boundary and ``PyBlsVerifier``, the host verifier on
+the bigint oracle.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import enum
 import threading
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Protocol, Sequence, Tuple, Union
 
-from .api import PublicKey, aggregate_pubkeys
+from ...utils.errors import LodestarError
+from .api import PublicKey, Signature, aggregate_pubkeys, verify, verify_multiple_signatures
+
+# Matches MIN_SET_COUNT_TO_BATCH (maybeBatch.ts:4)
+MIN_SET_COUNT_TO_BATCH = 2
+
+
+class SignatureSetPriority(enum.IntEnum):
+    """QoS lane of a verification job (lower value = drained first): under
+    overload a block proposal never waits behind stale unaggregated
+    attestations, and what has to be dropped is the lowest lane first."""
+
+    BLOCK_PROPOSAL = 0
+    AGGREGATE = 1
+    UNAGGREGATED = 2
+    SYNC_COMMITTEE = 3
+
+
+#: lane for callers that do not tag their jobs (all share one lane)
+DEFAULT_PRIORITY = SignatureSetPriority.UNAGGREGATED
+
+
+class VerificationDroppedError(LodestarError):
+    """A verification job was shed by the overload policy (deadline
+    expiry, queue overflow eviction, or pool shutdown) and was therefore
+    never verified.  Distinct from a ``False`` verdict on purpose: False
+    means "cryptographically invalid"; a dropped job is the node's own
+    admission decision."""
+
+    def __init__(self, reason: str, lane: Optional["SignatureSetPriority"] = None):
+        lane_name = lane.name if lane is not None else None
+        super().__init__(
+            {"code": "VERIFICATION_DROPPED", "reason": reason, "lane": lane_name},
+            f"verification dropped ({reason}"
+            + (f", lane {lane_name})" if lane_name else ")"),
+        )
+        self.reason = reason
+        self.lane = lane
 
 
 @dataclasses.dataclass
@@ -79,3 +121,47 @@ class PointCache:
             self._data.move_to_end(key)
             while len(self._data) > self.maxsize:
                 self._data.popitem(last=False)
+
+
+class IBlsVerifier(Protocol):
+    def verify_signature_sets(self, sets: Sequence[SignatureSet]) -> bool: ...
+
+    def close(self) -> None: ...
+
+
+def _deserialize(s: SignatureSet) -> tuple:
+    sig = Signature.from_bytes(s.signature, validate=True)
+    return (get_aggregated_pubkey(s), s.signing_root, sig)
+
+
+class PyBlsVerifier:
+    """Single-threaded host verifier on the bigint oracle (reference:
+    BlsSingleThreadVerifier, chain/bls/singleThread.ts:7) with maybe-batch
+    semantics."""
+
+    def __init__(self) -> None:
+        self.batch_retries = 0
+        self.batch_sigs_success = 0
+        self.malformed_rejects = 0
+
+    def verify_signature_sets(self, sets: Sequence[SignatureSet]) -> bool:
+        if not sets:
+            raise ValueError("verify_signature_sets: empty batch of signature sets")
+        try:
+            triples = [_deserialize(s) for s in sets]
+        except ValueError:
+            # malformed bytes read as an invalid-signature verdict
+            self.malformed_rejects += 1
+            return False
+        if len(triples) >= MIN_SET_COUNT_TO_BATCH:
+            if verify_multiple_signatures(triples):
+                self.batch_sigs_success += len(triples)
+                return True
+            # RLC batching has no false negatives: a failed batch holds at
+            # least one invalid set, so the verdict is False
+            self.batch_retries += 1
+            return False
+        return all(verify(pk, root, sig) for pk, root, sig in triples)
+
+    def close(self) -> None:
+        return None

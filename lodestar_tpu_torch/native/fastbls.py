@@ -1,0 +1,118 @@
+"""ctypes binding for the port's copy of ``fastbls.c`` (native BLS12-381 in
+portable C): the host final exponentiation of the split dispatch.
+
+The counterpart of ``lodestar_tpu/native/fastbls.py``, over the copies of
+``fastbls.c`` and ``fastbls_consts.h`` beside this file.  At first use the
+C source is compiled with ``cc -O3 -shared -fPIC`` into
+``build/lodestar_tpu_torch/`` under the repository root, named by a hash
+of the sources and the flags (an edited source rebuilds, an unchanged one
+loads at once), through a temporary file and an atomic rename, so that
+concurrent processes never load a half-written library.  ``fb_selftest()``
+must pass before the library is used.
+
+There is no fallback: a failed build, load or self-test raises, and every
+later call raises the same error.  Nothing is built or loaded when the
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Optional
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(_HERE))
+BUILD_DIR = os.path.join(_REPO, "build", "lodestar_tpu_torch")
+SOURCES = ("fastbls.c", "fastbls_consts.h")
+CC = "cc"
+CFLAGS = ("-O3", "-shared", "-fPIC")
+#: bytes of an Fq12 blob: 12 components of 48 big-endian bytes, in tower
+#: order (c0.c0.c0, c0.c0.c1, c0.c1.c0, ..., c1.c2.c1)
+FQ12_BYTES = 12 * 48
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_error: Optional[Exception] = None
+
+
+def library_path(cc: Optional[str] = None) -> str:
+    h = hashlib.sha256(" ".join((cc or CC,) + CFLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(_HERE, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libfastbls_{h.hexdigest()[:16]}.so")
+
+
+def build(cc: Optional[str] = None) -> str:
+    """Compile the library with ``cc`` (default ``CC``) unless one of these
+    sources exists; return its path.  Raises with the compiler's output
+    when the compiler fails or is missing."""
+    cc = cc or CC
+    out = library_path(cc)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [cc, *CFLAGS, "-o", tmp, os.path.join(_HERE, "fastbls.c")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"fastbls: cannot run the C compiler {cc!r}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"fastbls: {' '.join(cmd)} failed:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The built, self-tested library (built on the first call)."""
+    global _lib, _error
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _error is not None:
+            raise _error
+        try:
+            lib = ctypes.CDLL(build())
+            lib.fb_selftest.restype = ctypes.c_int
+            lib.fb_selftest.argtypes = []
+            lib.fb_final_exp_is_one.restype = ctypes.c_int
+            lib.fb_final_exp_is_one.argtypes = [ctypes.c_char_p]
+            lib.fb_final_exp.restype = ctypes.c_int
+            lib.fb_final_exp.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+            if lib.fb_selftest() != 1:
+                raise RuntimeError("fastbls: fb_selftest failed; the library is not used")
+        except (OSError, RuntimeError) as e:
+            _error = e if isinstance(e, RuntimeError) else RuntimeError(f"fastbls: {e}")
+            raise _error from e
+        _lib = lib
+        return lib
+
+
+def _check(blob: bytes) -> None:
+    if len(blob) != FQ12_BYTES:
+        raise ValueError(f"fastbls: an Fq12 blob is {FQ12_BYTES} bytes, got {len(blob)}")
+
+
+def final_exp_is_one(blob: bytes) -> bool:
+    """f^(3 (p^12 - 1) / r) == 1 for the Fq12 f in ``blob`` (the cube of
+    the final exponentiation: the verdict is the same, as gcd(3, r) = 1).
+    Raises on a component that is not a canonical residue."""
+    _check(blob)
+    rc = load().fb_final_exp_is_one(blob)
+    if rc < 0:
+        raise ValueError("fastbls: an Fq12 component is not below p")
+    return rc == 1
+
+
+def final_exp(blob: bytes) -> bytes:
+    """f^(3 (p^12 - 1) / r) as a blob of the same layout."""
+    _check(blob)
+    out = ctypes.create_string_buffer(FQ12_BYTES)
+    if load().fb_final_exp(out, blob) < 0:
+        raise ValueError("fastbls: an Fq12 component is not below p")
+    return out.raw

@@ -2,10 +2,11 @@
 a plain C interface, loaded with ctypes).
 
 ``fused_kernels.cu`` (the fused path's ten kernels), ``tower_kernels.cu``
-(the XLA-graph path's four tower products) and ``ring_kernels.cu`` (the
-sharded tier's ring hop) are compiled once per kernel
-(``-DLF_KERNEL_<name>``), all fifteen nvcc processes started together, and
-the objects are linked into one library.  It is built at first use into ``build/lodestar_tpu_torch/``
+(the XLA-graph path's four tower products), ``ring_kernels.cu`` (the
+sharded tier's ring hop) and ``library_kernels.cu`` (the library's Fq2
+product) are compiled once per kernel (``-DLF_KERNEL_<name>``), all sixteen
+nvcc processes started together, and the objects are linked into one
+library.  It is built at first use into ``build/lodestar_tpu_torch/``
 under the repository root, named by a hash of the sources and the flags,
 so an edited source rebuilds and an unchanged one loads at once.  Nothing
 is built or loaded when the module is imported.
@@ -29,7 +30,8 @@ from typing import Dict, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "lodestar_tpu_torch")
-SOURCES = ("field.cuh", "fused_kernels.cu", "tower.cuh", "tower_kernels.cu", "ring_kernels.cu")
+SOURCES = ("field.cuh", "fused_kernels.cu", "tower.cuh", "tower_kernels.cu", "ring_kernels.cu",
+           "limbs.cuh", "library_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,10 +39,12 @@ NVCC_FLAGS = (
 _FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul",
           "fold", "canon", "lad1", "lad2", "lad3")
 _TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
+_LIBRARY = ("library_fq2_mul",)
 #: every launcher, by the source file that holds its kernel
 LAUNCHERS = {**{name: "fused_kernels.cu" for name in _FUSED},
              **{name: "tower_kernels.cu" for name in _TOWER},
-             "ring_hop": "ring_kernels.cu"}
+             "ring_hop": "ring_kernels.cu",
+             **{name: "library_kernels.cu" for name in _LIBRARY}}
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
@@ -115,7 +119,7 @@ def load(extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
             t0 = time.perf_counter()
             lib = ctypes.CDLL(build(extra))
             ptr_array = ctypes.POINTER(ctypes.c_void_p)
-            for name in _FUSED + _TOWER:
+            for name in _FUSED + _TOWER + _LIBRARY:
                 fn = getattr(lib, f"launch_{name}")
                 fn.argtypes = [ptr_array, ptr_array, ctypes.c_int,
                                ctypes.c_void_p, ctypes.c_void_p]

@@ -48,7 +48,8 @@ constexpr int K_MU = K_PAD + NL;         // 6: floor(2^424 / p)
 constexpr int K_P48 = K_MU + 6;          // 48: p
 constexpr int K_PC = K_P48 + 48;         // 50: p
 constexpr int K_P2C = K_PC + NL;         // 50: 2p
-constexpr int K_LEN = K_P2C + NL;        // 2904
+constexpr int K_PAD51 = K_P2C + NL;      // 51: limbs.fp_sub's pad (limbs.cuh)
+constexpr int K_LEN = K_PAD51 + NL + 1;  // 2955
 
 // _m_carry's headroom columns and pass count for a digit bound of
 // 2^bits - 1 (the JAX while-loop, evaluated at compile time).

@@ -1,8 +1,9 @@
-// Host build of the kernels' row bodies (field.cuh, tower.cuh) with a plain C
+// Host build of the kernels' row bodies (field.cuh, tower.cuh, limbs.cuh) with a plain C
 // interface, for the CPU parity test: the same arithmetic the CUDA
 // kernels run, looped over rows on the CPU.  Built with g++ by
 // tests/test_torch_kernel_host.py; not part of the device path.
 
+#include "limbs.cuh"
 #include "tower.cuh"
 
 #define LF_HOST(NAME)                                                        \
@@ -31,3 +32,4 @@ LF_HOST(tower_fq2_mul)
 LF_HOST(tower_fq2_sqr)
 LF_HOST(tower_fq6_mul)
 LF_HOST(tower_fq12_mul)
+LF_HOST(library_fq2_mul)

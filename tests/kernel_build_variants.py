@@ -3,9 +3,10 @@ against the plain versions on the card.
 
     python3 tests/kernel_build_variants.py [variant ...]
 
-The port builds field.cuh and tower.cuh with their heavy steps (fold, the
-digit product, the Fq2 product and square, the canonicalisation, the
-tower's Fq2 / Fq6 / Fq12 products) as real calls.  With
+The port builds field.cuh, tower.cuh and limbs.cuh with their heavy steps
+(fold, the digit product, the Fq2 product and square, the
+canonicalisation, the tower's Fq2 / Fq6 / Fq12 products, the library
+kernel's strict sum, product and subtraction) as real calls.  With
 every step inlined (``-DLF_INLINE_ALL``, the layout of the kernels' first
 build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
@@ -16,8 +17,8 @@ For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 512 and 2,560 rows and three seeds,
 and the first differing row's digits (for the ring hop: the chunks, of
 the ring's two shapes, that differ from a copy); then, for the fq2sqr,
-tower_fq12_mul and ring_hop kernels, ptxas's register, stack and spill
-report.  Needs a CUDA card and nvcc.
+tower_fq12_mul, library_fq2_mul and ring_hop kernels, ptxas's register,
+stack and spill report.  Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from lodestar_tpu_torch.ops import fused_core as fc  # noqa: E402
 from lodestar_tpu_torch.ops import fused_ladder  # noqa: E402,F401 - registers lad1..3
+from lodestar_tpu_torch.ops import library_fuse  # noqa: E402,F401 - registers library_fq2_mul
 from lodestar_tpu_torch.ops import tower_kernels  # noqa: E402,F401 - registers the tower kernels
 from lodestar_tpu_torch.ops.kernels import _build  # noqa: E402
 
@@ -132,7 +134,7 @@ def main(names) -> int:
                   flush=True)
         print(json.dumps({"variant": variant, "kernel": "ring_hop", **check_ring(lib, dev)}),
               flush=True)
-        for name in ("fq2sqr", "tower_fq12_mul", "ring_hop"):
+        for name in ("fq2sqr", "tower_fq12_mul", "library_fq2_mul", "ring_hop"):
             print(json.dumps({"variant": variant, f"ptxas_{name}": ptxas_report(VARIANTS[variant], name)}),
                   flush=True)
     return 0

@@ -1,6 +1,6 @@
 """Golden vectors of the JAX package for the PyTorch port's tests.
 
-    JAX_PLATFORMS=cpu python tests/port_vectors/generate.py [fused] [tower] [xla] [sharded]
+    JAX_PLATFORMS=cpu python tests/port_vectors/generate.py [fused] [tower] [xla] [sharded] [fuse]
 
 With no argument it writes every file; each takes the JAX package on the
 CPU and inputs made with numpy from a fixed seed, and writes inputs and
@@ -22,7 +22,12 @@ outputs beside this file:
   shards, ``fused_pairing.f12_product_tree`` over the gathered partials
   (interpret mode), the ``sharded_verify`` combines at 4 shards, and the
   verdicts of ``verify_signature_sets_sharded(fused=False)`` at bucket 8:
-  valid and corrupted over 2 shards, 5 live sets over 4 shards.
+  valid and corrupted over 2 shards, 5 live sets over 4 shards;
+- ``library_fuse.npz`` (``fuse``): ``pallas_fuse(tower.fq2_mul)``, the
+  kernel-library registry's instance, in interpret mode, at the
+  registry's 4 rows and at FUSE_ROWS rows.
+
+The split dispatch's tests reuse the bucket-4 and bucket-8 inputs above.
 
 The tests rebuild the inputs with the ``*_inputs`` functions below, check
 them against the stored ones, and hold the port to the stored outputs.
@@ -43,6 +48,8 @@ LADDER_NPZ = os.path.join(HERE, "fused_ladder.npz")
 TOWER_NPZ = os.path.join(HERE, "tower_kernels.npz")
 XLA_NPZ = os.path.join(HERE, "xla_path.npz")
 SHARDED_NPZ = os.path.join(HERE, "sharded.npz")
+FUSE_NPZ = os.path.join(HERE, "library_fuse.npz")
+FUSE_ROWS = 300
 SEED = 20261016
 ROWS = 8
 LOOSE_MAX = (1 << 22) - 1
@@ -127,6 +134,24 @@ def tower_inputs() -> dict:
         for k in range(arity):
             a = rng.integers(0, 257, size=(ROWS,) + tail).astype(np.float32)
             out[f"{op}_in{k}"] = _edge_rows(a, 256)
+    return out
+
+
+def fuse_inputs() -> dict:
+    """Semi-strict (digits <= 256) Fq2 operands of the library kernel:
+    ``b4_in0/1`` at the registry's 4 rows, random; ``rows_in0/1`` at
+    FUSE_ROWS rows, edge rows 0-3 (zero, p, 2p, every digit 256) in both,
+    rows 4-7 of the second operand every digit 256, the rest random."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for name, rows in (("b4", 4), ("rows", FUSE_ROWS)):
+        for k in range(2):
+            a = rng.integers(0, 257, size=(rows, 2, 50)).astype(np.float32)
+            if rows > 4:
+                _edge_rows(a, 256)
+                if k == 1:
+                    a[4:8] = 256
+            out[f"{name}_in{k}"] = a
     return out
 
 
@@ -332,8 +357,22 @@ def _write_fused() -> None:
     )
 
 
+def _write_fuse() -> None:
+    import jax.numpy as jnp
+
+    from lodestar_tpu.ops import tower
+    from lodestar_tpu.ops.pallas_fuse import pallas_fuse
+
+    ins = fuse_inputs()
+    outs = {}
+    for name in ("b4", "rows"):
+        a, b = (jnp.asarray(ins[f"{name}_in{k}"]) for k in range(2))
+        outs[f"{name}_out"] = np.asarray(pallas_fuse(tower.fq2_mul, a, b, interpret=True)(a, b))
+    np.savez_compressed(FUSE_NPZ, **ins, **outs)
+
+
 WRITERS = {"fused": _write_fused, "tower": _write_tower, "xla": _write_xla,
-           "sharded": _write_sharded}
+           "sharded": _write_sharded, "fuse": _write_fuse}
 
 
 def main(names) -> None:

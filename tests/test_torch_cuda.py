@@ -1,15 +1,24 @@
 """The port's CUDA kernels on the card (cuda-marked: they skip without one).
 
 Run on the H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-Each kernel (the fused path's ten and the XLA-graph path's four tower
-kernels) is held bitwise against its plain version on the same CUDA
-inputs, and the bucket-4 slice of each path on the card against the CPU
-plain run.  The ring hop kernel is held against its plain version as an
+Each kernel (the fused path's ten, the XLA-graph path's four tower
+kernels and the library kernel) is held bitwise against its plain version
+on the same CUDA inputs, the library kernel also against the JAX vectors
+of pallas_fuse(tower.fq2_mul) and the registry's every entry, and the
+bucket-4 slice of each path on the card against the CPU plain run.  The
+split dispatch (the host C final exponentiation) gives the JAX vectors'
+verdicts on the card for both programs and on 2 logical shards, its
+verdict does not wait for work enqueued after the batch, and one pool
+flush runs through it.  The ring hop kernel is held against its plain version as an
 all-gather and as a one-hop permute at 2 and 4 logical shards on card 0
 and across cards when two or more are visible; the sharded tier's
 verdicts at bucket 4 over 2 logical shards.
 ``tests/kernel_build_variants.py`` holds builds of the same sources that
 the port does not run to the same check."""
+
+import asyncio
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -20,6 +29,7 @@ from lodestar_tpu_torch.ops import fused_core as fc
 from lodestar_tpu_torch.ops import batch_verify as bv
 from lodestar_tpu_torch.ops import fused_ladder  # noqa: F401 - registers lad1..3
 from lodestar_tpu_torch.ops import fused_verify as fv
+from lodestar_tpu_torch.ops import library_fuse as lf
 from lodestar_tpu_torch.ops import ring_gather as rg
 from lodestar_tpu_torch.ops import sharded_verify as sv
 from lodestar_tpu_torch.ops import tower_kernels  # noqa: F401 - registers the tower kernels
@@ -110,3 +120,91 @@ def test_sharded_bucket4_verdicts_on_logical_shards(fused, card):
     bad[2] = bad[2].copy()
     bad[2][0, 0, 0] += 1
     assert bool(program(*bad)) is False
+
+
+_GEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_vectors", "generate.py")
+_spec = importlib.util.spec_from_file_location("port_vectors_generate", _GEN)
+gen = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(gen)
+
+
+def test_library_kernel_equals_the_jax_vectors_on_the_card(card):
+    with np.load(gen.FUSE_NPZ) as z:
+        for name in ("b4", "rows"):
+            a, b = (torch.from_numpy(z[f"{name}_in{k}"]).to(card) for k in range(2))
+            before = lf.K_LIBRARY_FQ2_MUL.launches
+            got = lf.fq2_mul(a, b)
+            assert lf.K_LIBRARY_FQ2_MUL.launches == before + 1
+            np.testing.assert_array_equal(got.cpu().numpy(), z[f"{name}_out"])
+
+
+def test_every_registry_entry_launches_and_equals_its_plain_version(card):
+    fc.reset_launch_counts()
+    launches = chip_smoke.run_registry(card, "card test")
+    assert len(launches) == 16 and all(n >= 1 for n in launches.values())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_split_bucket4_verdicts_on_the_card(fused, card):
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    with np.load(gen.XLA_NPZ) as z:
+        ins = dict(z)
+    v = TorchBlsVerifier(device=card, fused=fused, rng=np.random.default_rng(1))
+    assert v.host_final_exp and v.device == card
+    assert v.dispatch(gen.bucket4(ins)).result() is bool(ins["b4_verdict"]) is True
+    assert v.dispatch(gen.bucket4(ins, corrupted=True)).result() is False
+    assert v.host_final_exps == 2 and v.device_inflight() == {str(card): 0}
+
+
+def test_split_verdict_waits_for_its_own_batch_only(card):
+    """The split sync is the event after the batch's copies of ok and f to
+    the host, not the stream: work enqueued after the batch is still
+    running when its verdict has been read."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    with np.load(gen.XLA_NPZ) as z:
+        ins = dict(z)
+    v = TorchBlsVerifier(device=card, rng=np.random.default_rng(2))
+    pending = v.dispatch(gen.bucket4(ins))
+    stream = torch.cuda.current_stream(card)
+    with torch.cuda.device(card):
+        torch.cuda._sleep(4_000_000_000)  # about 2 s of the card's clock
+    assert pending.result() is True
+    assert not stream.query()  # the later work is still on the stream
+    stream.synchronize()
+
+
+def test_sharded_split_bucket8_verdicts_on_logical_shards(card):
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    with np.load(gen.SHARDED_NPZ) as z:
+        ins = dict(z)
+    v = TorchBlsVerifier(devices=[card, card], sharded_min_batch=8)
+    for case, key in (("valid", "verdict_valid2"), ("corrupted", "verdict_corrupted2")):
+        assert v.dispatch(gen.bucket8(ins, case)).result() is bool(ins[key])
+    assert v.sharded_batches == 2
+
+
+def test_one_pool_flush_on_the_card(card):
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.crypto.bls import PublicKey, SingleSignatureSet, interop_secret_key
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    sets = []
+    for i in range(6):
+        sk = interop_secret_key(i)
+        msg = b"card pool %d" % i
+        sets.append(SingleSignatureSet(PublicKey.from_bytes(sk.to_public_key().to_bytes()), msg,
+                                       sk.sign(msg).to_bytes()))
+    sets[4] = SingleSignatureSet(sets[4].pubkey, sets[4].signing_root, sets[5].signature)
+
+    async def main():
+        pool = BlsBatchPool(TorchBlsVerifier(device=card), max_buffer_wait=0.01)
+        out = await asyncio.gather(*[pool.verify_signature_sets(sets[j:j + 2])
+                                     for j in range(0, 6, 2)])
+        pool.close()
+        return out, pool
+
+    results, pool = asyncio.run(main())
+    assert results == [True, True, False] and pool.batch_retries == 1

@@ -36,8 +36,11 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 20
     for module in ("limbs", "tower", "tower_kernels", "points", "htc", "pairing", "batch_verify",
-                   "ring_gather", "sharded_verify"):
+                   "ring_gather", "sharded_verify", "library_fuse"):
         assert os.path.join(PORT, "ops", f"{module}.py") in files
+    for module in ("native/fastbls", "chain/bls_pool", "utils/queue", "utils/errors",
+                   "crypto/bls/pairing", "crypto/bls/verifier"):
+        assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
         for f in files
@@ -59,6 +62,11 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.ops.ring_gather\n"
         "import lodestar_tpu_torch.ops.sharded_verify\n"
         "import lodestar_tpu_torch.ops.kernels._build\n"
+        "import lodestar_tpu_torch.ops.library_fuse\n"
+        "import lodestar_tpu_torch.native.fastbls\n"
+        "import lodestar_tpu_torch.chain.bls_pool\n"
+        "import lodestar_tpu_torch.utils.queue\n"
+        "import lodestar_tpu_torch.crypto.bls.pairing\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
@@ -81,10 +89,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     with pytest.raises(RuntimeError):
         TorchBlsVerifier(fused=False)
     with pytest.raises(RuntimeError):
+        TorchBlsVerifier(host_final_exp=False)
+    with pytest.raises(RuntimeError):
         from_packed(packed)
     with pytest.raises(RuntimeError):
         resolve_device()
     assert TorchBlsVerifier(device="cpu").device.type == "cpu"
+    assert TorchBlsVerifier(device="cpu").host_final_exp is True  # the split default
     assert from_packed(packed, device="cpu")[6].dtype == torch.bool
 
 
@@ -94,3 +105,21 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_port_builds_only_from_its_own_sources():
+    """The C final exponentiation and the kernels build from files inside
+    lodestar_tpu_torch/, into build/ of the checkout."""
+    from lodestar_tpu_torch.native import fastbls
+    from lodestar_tpu_torch.ops.kernels import _build
+
+    native = os.path.dirname(fastbls.__file__)
+    assert native.startswith(PORT) and _build._HERE.startswith(PORT)
+    for name in fastbls.SOURCES:
+        assert os.path.exists(os.path.join(native, name))
+    assert fastbls.BUILD_DIR == _build.BUILD_DIR == os.path.join(REPO, "build", "lodestar_tpu_torch")
+    # the copies are the JAX package's C sources, byte for byte
+    for name in fastbls.SOURCES:
+        with open(os.path.join(native, name), "rb") as a, \
+                open(os.path.join(REPO, "csrc", name), "rb") as b:
+            assert a.read() == b.read(), name

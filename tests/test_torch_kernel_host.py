@@ -1,10 +1,10 @@
 """The CUDA kernels' row arithmetic, built for the CPU.
 
-field.cuh and tower.cuh hold every kernel's per-row body as __host__
-__device__ functions; ops/kernels/host_shim.cpp wraps them in a plain C
-interface.  Here g++ builds that shim (into build/, keyed by the sources'
-hash) and the fourteen row bodies are held bitwise against the plain
-PyTorch versions.  This
+field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
+__host__ __device__ functions; ops/kernels/host_shim.cpp wraps them in a
+plain C interface.  Here g++ builds that shim (into build/, keyed by the
+sources' hash) and the fifteen row bodies are held bitwise against the
+plain PyTorch versions.  This
 checks the arithmetic the kernels run, not the kernels: the launches are
 checked on the card by chip_smoke.py and the cuda-marked tests.
 
@@ -28,6 +28,7 @@ import torch
 import chip_smoke
 from lodestar_tpu_torch.ops import fused_core as fc
 from lodestar_tpu_torch.ops import fused_ladder  # noqa: F401 - registers lad1..3
+from lodestar_tpu_torch.ops import library_fuse  # noqa: F401 - registers library_fq2_mul
 from lodestar_tpu_torch.ops import tower_kernels  # noqa: F401 - registers the tower kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,7 +48,7 @@ def _host_build(flags) -> str:
     sources and the flags."""
     gxx = _gxx()
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in ("field.cuh", "tower.cuh", "host_shim.cpp"):
+    for name in ("field.cuh", "tower.cuh", "limbs.cuh", "host_shim.cpp"):
         with open(os.path.join(KDIR, name), "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(REPO, "build", "lodestar_tpu_torch_host")
@@ -101,6 +102,15 @@ def test_heavy_steps_are_real_calls_in_the_kernels_build():
     tower = open(os.path.join(KDIR, "tower.cuh"), encoding="utf-8").read()
     for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul", "tw_fq12_mul"):
         assert re.search(rf"^LF_CALL void {step}\(", tower, re.M), step
+
+
+def test_library_kernel_heavy_steps_are_real_calls():
+    """limbs.cuh keeps its heavy steps out of line too (the same ptxas
+    fault would reach a fully inlined library kernel)."""
+    src = open(os.path.join(KDIR, "limbs.cuh"), encoding="utf-8").read()
+    for step in ("fold_tail", "finalize", "fp_strict", "fp_mul", "fp_sub"):
+        assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
+    assert "library_fq2_mul" in fc.KERNELS
 
 
 @pytest.mark.parametrize("layout", ["calls", "inlined"])

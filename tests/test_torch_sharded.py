@@ -84,7 +84,7 @@ def test_verifier_tier_defaults():
 
 
 def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
-    v = TorchBlsVerifier(devices=["cpu"] * 4, sharded_min_batch=16)
+    v = TorchBlsVerifier(devices=["cpu"] * 4, sharded_min_batch=16, host_final_exp=False)
     assert [b for b in BUCKETS if v.sharded_eligible(b)] == [16, 64, 128, 256]
     assert not TorchBlsVerifier(devices=["cpu"] * 3, sharded_min_batch=16).sharded_eligible(64)
     calls = []
@@ -94,13 +94,13 @@ def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
         lambda *args: calls.append(("card", args[0].device)) or torch.tensor(True))
     for b in (4, 16, 256):
         packed = (np.zeros((b, 50), np.float32),) * 6 + (np.ones(b, bool),)
-        assert bool(v.dispatch(packed))
+        assert v.dispatch(packed).result() is True
     assert calls == [("card", torch.device("cpu")), "mesh", "mesh"]
     assert v.sharded_batches == 2
 
 
 def test_per_card_tier_round_robins_over_distinct_cards(monkeypatch):
-    v = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=False)
+    v = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=False, host_final_exp=False)
     seen = []
     monkeypatch.setattr(
         "lodestar_tpu_torch.crypto.bls.torch_verifier.from_packed",

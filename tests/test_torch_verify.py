@@ -65,7 +65,9 @@ def test_bucket4_verdict_equals_py_bls_verifier(name, expected):
     ]
     port_sets = [SingleSignatureSet(PublicKey(raw=pk), msg, sig) for pk, msg, sig in raw]
     want = PyBlsVerifier().verify_signature_sets(ref_sets)
-    verifier = TorchBlsVerifier(device="cpu", rng=np.random.default_rng(1))
+    # the full-device mode (final exponentiation in the program); the split
+    # default is held to the same verdicts in test_torch_split.py
+    verifier = TorchBlsVerifier(device="cpu", rng=np.random.default_rng(1), host_final_exp=False)
     got = verifier.verify_signature_sets(port_sets)
     assert got is want is expected
 

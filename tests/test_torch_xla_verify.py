@@ -37,7 +37,9 @@ def test_bucket4_xla_verdict_equals_py_bls_verifier(name, expected):
     ]
     port_sets = [SingleSignatureSet(PublicKey(raw=pk), msg, sig) for pk, msg, sig in raw]
     want = PyBlsVerifier().verify_signature_sets(ref_sets)
-    verifier = TorchBlsVerifier(device="cpu", rng=np.random.default_rng(1), fused=False)
+    # the full-device mode; the split default: test_torch_split_xla.py
+    verifier = TorchBlsVerifier(device="cpu", rng=np.random.default_rng(1), fused=False,
+                                host_final_exp=False)
     assert verifier.fused is False
     fused_core.reset_launch_counts()
     got = verifier.verify_signature_sets(port_sets)
