@@ -15,10 +15,12 @@ its wall time on a line of its own:
    plain version and every kernel launched; then each CUDA kernel against
    its plain PyTorch version on the card, on seeded inputs at the shapes
    its path gives it (the fused field kernels at 512 and 2,560 rows, the
-   ladder kernels at 512 rows, the tower kernels at 1 row and at the most
-   rows the XLA-graph path gives them at bucket 128, the library kernel at
-   4 rows and at the tower Fq2 product's 1,548), three inputs a shape —
-   bitwise, tolerance zero, since both are exact integer arithmetic.
+   ladder kernels at 512 rows, lad2 and lad3 also at 2,560, the tower
+   kernels at 1 row and at the most rows the XLA-graph path gives them at
+   bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
+   1,548), three inputs a shape — bitwise, tolerance zero, since both are
+   exact integer arithmetic; the redesigned lad2 and lad3 (one block per
+   row) also at 1, 37 and 513 rows and on inputs at the digit bounds.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
    is outside the window (it is printed beside them as ``issue_ms``, 20
@@ -43,6 +45,9 @@ ported; phases 11-12 the split default.
 5. fused profile: one more fresh batch's dispatch under
    ``torch.profiler``: the device time of the port's kernels and of
    PyTorch's glue kernels, and the device's idle share over that dispatch;
+   then the ladder stretch of that batch (the 128 iterations of
+   ``point_mul_bits_ladder`` between two marker kernels): the host's wall
+   across it, the device's span and busy time in it, its idle share;
 6. XLA slice: the same four batches through
    ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
    ``ops/batch_verify``) with every launch counter set to 0 just before
@@ -107,10 +112,13 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --split-only
+    python3 chip_smoke.py --fused-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
-cross-card legs), or phases 1, 2, 11 and 12, and end with the card line
-and ``{"ok": true, ...}`` without the ``kernels`` object.
+cross-card legs), phases 1, 2, 11 and 12, or phases 1-5, 11 and 12 (every
+path that runs the fused G2 ladder: a checkout's kernels against
+another's), and end with the card line and ``{"ok": true, ...}`` without
+the ``kernels`` object.
 """
 
 from __future__ import annotations
@@ -217,7 +225,7 @@ MACS_PER_ROW = {
 # Fq2 square in hash-to-G2 (2 draws x 128), the Fq12 product in the Miller
 # loop (129 pairs); the Fq6 product runs only in the final exponentiation.
 SHAPES = {
-    "lad1": (512,), "lad2": (512,), "lad3": (512,),
+    "lad1": (512,), "lad2": (2560, 512), "lad3": (2560, 512),
     "tower_fq2_mul": (1, 12 * (BUCKET + 1)),
     "tower_fq2_sqr": (1, 2 * BUCKET),
     "tower_fq6_mul": (1,),
@@ -226,6 +234,11 @@ SHAPES = {
     "library_fq2_mul": (4, 12 * (BUCKET + 1)),
 }
 FUSED_SHAPES = (512, 2560)
+# the redesigned cooperative kernels (one block per row): also held at these
+# row counts (a single row; one past the ladder's 512) and on inputs at the
+# digit bounds, untimed
+COOP = ("lad2", "lad3")
+COOP_CHECK_ROWS = (1, 37, 513)
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
@@ -307,6 +320,21 @@ def kernel_inputs(kernel, rows: int, rng: np.random.Generator, dev):
     return out
 
 
+def edge_inputs(kernel, rows: int, rng: np.random.Generator, dev):
+    """Seeded inputs at the digit bounds: every digit of row 0 at its
+    input's bound (2^22 - 1 loose, 256 semi-strict), and in the other rows
+    each digit at the bound or random, with even odds."""
+    shape = (rows,) + kernel.tail
+    out = []
+    for i in range(kernel.n_in):
+        top = (1 << 22) - 1 if i < kernel.loose_in else 256
+        a = rng.integers(0, top + 1, size=shape)
+        a = np.where(rng.random(shape) < 0.5, top, a).astype(np.float32)
+        a[0] = top
+        out.append(torch.from_numpy(a).to(dev))
+    return out
+
+
 def run_registry(dev, card: str) -> dict:
     """The library kernel's path: every entry of the kernel registry run
     once on the card at its example shapes, every launch counter 0 just
@@ -343,6 +371,42 @@ def run_registry(dev, card: str) -> dict:
     return launches
 
 
+def held_against_plain(k, ins, what: str) -> float:
+    """Launch kernel k on ins and fail unless it equals its plain version
+    bitwise with semi-strict digits; returns max |kernel - plain| (0)."""
+    got = k.launch(*ins)
+    torch.cuda.synchronize()
+    want = k.plain(*ins)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    semi = max(float(g.max()) for g in got)
+    if err != 0.0 or semi > 256:
+        raise AssertionError(f"kernel {k.name} {what}: max |kernel - plain| = {err}, "
+                             f"max digit {semi}")
+    return err
+
+
+def check_coop(k, rng, dev, card: str) -> None:
+    """A redesigned kernel at the row counts of COOP_CHECK_ROWS and, on
+    inputs at the digit bounds, also at its timed shapes, CHECKS seeds
+    each."""
+    from lodestar_tpu_torch.ops.kernels import _build
+
+    for rows in COOP_CHECK_ROWS:
+        for _ in range(CHECKS):
+            held_against_plain(k, kernel_inputs(k, rows, rng, dev), f"at {rows} rows")
+    for rows in COOP_CHECK_ROWS + SHAPES[k.name]:
+        for _ in range(CHECKS):
+            held_against_plain(k, edge_inputs(k, rows, rng, dev),
+                               f"at {rows} rows, inputs at the bounds")
+    # an older checkout's one-thread kernels (a comparison run) have no size
+    smem = getattr(_build.load(), f"smem_bytes_{k.name}", None)
+    layout = (f"one block per row, {smem()} B of dynamic shared memory a block" if smem
+              else "one thread per row")
+    log(f"kernel {k.name}: bitwise equal to plain at {COOP_CHECK_ROWS} rows and, inputs at "
+        f"the digit bounds, at {COOP_CHECK_ROWS + SHAPES[k.name]} rows, {CHECKS} seeds each; "
+        f"{layout} [{card}]")
+
+
 def check_kernels(dev, card: str):
     from lodestar_tpu_torch.ops import fused_ladder, library_fuse, tower_kernels  # noqa: F401
     from lodestar_tpu_torch.ops.fused_core import KERNELS
@@ -350,18 +414,14 @@ def check_kernels(dev, card: str):
     rng = np.random.default_rng(SEED)
     results = {}
     for name, k in KERNELS.items():
+        if name in COOP:
+            check_coop(k, rng, dev, card)
+        by_rows = {}
         for rows in SHAPES.get(name, FUSED_SHAPES):
             err = 0.0
             for _ in range(CHECKS):
                 ins = kernel_inputs(k, rows, rng, dev)
-                got = k.launch(*ins)
-                torch.cuda.synchronize()
-                want = k.plain(*ins)
-                err = max([err] + [float((g - w).abs().max()) for g, w in zip(got, want)])
-                semi = max(float(g.max()) for g in got)
-                if err != 0.0 or semi > 256:
-                    raise AssertionError(f"kernel {name} at {rows} rows: max |kernel - plain| "
-                                         f"= {err}, max digit {semi}")
+                err = max(err, held_against_plain(k, ins, f"at {rows} rows"))
             ms = graph_ms(lambda: k.launch(*ins))
             plain_ms = graph_ms(lambda: k.plain(*ins), reps=3)
             issue = issue_ms(lambda: k.launch(*ins))
@@ -369,8 +429,9 @@ def check_kernels(dev, card: str):
             log(f"kernel {name} rows={rows}: bitwise equal to plain; device {ms:.4f} ms "
                 f"(plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by}; "
                 f"eager issue {issue:.4f} ms) [{card}]")
+            by_rows[rows] = dict(ms=ms, bound_ms=b_ms)
             results[name] = dict(rows=rows, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by, issue_ms=issue)
+                                 bound_ms=b_ms, bound_by=b_by, issue_ms=issue, by_rows=by_rows)
     return results
 
 
@@ -538,6 +599,74 @@ def profile_dispatch(packed, verifier, dispatch_s: float, card: str, kernels, pa
     return idle
 
 
+def ladder_stretch(verifier, packed, card: str) -> dict:
+    """The merged G2 ladder's stretch of one fused dispatch (the 128
+    iterations of ``point_mul_bits_ladder``), bracketed by two marker
+    kernels (``torch.cuda._sleep``, which nothing else launches): the host's
+    wall across the call (its enqueue), the device's span from the end of
+    the first marker to the start of the second and the device busy time
+    of the kernels and copies between them, from one profiled dispatch;
+    the host wall and the span by CUDA events of one unprofiled dispatch.
+    The stretch is device-bound when the device is busy through its span
+    while the host finishes issuing well before the span ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lodestar_tpu_torch.ops import fused_verify
+
+    inner = fused_verify.point_mul_bits_ladder
+    seen = {}
+
+    def marked(*args, **kwargs):
+        torch.cuda._sleep(1)
+        seen["e0"].record()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        seen["host_ms"] = (time.perf_counter() - t0) * 1e3
+        seen["e1"].record()
+        torch.cuda._sleep(1)
+        return out
+
+    runs = {}
+    fused_verify.point_mul_bits_ladder = marked
+    try:
+        for profiled in (False, True):
+            seen.update(e0=torch.cuda.Event(enable_timing=True),
+                        e1=torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    ok = verifier.dispatch(packed).result()
+                    torch.cuda.synchronize()
+            else:
+                ok = verifier.dispatch(packed).result()
+                torch.cuda.synchronize()
+            if not ok:
+                raise AssertionError("ladder stretch: the batch did not verify")
+            runs[profiled] = dict(host_ms=seen["host_ms"],
+                                  span_ms=seen["e0"].elapsed_time(seen["e1"]))
+    finally:
+        fused_verify.point_mul_bits_ladder = inner
+    evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    marks = [i for i, ev in enumerate(evs) if "spin_kernel" in ev.name]
+    if len(marks) != 2:
+        raise AssertionError(f"ladder stretch: expected 2 marker kernels, saw {len(marks)}")
+    inside = evs[marks[0] + 1:marks[1]]
+    span_ms = (evs[marks[1]].time_range.start - evs[marks[0]].time_range.end) / 1e3
+    busy = sum(ev.time_range.end - ev.time_range.start for ev in inside) / 1e3
+    ours = sum(ev.time_range.end - ev.time_range.start for ev in inside
+               if ev.name.split("(")[0] in {f"{n}_k" for n in FUSED}) / 1e3
+    out = {"card": card, "host_wall_ms": runs[False]["host_ms"],
+           "device_span_ms": runs[False]["span_ms"],
+           "profiled_host_wall_ms": runs[True]["host_ms"],
+           "profiled_device_span_ms": span_ms, "device_busy_ms": busy,
+           "port_kernels_device_ms": ours, "device_ops_in_window": len(inside),
+           "device_idle_share_of_span": 1.0 - busy / span_ms}
+    log("fused ladder stretch: " + json.dumps(out))
+    return out
+
+
 # -- phases 3-5: the fused path ----------------------------------------------
 
 
@@ -573,8 +702,10 @@ def run_fused(dev, card: str, pool, keys, sets):
         fresh = [make_sets(pool, keys, b"timed %d" % r) for r in range(4)]
         rate, dispatch_s = time_batches(verifier, fresh[:3], "fused", card)
     with Phase("5 fused profile"):
-        idle = profile_dispatch(verifier.pack(fresh[3]), verifier, dispatch_s, card, FUSED,
+        packed = verifier.pack(fresh[3])
+        idle = profile_dispatch(packed, verifier, dispatch_s, card, FUSED,
                                 "fused", [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        ladder_stretch(verifier, packed, card)
     return launches, rate, idle
 
 
@@ -1131,7 +1262,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 2
-    mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split"}.get(tuple(argv))
+    mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split",
+            ("--fused-only",): "fused"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1161,19 +1293,20 @@ def main(argv) -> int:
             sets = make_sets(pool, keys[:BUCKET], b"slice")
             log(f"slice: built {BUCKET} signature sets in {procs} host processes in "
                 f"{time.perf_counter() - t0:.1f} s")
-        if mode == "all":
+        if mode in ("all", "fused"):
             fused_launches, fused_rate, fused_idle = run_fused(dev, card, pool, keys[:BUCKET], sets)
+        if mode == "all":
             xla_launches, xla_rate, xla_idle = run_xla(dev, card, pool, keys[:BUCKET], sets)
             log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} "
                 f"of the dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the "
                 f"dispatch [{card}]")
-        if mode != "split":
+        if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
         t0 = time.perf_counter()
         sets256 = make_sets(pool, keys, b"sharded slice")
         log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes in "
             f"{time.perf_counter() - t0:.1f} s")
-        if mode != "split":
+        if mode in ("all", "sharded"):
             verifier, sharded_launches, sharded_xla_launches = run_sharded(dev, card, sets256)
             times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
             log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
@@ -1183,7 +1316,7 @@ def main(argv) -> int:
         if mode != "sharded":
             split = run_split(dev, card, pool, keys, sets, sets256)
             pooled = run_pool(dev, card, pool, keys)
-            full = f"{fused_rate} sets/s" if mode == "all" else "not run"
+            full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
             log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s beside the full-device "
                 f"{full} (phase 4); split sharded {split['sharded_rate']} sets/s at bucket "
                 f"{SHARDED_BUCKET}; pool {pooled['rate']} sets/s, {pooled['batches']} batches, "
@@ -1192,7 +1325,8 @@ def main(argv) -> int:
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
-        print(json.dumps({"ok": True, "phases": "1, 8-10" if mode == "sharded" else "1, 2, 11, 12",
+        phases = {"sharded": "1, 8-10", "split": "1, 2, 11, 12", "fused": "1-5, 11, 12"}[mode]
+        print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
         return 0
@@ -1227,6 +1361,7 @@ def main(argv) -> int:
             "library_ms": None,
             "rows": r["rows"],
             "issue_ms": r["issue_ms"],
+            "by_rows": r["by_rows"],
             "launches_by_path": by_path(name),
         })
     hop = ring[2]

@@ -12,8 +12,9 @@
 // the shift x >> 8.
 //
 // The functions are __host__ __device__: the kernels in fused_kernels.cu
-// call the row_* bodies at the bottom, and host_shim.cpp builds the very
-// same bodies with g++ for the CPU parity test.
+// call the row_* bodies at the bottom (lad2 and lad3 the cooperative
+// bodies of field_coop.cuh, over the same steps), and host_shim.cpp builds
+// the very same bodies with g++ for the CPU parity test.
 
 #pragma once
 
@@ -172,12 +173,6 @@ LF_HD void fq2_sub(const fq2 a, const fq2 b, fq2 out, const int* K) {
   sub(a[1], b[1], out[1], K);
 }
 
-template <int BITS>
-LF_HD void fq2_scale(const fq2 a, int k, fq2 out, const int* K) {
-  scale<BITS>(a[0], k, out[0], K);
-  scale<BITS>(a[1], k, out[1], K);
-}
-
 // -- loads and stores of one row ------------------------------------------
 
 LF_HD void load(const float* p, int* x) {
@@ -258,7 +253,7 @@ LF_CALL void canon(const int* xin, int* out, const int* K) {
   for (int k = 0; k < NL; ++k) out[k] = r[k];
 }
 
-// -- the ten row bodies -------------------------------------------------------
+// -- the eight one-thread row bodies ---------------------------------------------
 // in[i] / out[i] point at (N, 50) or (N, 2, 50) float32 arrays; each body
 // computes one row.
 
@@ -363,116 +358,6 @@ LF_HD void row_lad1(const float* const* in, float* const* out, int row, const in
   store2(out[6] + o, r);
   fq2_mul(y2, z2, r, K);
   store2(out[7] + o, r);
-}
-
-// fused_ladder._lad2_k. in: x1 y1 x2 y2 (loose) z1z1 z2z2 a1 bb1 a2 bb2
-// (semi-strict); out: u1 u2 s1y s2y, then e x3 dmx c8 for each doubling
-LF_HD void row_lad2(const float* const* in, float* const* out, int row, const int* K) {
-  const int o = row * 2 * NL;
-  fq2 x1, y1, x2, y2, z1z1, z2z2, r;
-  load2_fold(in[0] + o, x1, K);
-  load2_fold(in[1] + o, y1, K);
-  load2_fold(in[2] + o, x2, K);
-  load2_fold(in[3] + o, y2, K);
-  load2(in[4] + o, z1z1);
-  load2(in[5] + o, z2z2);
-  fq2_mul(x1, z2z2, r, K);
-  store2(out[0] + o, r);
-  fq2_mul(x2, z1z1, r, K);
-  store2(out[1] + o, r);
-  fq2_mul(y1, z2z2, r, K);
-  store2(out[2] + o, r);
-  fq2_mul(y2, z1z1, r, K);
-  store2(out[3] + o, r);
-  for (int d = 0; d < 2; ++d) {
-    fq2 a, bb, e, xbb, xbb2, cc, f, ac, dh, dd, d2, x3, dmx, c8;
-    load2(in[6 + 2 * d] + o, a);
-    load2(in[7 + 2 * d] + o, bb);
-    fq2_scale<10>(a, 3, e, K);
-    fq2_add(d == 0 ? x1 : x2, bb, xbb, K);
-    fq2_sqr(xbb, xbb2, K);
-    fq2_sqr(bb, cc, K);
-    fq2_sqr(e, f, K);
-    fq2_add(a, cc, ac, K);
-    fq2_sub(xbb2, ac, dh, K);
-    fq2_scale<10>(dh, 2, dd, K);
-    fq2_scale<10>(dd, 2, d2, K);
-    fq2_sub(f, d2, x3, K);
-    fq2_sub(dd, x3, dmx, K);
-    fq2_scale<12>(cc, 8, c8, K);
-    store2(out[4 + 4 * d] + o, e);
-    store2(out[5 + 4 * d] + o, x3);
-    store2(out[6 + 4 * d] + o, dmx);
-    store2(out[7 + 4 * d] + o, c8);
-  }
-}
-
-// fused_ladder._lad3_k. in: z1 z2 (loose) u1 u2 s1y s2y z1z1 z2z2, then
-// e dmx c8 yz for each doubling (semi-strict);
-// out: x3 y3 z3 h sd y3d1 z3d1 y3d2 z3d2
-LF_HD void row_lad3(const float* const* in, float* const* out, int row, const int* K) {
-  const int o = row * 2 * NL;
-  fq2 z1, z2, u1, t, s1f, s2f, h, sd, rr, hh, i2, r2, j, v, x3;
-  load2_fold(in[0] + o, z1, K);
-  load2_fold(in[1] + o, z2, K);
-  load2(in[2] + o, u1);
-  load2(in[4] + o, t);
-  fq2_mul(t, z2, s1f, K);
-  load2(in[5] + o, t);
-  fq2_mul(t, z1, s2f, K);
-  load2(in[3] + o, t);
-  fq2_sub(t, u1, h, K);
-  fq2_sub(s2f, s1f, sd, K);
-  fq2_scale<10>(sd, 2, rr, K);
-  fq2_scale<10>(h, 2, hh, K);
-  fq2_sqr(hh, i2, K);
-  fq2_sqr(rr, r2, K);
-  fq2_mul(h, i2, j, K);
-  fq2_mul(u1, i2, v, K);
-  {
-    fq2 jv2;
-    for (int c = 0; c < 2; ++c) {
-      int s[NL];
-      for (int k = 0; k < NL; ++k) s[k] = j[c][k] + v[c][k] + v[c][k];
-      fold<NL, 10>(s, jv2[c], K);
-    }
-    fq2_sub(r2, jv2, x3, K);
-  }
-  {
-    fq2 vmx, rvx, s1j, s1j2, y3;
-    fq2_sub(v, x3, vmx, K);
-    fq2_mul(rr, vmx, rvx, K);
-    fq2_mul(s1f, j, s1j, K);
-    fq2_scale<10>(s1j, 2, s1j2, K);
-    fq2_sub(rvx, s1j2, y3, K);
-    store2(out[1] + o, y3);
-  }
-  {
-    fq2 zsum, zsum2, zz, z1z1, z2z2, zd, z3;
-    fq2_add(z1, z2, zsum, K);
-    fq2_sqr(zsum, zsum2, K);
-    load2(in[6] + o, z1z1);
-    load2(in[7] + o, z2z2);
-    fq2_add(z1z1, z2z2, zz, K);
-    fq2_sub(zsum2, zz, zd, K);
-    fq2_mul(zd, h, z3, K);
-    store2(out[2] + o, z3);
-  }
-  store2(out[0] + o, x3);
-  store2(out[3] + o, h);
-  store2(out[4] + o, sd);
-  for (int d = 0; d < 2; ++d) {
-    fq2 e, dmx, ed, c8, y3d, yz, z3d;
-    load2(in[8 + 4 * d] + o, e);
-    load2(in[9 + 4 * d] + o, dmx);
-    fq2_mul(e, dmx, ed, K);
-    load2(in[10 + 4 * d] + o, c8);
-    fq2_sub(ed, c8, y3d, K);
-    store2(out[5 + 2 * d] + o, y3d);
-    load2(in[11 + 4 * d] + o, yz);
-    fq2_scale<10>(yz, 2, z3d, K);
-    store2(out[6 + 2 * d] + o, z3d);
-  }
 }
 
 }  // namespace lf

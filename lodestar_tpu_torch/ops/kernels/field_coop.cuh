@@ -1,0 +1,562 @@
+// Cooperative BLS12-381 field arithmetic for the G2 ladder's round kernels
+// lad2 and lad3: one thread block per row, one warp per Fq step, the
+// digits of a step across the warp's 32 lanes, every value of the row in
+// shared memory.
+//
+// Layout.  A block holds one ladder row: the constant table (staged once),
+// the row's inputs, its outputs and every intermediate, as int32 digits in
+// one shared-memory struct (Lad2, Lad3 below: 48,204 B with 8 warps), with
+// a scratch area of 462 ints per warp.  No step keeps a digit array in
+// local memory.
+//
+// One step on one warp (lane = threadIdx.x & 31):
+//   - the 50x50 digit product: lane k sums the anti-diagonal columns k and
+//     50 + k, i.e. a_i * b_((k - i) mod 50) for i = 0..49 into column k
+//     (i <= k) or 50 + k (i > k): 50 multiply-adds per column pair, the 50
+//     pairs spread over the 32 lanes;
+//   - each carry pass: digit i becomes lo(x_i) + hi(x_(i-1)), read from one
+//     buffer and written to another, so a lane reads its neighbour's old
+//     digit from shared memory;
+//   - the fold: lane j sums h_r * RED[r][j] over the folded rows r.
+// The steps are separated by __syncwarp(); the row's stages (the sets of
+// independent steps, each on its own warp: "the schedule" beside each
+// kernel body) by __syncthreads().
+//
+// Why this equals field.cuh digit for digit.  carry_pass reads only the old
+// x_(i-1) (it walks i downwards), so a pass that reads one buffer and writes
+// another is that loop.  Every column sum, fold sum and carry is an integer
+// below 2^24 (the bounds of field.cuh's header: products of semi-strict
+// digits summed 50 at a time, <= 50 * 512^2 < 2^24), so int32 sums taken
+// in any order are the same integers.  Each step here takes the same
+// input, carry-pass count, fold width and truncation as its field.cuh twin
+// (fold<W, BITS>, mul, add, sub, scale), and every stage runs the steps of
+// the serial body on values that the earlier stages have finished.
+//
+// The same source runs on the CPU (host_shim.cpp, built with g++ for the
+// parity test): there LC_LANE_FOR walks every lane's index in turn, the
+// block's warps run one after the other, stage by stage, and the syncs are
+// no-ops.  That is the parallel run because within one step no lane reads
+// a location that another lane writes, and within one stage no warp reads
+// what another warp writes.  -DLC_HOST_REVERSED walks lanes and warps in
+// the opposite order; the parity test builds both orders, so a step that
+// broke either rule would show as a difference.
+//
+// Calls and registers.  The two heavy steps, mul and fold (one instance a
+// carry bound), are real calls (LC_STEP): inlined into the twelve stages
+// of lad3 they made a body that ptxas held at 128 registers with spills,
+// two blocks a SM.  The rest is inlined (LC_HD); no step keeps an array of
+// its own.  ptxas sizes the registers for LF_COOP_MIN_BLOCKS = 4 blocks a
+// SM, as many as the shared memory admits (64 registers, a spill of a few
+// hundred bytes), which ran faster on the H100 than the uncapped build at
+// two or three blocks a SM.
+
+#pragma once
+
+#include "field.cuh"
+
+#ifndef LF_COOP_WARPS
+#define LF_COOP_WARPS 8  // another count only for the card tests' variants
+#endif
+#ifndef LF_COOP_MIN_BLOCKS
+#define LF_COOP_MIN_BLOCKS 4  // blocks a SM that ptxas sizes the registers for
+#endif
+
+#define LC_HD static __host__ __device__ __forceinline__
+#define LC_MHD __host__ __device__ __forceinline__
+#define LC_STEP static __host__ __device__ __noinline__
+
+#ifdef __CUDA_ARCH__
+#define LC_UNROLL _Pragma("unroll 10")  // the product's and the fold's walks
+#define LC_LANE_FOR(i, n) for (int i = (int)(threadIdx.x & 31u); i < (n); i += 32)
+#define LC_BLOCK_FOR(i, n) for (int i = (int)threadIdx.x; i < (n); i += (int)blockDim.x)
+#define LC_SYNC_WARP() __syncwarp()
+#define LC_SYNC_BLOCK() __syncthreads()
+#elif defined(LC_HOST_REVERSED)
+#define LC_UNROLL
+#define LC_LANE_FOR(i, n) for (int i = (n) - 1; i >= 0; --i)
+#define LC_BLOCK_FOR(i, n) for (int i = (n) - 1; i >= 0; --i)
+#define LC_SYNC_WARP() ((void)0)
+#define LC_SYNC_BLOCK() ((void)0)
+#else
+#define LC_UNROLL
+#define LC_LANE_FOR(i, n) for (int i = 0; i < (n); ++i)
+#define LC_BLOCK_FOR(i, n) for (int i = 0; i < (n); ++i)
+#define LC_SYNC_WARP() ((void)0)
+#define LC_SYNC_BLOCK() ((void)0)
+#endif
+
+namespace lfc {
+
+using lf::NL;
+constexpr int NW = LF_COOP_WARPS;
+constexpr int THREADS = 32 * NW;
+constexpr int MIN_BLOCKS = LF_COOP_MIN_BLOCKS;
+constexpr int F2 = 2 * NL;   // one Fq2 value: component 0, then component 1
+
+// one warp's scratch: two carry buffers as wide as a product (101 digits,
+// padded), two for the fold's 52 output columns, the first operand's sum
+// and the second operand twice over (so that a lane's b_((k - i) mod 50)
+// is one address, the warp's 32 reads 32 consecutive words)
+constexpr int X0 = 0, X1 = 104, Y0 = 208, Y1 = 260, SA = 312, SB = 362;
+constexpr int SCR = SB + 2 * NL;
+
+// -- one warp's steps ---------------------------------------------------------
+
+// One carry pass src -> dst over w digits; the top carry is dropped.
+LC_HD void carry(const int* src, int* dst, int w) {
+  LC_LANE_FOR(i, w) dst[i] = i == 0 ? (src[0] & 255) : (src[i] & 255) + (src[i - 1] >> 8);
+  LC_SYNC_WARP();
+}
+
+// The fold proper on W2 carried digits x: digits 49.. through the RED
+// rows into 52 columns, then the carry passes at bound 22, the last of
+// which writes the 50 digits to out.
+template <int W2>
+LC_HD void reduce(const int* x, int* out, int* S, const int* K) {
+  constexpr int PASSES_OUT = lf::carry_passes(22);
+  static_assert(PASSES_OUT % 2 == 1, "the passes below alternate y0 -> y1 -> y0");
+  int* y0 = S + Y0;
+  int* y1 = S + Y1;
+  // lane l sums columns l and l + 32 in one walk over the rows
+  LC_LANE_FOR(l, 32) {
+    const int j2 = l + 32;
+    int y = x[l];
+    int y2 = j2 < NL - 1 ? x[j2] : 0;
+    LC_UNROLL
+    for (int r = 0; r < W2 - (NL - 1); ++r) {
+      const int h = x[NL - 1 + r];
+      const int* red = K + lf::K_RED + r * NL;
+      y += h * red[l];
+      if (j2 < NL) y2 += h * red[j2];
+    }
+    y0[l] = y;
+    if (j2 < NL + 2) y0[j2] = y2;
+  }
+  LC_SYNC_WARP();
+  for (int p = 0; p + 1 < PASSES_OUT; p += 2) {
+    carry(y0, y1, NL + 2);
+    carry(y1, y0, NL + 2);
+  }
+  LC_LANE_FOR(j, NL) out[j] = j == 0 ? (y0[0] & 255) : (y0[j] & 255) + (y0[j - 1] >> 8);
+  LC_SYNC_WARP();
+}
+
+// The input of a fold of 50 digits: digit j is ka a_j + kb b_j + kc c_j,
+// plus digit j of the bias-2^12 subtraction pad when pad is set (a null
+// pointer adds nothing).  A subtraction a + (pad - b) is ka = 1, kb = -1:
+// the same integer, every partial sum far inside int32.
+struct Lin {
+  const int *a, *b, *c;
+  int ka, kb, kc;
+  bool pad;
+  LC_MHD int operator()(int j, const int* K) const {
+    int v = ka * a[j];
+    if (b) v += kb * b[j];
+    if (c) v += kc * c[j];
+    return pad ? v + K[lf::K_PAD + j] : v;
+  }
+};
+
+// lf::fold<50, BITS> of the digits in(0..49); the first carry pass is taken
+// as the digits are formed.
+template <int BITS>
+LC_STEP void fold(Lin in, int* out, int* S, const int* K) {
+  constexpr int W = NL;
+  constexpr int W2 = W + lf::carry_extra(BITS);
+  constexpr int PASSES = lf::carry_passes(BITS);
+  static_assert(PASSES >= 1 && W2 <= X1 - X0, "fold outside the scratch layout");
+  int* a = S + X0;
+  int* b = S + X1;
+  LC_LANE_FOR(i, W2) {
+    const int v = i < W ? in(i, K) : 0;
+    a[i] = i == 0 ? (v & 255) : (v & 255) + ((i - 1 < W ? in(i - 1, K) : 0) >> 8);
+  }
+  LC_SYNC_WARP();
+  for (int p = 1; p < PASSES; ++p) {
+    carry(a, b, W2);
+    int* t = a;
+    a = b;
+    b = t;
+  }
+  reduce<W2>(a, out, S, K);
+}
+
+// lf::mul of (a + a2) and (b + b2) (a2, b2 may be null): the digit product,
+// then lf::fold<99, BITS + 6>, which is 101 columns and 3 passes for every
+// BITS the kernels use (16, 17, 18).
+LC_STEP void mul(const int* a, const int* a2, const int* b, const int* b2, int* out, int* S,
+                 const int* K) {
+  constexpr int W2 = 2 * NL - 1 + lf::carry_extra(22);
+  static_assert(lf::carry_extra(22) == lf::carry_extra(24) &&
+                    lf::carry_passes(22) == 3 && lf::carry_passes(24) == 3,
+                "mul<16..18> share one fold layout");
+  LC_LANE_FOR(j, NL) {
+    if (a2) S[SA + j] = a[j] + a2[j];
+    const int bj = b2 ? b[j] + b2[j] : b[j];
+    S[SB + j] = bj;
+    S[SB + NL + j] = bj;
+  }
+  LC_SYNC_WARP();
+  if (a2) a = S + SA;
+  const int* bb = S + SB + NL;  // bb[d] = b_(d mod 50) for d = -50..49
+  // lane l takes the column pairs k = l and k = l + 32 (lanes 0..17) in one
+  // walk over a: a_i b_((k - i) mod 50) goes to column k (i <= k) or 50 + k
+  int* x = S + X0;
+  LC_LANE_FOR(l, 32) {
+    const int k2 = l + 32;
+    int lo = 0, hi = 0, lo2 = 0, hi2 = 0;
+    LC_UNROLL
+    for (int i = 0; i < NL; ++i) {
+      const int ai = a[i];
+      const int t = ai * bb[l - i];
+      if (i <= l)
+        lo += t;
+      else
+        hi += t;
+      if (k2 < NL) {
+        const int t2 = ai * bb[k2 - i];
+        if (i <= k2)
+          lo2 += t2;
+        else
+          hi2 += t2;
+      }
+    }
+    x[l] = lo;
+    x[NL + l] = hi;
+    if (k2 < NL) {
+      x[k2] = lo2;
+      if (k2 < NL - 1) x[NL + k2] = hi2;
+    }
+    if (l < W2 - (2 * NL - 1)) x[2 * NL - 1 + l] = 0;  // the carry's headroom columns
+  }
+  LC_SYNC_WARP();
+  carry(S + X0, S + X1, W2);
+  carry(S + X1, S + X0, W2);
+  carry(S + X0, S + X1, W2);
+  reduce<W2>(S + X1, out, S, K);
+}
+
+// the inputs of the folds
+LC_HD Lin raw(const int* a) { return Lin{a, nullptr, nullptr, 1, 0, 0, false}; }
+LC_HD Lin add(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 1, 0, false}; }
+LC_HD Lin sub(const int* a, const int* b) { return Lin{a, b, nullptr, 1, -1, 0, true}; }
+LC_HD Lin sub_sum(const int* a, const int* b, const int* c) {  // a + (pad - (b + c))
+  return Lin{a, b, c, 1, -1, -1, true};
+}
+LC_HD Lin scale(const int* a, int k) { return Lin{a, nullptr, nullptr, k, 0, 0, false}; }
+LC_HD Lin add_twice(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 2, 0, false}; }
+
+// -- the block: which warp runs which step ------------------------------------
+
+// A stage is walked twice: its products first, then its folds, numbered
+// on from the products; step t runs on warp t % NW, in that warp's
+// scratch.  So the heavy steps of a stage go to distinct warps.
+struct Ctx {
+  int* scr;
+  const int* K;
+  int warp;
+  int pass;  // 0: products, 1: folds
+  int t;
+  LC_MHD bool take(int kind, int*& S) {
+    if (kind != pass) return false;
+    const int w = t++ % NW;
+    S = scr + w * SCR;
+    return w == warp;
+  }
+};
+
+LC_HD void t_mul(Ctx& c, const int* a, const int* a2, const int* b, const int* b2, int* out) {
+  int* S;
+  if (c.take(0, S)) mul(a, a2, b, b2, out, S, c.K);
+}
+
+template <int BITS>
+LC_HD void t_fold(Ctx& c, Lin in, int* out) {
+  int* S;
+  if (c.take(1, S)) fold<BITS>(in, out, S, c.K);
+}
+
+// Fq2 values, one step a component.
+LC_HD void fold2_entry(Ctx& c, const int* a, int* out) {  // loose -> semi-strict
+  for (int h = 0; h < F2; h += NL) t_fold<22>(c, raw(a + h), out + h);
+}
+LC_HD void add2(Ctx& c, const int* a, const int* b, int* out) {
+  for (int h = 0; h < F2; h += NL) t_fold<10>(c, add(a + h, b + h), out + h);
+}
+LC_HD void sub2(Ctx& c, const int* a, const int* b, int* out) {
+  for (int h = 0; h < F2; h += NL) t_fold<13>(c, sub(a + h, b + h), out + h);
+}
+template <int BITS>
+LC_HD void scale2(Ctx& c, const int* a, int k, int* out) {
+  for (int h = 0; h < F2; h += NL) t_fold<BITS>(c, scale(a + h, k), out + h);
+}
+
+// lf::fq2_mul in two stages through t (3 x 50): the three Karatsuba
+// products, then out0 = t0 - t1 and out1 = t2 - (t0 + t1).
+LC_HD void fq2mul_products(Ctx& c, const int* a, const int* b, int* t) {
+  t_mul(c, a, nullptr, b, nullptr, t);
+  t_mul(c, a + NL, nullptr, b + NL, nullptr, t + NL);
+  t_mul(c, a, a + NL, b, b + NL, t + 2 * NL);
+}
+LC_HD void fq2mul_finish(Ctx& c, const int* t, int* out) {
+  t_fold<13>(c, sub(t, t + NL), out);
+  t_fold<13>(c, sub_sum(t + 2 * NL, t, t + NL), out + NL);
+}
+
+// lf::fq2_sqr in two stages through t (d, then m): m = a0 a1 and
+// d = a0 - a1, then out0 = (a0 + a1) d and out1 = 2m.
+LC_HD void fq2sqr_products(Ctx& c, const int* a, int* t) {
+  t_mul(c, a, nullptr, a + NL, nullptr, t + NL);
+  t_fold<13>(c, sub(a, a + NL), t);
+}
+LC_HD void fq2sqr_finish(Ctx& c, const int* a, const int* t, int* out) {
+  t_mul(c, a, a + NL, t, nullptr, out);
+  t_fold<10>(c, scale(t + NL, 2), out + NL);
+}
+
+// -- loads, stores, and the run of a row's stages -------------------------------
+
+LC_HD void load_row(const int* K, const float* const* in, int nin, int row, int* consts,
+                    int* rows) {
+  LC_BLOCK_FOR(i, lf::K_LEN) consts[i] = K[i];
+  LC_BLOCK_FOR(i, nin * F2) {
+    const int k = i / F2;
+    rows[i] = (int)in[k][row * F2 + (i - k * F2)];
+  }
+  LC_SYNC_BLOCK();
+}
+
+LC_HD void store_row(const int* rows, int nout, float* const* out, int row) {
+  LC_BLOCK_FOR(i, nout * F2) {
+    const int k = i / F2;
+    out[k][row * F2 + (i - k * F2)] = (float)rows[i];
+  }
+}
+
+// Run stage(st, c) for st = 0..nstages-1, its products, then its folds:
+// on the card every warp runs its own steps of a stage, then the block
+// syncs; on the CPU the warps run one after the other.
+template <class Stage>
+LC_HD void run_stages(Ctx& c, int nstages, Stage stage) {
+  for (int st = 0; st < nstages; ++st) {
+#ifdef __CUDA_ARCH__
+    c.warp = (int)(threadIdx.x >> 5);
+    c.t = 0;
+    for (c.pass = 0; c.pass < 2; ++c.pass) stage(st, c);
+    LC_SYNC_BLOCK();
+#else
+    for (int i = 0; i < NW; ++i) {
+#ifdef LC_HOST_REVERSED
+      c.warp = NW - 1 - i;
+#else
+      c.warp = i;
+#endif
+      c.t = 0;
+      for (c.pass = 0; c.pass < 2; ++c.pass) stage(st, c);
+    }
+#endif
+  }
+}
+
+// -- fused_ladder._lad2_k ------------------------------------------------------
+
+// in: x1 y1 x2 y2 (loose) z1z1 z2z2 a1 bb1 a2 bb2 (semi-strict);
+// out: u1 u2 s1y s2y, then e x3 dmx c8 for each doubling d
+struct Lad2 {
+  int K[lf::K_LEN];
+  int in[10][F2];
+  int out[12][F2];
+  int xy[4][F2];                    // x1 y1 x2 y2, folded
+  int qc[2][F2], qf[2][F2], qx[2][F2];  // square temporaries of cc, f, xbb2
+  int cc[2][F2], f[2][F2], xbb[2][F2], xbb2[2][F2], ac[2][F2], dh[2][F2], dd[2][F2],
+      d2[2][F2];
+  int tu[4][3 * NL];                // product temporaries of u1 u2 s1y s2y
+  int scr[NW * SCR];
+};
+
+// The schedule (products per stage, on distinct warps; S = Fq step):
+//   0: cc = bb^2 (products) x2; fold x1 y1 x2 y2; e = 3a x2        2 mul + 14 S
+//   1: f = e^2 (products) x2, cc (finish) x2, u1 (products),
+//      xbb = x + bb x2                                             7 mul + 8 S
+//   2: xbb2 = xbb^2 (products) x2, f (finish) x2, u2 (products),
+//      ac = a + cc x2                                              7 mul + 8 S
+//   3: xbb2 (finish) x2, s1y, s2y (products), u1, u2 (finish)      8 mul + 6 S
+//   4: dh = xbb2 - ac x2, s1y, s2y (finish), c8 = 8cc x2           12 S
+//   5: dd = 2dh; 6: d2 = 2dd; 7: x3 = f - d2; 8: dmx = dd - x3     4 S each
+struct Lad2Stages {
+  Lad2* s;
+  LC_MHD void operator()(int st, Ctx& c) const {
+    Lad2& r = *s;
+    const int* z1z1 = r.in[4];
+    const int* z2z2 = r.in[5];
+    switch (st) {
+      case 0:
+        for (int d = 0; d < 2; ++d) fq2sqr_products(c, r.in[7 + 2 * d], r.qc[d]);
+        for (int k = 0; k < 4; ++k) fold2_entry(c, r.in[k], r.xy[k]);
+        for (int d = 0; d < 2; ++d) scale2<10>(c, r.in[6 + 2 * d], 3, r.out[4 + 4 * d]);
+        break;
+      case 1:
+        for (int d = 0; d < 2; ++d) fq2sqr_products(c, r.out[4 + 4 * d], r.qf[d]);
+        for (int d = 0; d < 2; ++d) fq2sqr_finish(c, r.in[7 + 2 * d], r.qc[d], r.cc[d]);
+        fq2mul_products(c, r.xy[0], z2z2, r.tu[0]);
+        for (int d = 0; d < 2; ++d) add2(c, r.xy[2 * d], r.in[7 + 2 * d], r.xbb[d]);
+        break;
+      case 2:
+        for (int d = 0; d < 2; ++d) fq2sqr_products(c, r.xbb[d], r.qx[d]);
+        for (int d = 0; d < 2; ++d) fq2sqr_finish(c, r.out[4 + 4 * d], r.qf[d], r.f[d]);
+        fq2mul_products(c, r.xy[2], z1z1, r.tu[1]);
+        for (int d = 0; d < 2; ++d) add2(c, r.in[6 + 2 * d], r.cc[d], r.ac[d]);
+        break;
+      case 3:
+        for (int d = 0; d < 2; ++d) fq2sqr_finish(c, r.xbb[d], r.qx[d], r.xbb2[d]);
+        fq2mul_products(c, r.xy[1], z2z2, r.tu[2]);
+        fq2mul_products(c, r.xy[3], z1z1, r.tu[3]);
+        fq2mul_finish(c, r.tu[0], r.out[0]);
+        fq2mul_finish(c, r.tu[1], r.out[1]);
+        break;
+      case 4:
+        for (int d = 0; d < 2; ++d) sub2(c, r.xbb2[d], r.ac[d], r.dh[d]);
+        fq2mul_finish(c, r.tu[2], r.out[2]);
+        fq2mul_finish(c, r.tu[3], r.out[3]);
+        for (int d = 0; d < 2; ++d) scale2<12>(c, r.cc[d], 8, r.out[7 + 4 * d]);
+        break;
+      case 5:
+        for (int d = 0; d < 2; ++d) scale2<10>(c, r.dh[d], 2, r.dd[d]);
+        break;
+      case 6:
+        for (int d = 0; d < 2; ++d) scale2<10>(c, r.dd[d], 2, r.d2[d]);
+        break;
+      case 7:
+        for (int d = 0; d < 2; ++d) sub2(c, r.f[d], r.d2[d], r.out[5 + 4 * d]);
+        break;
+      default:
+        for (int d = 0; d < 2; ++d) sub2(c, r.dd[d], r.out[5 + 4 * d], r.out[6 + 4 * d]);
+        break;
+    }
+  }
+};
+
+LC_HD void block_lad2(const float* const* in, float* const* out, int row, const int* K,
+                      Lad2& s) {
+  load_row(K, in, 10, row, s.K, s.in[0]);
+  Ctx c{s.scr, s.K, 0, 0, 0};
+  run_stages(c, 9, Lad2Stages{&s});
+  store_row(s.out[0], 12, out, row);
+}
+
+// -- fused_ladder._lad3_k ------------------------------------------------------
+
+// in: z1 z2 (loose) u1 u2 s1y s2y z1z1 z2z2, then e dmx c8 yz for each
+// doubling (semi-strict); out: x3 y3 z3 h sd y3d1 z3d1 y3d2 z3d2
+struct Lad3 {
+  int K[lf::K_LEN];
+  int in[16][F2];
+  int out[9][F2];
+  int z1[F2], z2[F2], zz[F2], hh[F2], zsum[F2], s1f[F2], s2f[F2], ed[2][F2], i2[F2],
+      zsum2[F2], rr[F2], zd[F2], j[F2], v[F2], r2[F2], jv2[F2], vmx[F2], s1j[F2], s1j2[F2],
+      rvx[F2];
+  int t[4][3 * NL];  // product temporaries, each reused once its finish has run
+  int q[2][F2];      // square temporaries
+  int scr[NW * SCR];
+};
+
+// The schedule (S = Fq step; h and sd are outputs):
+//   0: e1 dmx1, e2 dmx2 (products, t0 t1); fold z1 z2; h = u2 - u1;
+//      zz = z1z1 + z2z2; z3d = 2yz x2                              6 mul + 12 S
+//   1: s1f = s1y z2, s2f = s2y z1 (products, t2 t3); ed (finish) x2;
+//      hh = 2h; zsum = z1 + z2                                     6 mul + 8 S
+//   2: i2 = hh^2, zsum2 = zsum^2 (products, q0 q1); s1f, s2f (finish);
+//      y3d = ed - c8 x2                                            2 mul + 10 S
+//   3: i2, zsum2 (finish); sd = s2f - s1f                          2 mul + 4 S
+//   4: j = h i2, v = u1 i2 (products, t0 t1); rr = 2sd;
+//      zd = zsum2 - zz                                             6 mul + 4 S
+//   5: z3 = zd h (products, t2); r2 = rr^2 (products, q0);
+//      j, v (finish)                                               4 mul + 5 S
+//   6: s1j = s1f j (products, t3); r2, z3 (finish); jv2 = j + 2v   4 mul + 5 S
+//   7: x3 = r2 - jv2; s1j (finish)                                 4 S
+//   8: vmx = v - x3; s1j2 = 2 s1j                                  4 S
+//   9: rvx = rr vmx (products, t0)                                 3 mul
+//  10: rvx (finish); 11: y3 = rvx - s1j2                           2 S each
+struct Lad3Stages {
+  Lad3* s;
+  LC_MHD void operator()(int st, Ctx& c) const {
+    Lad3& r = *s;
+    int* x3 = r.out[0];
+    int* h = r.out[3];
+    int* sd = r.out[4];
+    switch (st) {
+      case 0:
+        for (int d = 0; d < 2; ++d) fq2mul_products(c, r.in[8 + 4 * d], r.in[9 + 4 * d], r.t[d]);
+        fold2_entry(c, r.in[0], r.z1);
+        fold2_entry(c, r.in[1], r.z2);
+        sub2(c, r.in[3], r.in[2], h);
+        add2(c, r.in[6], r.in[7], r.zz);
+        for (int d = 0; d < 2; ++d) scale2<10>(c, r.in[11 + 4 * d], 2, r.out[6 + 2 * d]);
+        break;
+      case 1:
+        fq2mul_products(c, r.in[4], r.z2, r.t[2]);
+        fq2mul_products(c, r.in[5], r.z1, r.t[3]);
+        for (int d = 0; d < 2; ++d) fq2mul_finish(c, r.t[d], r.ed[d]);
+        scale2<10>(c, h, 2, r.hh);
+        add2(c, r.z1, r.z2, r.zsum);
+        break;
+      case 2:
+        fq2sqr_products(c, r.hh, r.q[0]);
+        fq2sqr_products(c, r.zsum, r.q[1]);
+        fq2mul_finish(c, r.t[2], r.s1f);
+        fq2mul_finish(c, r.t[3], r.s2f);
+        for (int d = 0; d < 2; ++d) sub2(c, r.ed[d], r.in[10 + 4 * d], r.out[5 + 2 * d]);
+        break;
+      case 3:
+        fq2sqr_finish(c, r.hh, r.q[0], r.i2);
+        fq2sqr_finish(c, r.zsum, r.q[1], r.zsum2);
+        sub2(c, r.s2f, r.s1f, sd);
+        break;
+      case 4:
+        fq2mul_products(c, h, r.i2, r.t[0]);
+        fq2mul_products(c, r.in[2], r.i2, r.t[1]);
+        scale2<10>(c, sd, 2, r.rr);
+        sub2(c, r.zsum2, r.zz, r.zd);
+        break;
+      case 5:
+        fq2mul_products(c, r.zd, h, r.t[2]);
+        fq2sqr_products(c, r.rr, r.q[0]);
+        fq2mul_finish(c, r.t[0], r.j);
+        fq2mul_finish(c, r.t[1], r.v);
+        break;
+      case 6:
+        fq2mul_products(c, r.s1f, r.j, r.t[3]);
+        fq2sqr_finish(c, r.rr, r.q[0], r.r2);
+        fq2mul_finish(c, r.t[2], r.out[2]);
+        for (int hf = 0; hf < F2; hf += NL) t_fold<10>(c, add_twice(r.j + hf, r.v + hf), r.jv2 + hf);
+        break;
+      case 7:
+        sub2(c, r.r2, r.jv2, x3);
+        fq2mul_finish(c, r.t[3], r.s1j);
+        break;
+      case 8:
+        sub2(c, r.v, x3, r.vmx);
+        scale2<10>(c, r.s1j, 2, r.s1j2);
+        break;
+      case 9:
+        fq2mul_products(c, r.rr, r.vmx, r.t[0]);
+        break;
+      case 10:
+        fq2mul_finish(c, r.t[0], r.rvx);
+        break;
+      default:
+        sub2(c, r.rvx, r.s1j2, r.out[1]);
+        break;
+    }
+  }
+};
+
+LC_HD void block_lad3(const float* const* in, float* const* out, int row, const int* K,
+                      Lad3& s) {
+  load_row(K, in, 16, row, s.K, s.in[0]);
+  Ctx c{s.scr, s.K, 0, 0, 0};
+  run_stages(c, 12, Lad3Stages{&s});
+  store_row(s.out[0], 9, out, row);
+}
+
+}  // namespace lfc

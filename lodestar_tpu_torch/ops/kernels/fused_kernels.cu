@@ -1,23 +1,28 @@
 // The ten fused kernels of the batched BLS verification path, for Hopper
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of the JAX
-// package and runs the row body of the same name in field.cuh.
+// package.
 //
-// Design (first, simple version): one thread per row of the flat row
-// axis, 32 threads a block (the main path has only 512 to 2,560 rows, so
-// small blocks spread them over more SMs), every index checked against n.
-// A row's digits live in per-thread int32 arrays in local memory; the
-// 50x50 digit product is a plain schoolbook loop of int32 multiply-adds,
-// and the heavy steps are real calls rather than inlined copies.  There
-// is no shared memory and no tensor-core use.
+// Design of eight of them (first, simple version): one thread per row of
+// the flat row axis, 32 threads a block (the main path has only 512 to
+// 2,560 rows, so small blocks spread them over more SMs), every index
+// checked against n; each runs the row body of the same name in
+// field.cuh.  A row's digits live in per-thread int32 arrays in local
+// memory; the 50x50 digit product is a plain schoolbook loop of int32
+// multiply-adds, and the heavy steps are real calls rather than inlined
+// copies.  There is no shared memory and no tensor-core use.
+//
+// The G2 ladder's round kernels lad2 and lad3 (redesigned): one block per
+// row, one warp per Fq step, the digits across the lanes, the row and the
+// constant table in shared memory (field_coop.cuh).  The ladder has 512
+// rows, so one thread per row left 16 of the 132 SMs with one warp each.
 //
 // What bounds them on this card: integer multiply-add throughput.  An Fq
 // product is 2,500 digit multiply-adds for the schoolbook plus 2,600 for
 // the fold through the RED rows, against 400 bytes of input per operand
 // row, so every kernel but fold does hundreds of int32 operations per
-// byte it moves and sits on the operation side of the roofline.  In this
-// version each thread is bound by its own serial chain of local-memory
-// loads and stores instead; a warp per row, or tensor-core products of
-// the 8-bit digits, are the ways to approach the bound.
+// byte it moves and sits on the operation side of the roofline.  In the
+// one-thread version each thread is bound by its own serial chain of
+// local-memory loads and stores instead.
 //
 // Every launcher is extern "C" with a plain interface for ctypes: input
 // and output pointer arrays, the row count, the int32 constant table, the
@@ -149,22 +154,48 @@ __global__ void lad1_k(Ptrs p, int n, const int* __restrict__ K) {
 LF_LAUNCHER(lad1, 6, 8)
 #endif
 
+// One block of lfc::THREADS per row; the row's values, the constant table
+// and every warp's scratch in dynamic shared memory (lfc::Lad2 / Lad3; the
+// attribute admits a layout above 48 KB, as a build with more warps has).
+#define LF_COOP_LAUNCHER(NAME, NIN, NOUT, LAYOUT)                                 \
+  extern "C" int launch_##NAME(void* const* ins, void* const* outs, int n,        \
+                               const void* consts, void* stream) {                \
+    if (n <= 0) return 0;                                                         \
+    const Ptrs p = make_ptrs(ins, NIN, outs, NOUT);                               \
+    const int bytes = static_cast<int>(sizeof(lfc::LAYOUT));                      \
+    cudaError_t e = cudaFuncSetAttribute(                                         \
+        NAME##_k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);            \
+    if (e != cudaSuccess) return static_cast<int>(e);                             \
+    NAME##_k<<<n, lfc::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(      \
+        p, n, static_cast<const int*>(consts));                                   \
+    return static_cast<int>(cudaGetLastError());                                  \
+  }                                                                               \
+  extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(lfc::LAYOUT)); }
+
 #ifdef LF_KERNEL_lad2
+#include "field_coop.cuh"
 // Replaces fused_ladder.py _lad2_k: the u/s cross terms and the doubling
-// glue (e, x3, d - x3, 8c) of both doublings.  Operation-bound.
-__global__ void lad2_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_lad2(p.in, p.out, row, K);
+// glue (e, x3, d - x3, 8c) of both doublings, 24 Fq products a row, at
+// most 8 at once (the schedule beside lfc::Lad2Stages).  Operation-bound.
+__global__ void __launch_bounds__(lfc::THREADS, lfc::MIN_BLOCKS)
+    lad2_k(Ptrs p, int n, const int* __restrict__ K) {
+  extern __shared__ __align__(16) int smem[];
+  if ((int)blockIdx.x < n)
+    lfc::block_lad2(p.in, p.out, blockIdx.x, K, *reinterpret_cast<lfc::Lad2*>(smem));
 }
-LF_LAUNCHER(lad2, 10, 12)
+LF_COOP_LAUNCHER(lad2, 10, 12, Lad2)
 #endif
 
 #ifdef LF_KERNEL_lad3
+#include "field_coop.cuh"
 // Replaces fused_ladder.py _lad3_k: rounds 3-6 of the complete add and
-// y3/z3 of both doublings.  Operation-bound.
-__global__ void lad3_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_lad3(p.in, p.out, row, K);
+// y3/z3 of both doublings, 33 Fq products a row, at most 6 at once (the
+// schedule beside lfc::Lad3Stages).  Operation-bound.
+__global__ void __launch_bounds__(lfc::THREADS, lfc::MIN_BLOCKS)
+    lad3_k(Ptrs p, int n, const int* __restrict__ K) {
+  extern __shared__ __align__(16) int smem[];
+  if ((int)blockIdx.x < n)
+    lfc::block_lad3(p.in, p.out, blockIdx.x, K, *reinterpret_cast<lfc::Lad3*>(smem));
 }
-LF_LAUNCHER(lad3, 16, 9)
+LF_COOP_LAUNCHER(lad3, 16, 9, Lad3)
 #endif

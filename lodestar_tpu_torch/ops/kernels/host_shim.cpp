@@ -1,8 +1,13 @@
-// Host build of the kernels' row bodies (field.cuh, tower.cuh, limbs.cuh) with a plain C
-// interface, for the CPU parity test: the same arithmetic the CUDA
-// kernels run, looped over rows on the CPU.  Built with g++ by
+// Host build of the kernels' row bodies (field.cuh, field_coop.cuh, tower.cuh, limbs.cuh)
+// with a plain C interface, for the CPU parity test: the same arithmetic
+// the CUDA kernels run, looped over rows on the CPU (the cooperative
+// bodies of lad2 and lad3 walk their lanes and warps in turn, over one
+// host copy of their shared-memory layout).  Built with g++ by
 // tests/test_torch_kernel_host.py; not part of the device path.
 
+#include <memory>
+
+#include "field_coop.cuh"
 #include "limbs.cuh"
 #include "tower.cuh"
 
@@ -18,6 +23,19 @@
     return 0;                                                                \
   }
 
+#define LF_HOST_COOP(NAME, LAYOUT)                                           \
+  extern "C" int host_##NAME(void* const* ins, void* const* outs, int n,     \
+                             const void* consts) {                           \
+    const float* in[16] = {};                                                \
+    float* out[12] = {};                                                     \
+    for (int i = 0; i < 16 && ins[i]; ++i) in[i] = (const float*)ins[i];     \
+    for (int i = 0; i < 12 && outs[i]; ++i) out[i] = (float*)outs[i];        \
+    std::unique_ptr<lfc::LAYOUT> s(new lfc::LAYOUT());                       \
+    for (int row = 0; row < n; ++row)                                        \
+      lfc::block_##NAME(in, out, row, (const int*)consts, *s);               \
+    return 0;                                                                \
+  }
+
 LF_HOST(mul)
 LF_HOST(fq2mul)
 LF_HOST(fq2sqr)
@@ -26,8 +44,8 @@ LF_HOST(fq2pow16mul)
 LF_HOST(fold)
 LF_HOST(canon)
 LF_HOST(lad1)
-LF_HOST(lad2)
-LF_HOST(lad3)
+LF_HOST_COOP(lad2, Lad2)
+LF_HOST_COOP(lad3, Lad3)
 LF_HOST(tower_fq2_mul)
 LF_HOST(tower_fq2_sqr)
 LF_HOST(tower_fq6_mul)

@@ -11,14 +11,18 @@ every step inlined (``-DLF_INLINE_ALL``, the layout of the kernels' first
 build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
-shows which stage of the compiler the fault follows.
+shows which stage of the compiler the fault follows.  The cooperative
+kernels lad2 and lad3 (field_coop.cuh) inline every step by design; the
+``ptxas-O1`` and ``coop-4-warps`` variants hold them at another ptxas level
+and another block size.
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 512 and 2,560 rows and three seeds,
 and the first differing row's digits (for the ring hop: the chunks, of
 the ring's two shapes, that differ from a copy); then, for the fq2sqr,
-tower_fq12_mul, library_fq2_mul and ring_hop kernels, ptxas's register,
-stack and spill report.  Needs a CUDA card and nvcc.
+lad2, lad3, tower_fq12_mul, library_fq2_mul and ring_hop kernels, ptxas's
+register, stack and spill report, and the dynamic shared memory of a
+lad2 / lad3 block.  Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -50,8 +54,10 @@ VARIANTS = {
     "inlined-ptxas-O1": (INLINE, "-Xptxas", "-O1"),
     "inlined-ptxas-O2": (INLINE, "-Xptxas", "-O2"),
     "inlined-G": (INLINE, "-G"),
+    "ptxas-O1": ("-Xptxas", "-O1"),
+    "coop-4-warps": ("-DLF_COOP_WARPS=4", "-DLF_COOP_MIN_BLOCKS=8"),
 }
-ROWS = (1, 37, 512, 2560)
+ROWS = (1, 37, 512, 513, 2560)
 SEEDS = range(3)
 
 
@@ -118,7 +124,7 @@ def ptxas_report(extra, name: str) -> list:
            "-Xptxas", "-v", "-c", "-o", os.devnull, src]
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     return [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
-            if "registers" in ln or "stack frame" in ln or "spill" in ln]
+            if "registers" in ln or "stack frame" in ln or "spill" in ln or "smem" in ln]
 
 
 def main(names) -> int:
@@ -134,8 +140,12 @@ def main(names) -> int:
                   flush=True)
         print(json.dumps({"variant": variant, "kernel": "ring_hop", **check_ring(lib, dev)}),
               flush=True)
-        for name in ("fq2sqr", "tower_fq12_mul", "library_fq2_mul", "ring_hop"):
+        for name in ("fq2sqr", "lad2", "lad3", "tower_fq12_mul", "library_fq2_mul", "ring_hop"):
             print(json.dumps({"variant": variant, f"ptxas_{name}": ptxas_report(VARIANTS[variant], name)}),
+                  flush=True)
+        for name in chip_smoke.COOP:
+            print(json.dumps({"variant": variant,
+                              f"smem_bytes_{name}": getattr(lib, f"smem_bytes_{name}")()}),
                   flush=True)
     return 0
 

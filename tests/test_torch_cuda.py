@@ -58,6 +58,23 @@ def test_kernel_equals_plain_version_on_the_card(name, rows, card):
         assert g.is_cuda and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("rows", [1, 37, 512, 513, 1548, 2560])
+@pytest.mark.parametrize("name", chip_smoke.COOP)
+def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, seed, card):
+    """lad2 and lad3, one block per row: seeded rows and rows at the digit
+    bounds (2^22 - 1 loose, 256 semi-strict), bitwise."""
+    k = fc.KERNELS[name]
+    rng = np.random.default_rng(100 * rows + seed)
+    for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):
+        ins = make(k, rows, rng, card)
+        before = k.launches
+        got = k(*ins)
+        assert k.launches == before + 1
+        for g, w in zip(got, k.plain(*ins)):
+            assert g.is_cuda and torch.equal(g, w)
+
+
 def test_bucket4_miller_product_on_the_card_equals_the_cpu_plain_run(card):
     packed = fv.example_inputs(4)
     f_gpu, ok_gpu = fv.miller_product_fused(*fv.from_packed(packed, card))

@@ -1,12 +1,16 @@
 """The CUDA kernels' row arithmetic, built for the CPU.
 
 field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
-__host__ __device__ functions; ops/kernels/host_shim.cpp wraps them in a
-plain C interface.  Here g++ builds that shim (into build/, keyed by the
-sources' hash) and the fifteen row bodies are held bitwise against the
-plain PyTorch versions.  This
-checks the arithmetic the kernels run, not the kernels: the launches are
-checked on the card by chip_smoke.py and the cuda-marked tests.
+__host__ __device__ functions, field_coop.cuh the cooperative block bodies
+of lad2 and lad3 (one block per row, one warp per step), whose lanes and
+warps the host build walks in turn; ops/kernels/host_shim.cpp wraps them
+in a plain C interface.  Here g++ builds that shim (into build/, keyed by
+the sources' hash) and the fifteen bodies are held bitwise against the
+plain PyTorch versions; the cooperative ones also with their lanes and
+warps walked in the reverse order (-DLC_HOST_REVERSED) and on inputs at
+the digit bounds.  This checks the arithmetic the kernels run, not the
+kernels: the launches are checked on the card by chip_smoke.py and the
+cuda-marked tests.
 
 The same bodies, built with every step inlined (the layout that ptxas -O2
 and -O3 miscompile on the card, tests/kernel_build_variants.py) and
@@ -48,7 +52,7 @@ def _host_build(flags) -> str:
     sources and the flags."""
     gxx = _gxx()
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in ("field.cuh", "tower.cuh", "limbs.cuh", "host_shim.cpp"):
+    for name in ("field.cuh", "field_coop.cuh", "tower.cuh", "limbs.cuh", "host_shim.cpp"):
         with open(os.path.join(KDIR, name), "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(REPO, "build", "lodestar_tpu_torch_host")
@@ -65,11 +69,15 @@ def _host_build(flags) -> str:
     return lib
 
 
-def run_rows(lib, name: str, rows: int, seed: int) -> None:
+COOP = ("lad2", "lad3")  # the cooperative bodies of field_coop.cuh
+
+
+def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
     """Kernel ``name``'s row body from the host library against its plain
-    version on ``rows`` seeded rows."""
+    version on ``rows`` seeded rows (``edge``: rows at the digit bounds)."""
     k = fc.KERNELS[name]
-    ins = chip_smoke.kernel_inputs(k, rows, np.random.default_rng(seed), "cpu")
+    rng = np.random.default_rng(seed)
+    ins = (chip_smoke.edge_inputs if edge else chip_smoke.kernel_inputs)(k, rows, rng, "cpu")
     outs = [torch.empty((rows,) + k.tail) for _ in range(k.n_out)]
     ins_arr = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in ins))  # null-terminated
     outs_arr = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in outs))
@@ -87,9 +95,54 @@ def host_lib():
     return ctypes.CDLL(_host_build(["-O2"]))
 
 
+@pytest.fixture(scope="module")
+def host_lib_reversed():
+    return ctypes.CDLL(_host_build(["-O2", "-DLC_HOST_REVERSED"]))
+
+
 @pytest.mark.parametrize("name", sorted(fc.KERNELS))
 def test_host_built_row_body_equals_plain_version_bitwise(name, host_lib):
     run_rows(host_lib, name, ROWS, 7)
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("rows", [ROWS, 37])
+@pytest.mark.parametrize("name", COOP)
+def test_cooperative_ladder_bodies_equal_plain_versions_bitwise(name, rows, order, host_lib,
+                                                               host_lib_reversed):
+    """lad2 and lad3 one step a warp, lanes and warps walked forwards and
+    backwards: a lane reading what another lane writes in the same step,
+    or a warp what another warp writes in the same stage, would differ."""
+    lib = host_lib if order == "forward" else host_lib_reversed
+    run_rows(lib, name, rows, rows)
+    run_rows(lib, name, rows, rows + 1, edge=True)
+
+
+def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
+    """field_coop.cuh keeps its two heavy steps, the digit product and the
+    fold, out of line (inlined into every stage they made a body of 128
+    registers with spills), inlines the rest, and holds every digit in
+    shared memory: its only arrays are the rows' layouts.  lad2 and lad3
+    run its block bodies."""
+    src = open(os.path.join(KDIR, "field_coop.cuh"), encoding="utf-8").read()
+    assert re.search(r"^#define LC_STEP static __host__ __device__ __noinline__$", src, re.M)
+    for step in ("fold", "mul"):
+        assert re.search(rf"^LC_STEP void {step}\(", src, re.M), step
+    assert "LF_INLINE_ALL" not in src
+    layouts = re.findall(r"^struct (Lad[23]) \{\n(.*?)^\};", src, re.M | re.S)
+    assert [name for name, _ in layouts] == ["Lad2", "Lad3"]
+    rest = re.sub(r"^struct Lad[23] \{\n.*?^\};", "", src, flags=re.M | re.S)
+    code = re.sub(r"//[^\n]*", "", rest)
+    assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
+    from lodestar_tpu_torch.ops.kernels import _build
+
+    assert "field_coop.cuh" in _build.SOURCES  # an edit rebuilds the kernels
+    kernels = open(os.path.join(KDIR, "fused_kernels.cu"), encoding="utf-8").read()
+    for name in COOP:
+        body = kernels[kernels.index(f"#ifdef LF_KERNEL_{name}"):]
+        body = body[:body.index("#endif")]
+        assert '#include "field_coop.cuh"' in body and f"lfc::block_{name}(" in body
+        assert "extern __shared__" in body and f"lf::row_{name}" not in body
 
 
 def test_heavy_steps_are_real_calls_in_the_kernels_build():
@@ -113,7 +166,7 @@ def test_library_kernel_heavy_steps_are_real_calls():
     assert "library_fq2_mul" in fc.KERNELS
 
 
-@pytest.mark.parametrize("layout", ["calls", "inlined"])
+@pytest.mark.parametrize("layout", ["calls", "inlined", "reversed"])
 def test_host_build_is_clean_under_address_and_undefined_behaviour_sanitizers(layout):
     gxx = _gxx()
     runtimes = [subprocess.run([gxx, f"-print-file-name={so}"], capture_output=True,
@@ -121,7 +174,8 @@ def test_host_build_is_clean_under_address_and_undefined_behaviour_sanitizers(la
     if not all(os.path.isabs(r) for r in runtimes):
         pytest.skip("g++ has no sanitizer runtimes")
     flags = ["-O3", "-fsanitize=address,undefined", "-fno-sanitize-recover=all"]
-    lib = _host_build(flags + (["-DLF_INLINE_ALL"] if layout == "inlined" else []))
+    extra = {"calls": [], "inlined": ["-DLF_INLINE_ALL"], "reversed": ["-DLC_HOST_REVERSED"]}
+    lib = _host_build(flags + extra[layout])
     code = (
         "import ctypes, sys\n"
         "sys.path[:0] = [sys.argv[1], sys.argv[2]]\n"
@@ -129,6 +183,8 @@ def test_host_build_is_clean_under_address_and_undefined_behaviour_sanitizers(la
         "lib = ctypes.CDLL(sys.argv[3])\n"
         "for name in sorted(t.fc.KERNELS):\n"
         "    t.run_rows(lib, name, 64, 11)\n"
+        "for name in t.COOP:\n"
+        "    t.run_rows(lib, name, 37, 12, edge=True)\n"
         "print('clean')\n"
     )
     env = dict(os.environ, LD_PRELOAD=" ".join(runtimes),
