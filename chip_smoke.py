@@ -14,13 +14,15 @@ its wall time on a line of its own:
    launch counter set to 0 just before, each entry bitwise equal to its
    plain version and every kernel launched; then each CUDA kernel against
    its plain PyTorch version on the card, on seeded inputs at the shapes
-   its path gives it (the fused field kernels at 512 and 2,560 rows, the
-   ladder kernels at 512 rows, lad2 and lad3 also at 2,560, the tower
+   its path gives it (the fused field kernels at 512 and 2,560 rows,
+   fq2pow16mul also at the square root's 256, the ladder kernels at 512
+   rows, lad2 and lad3 also at 2,560, the tower
    kernels at 1 row and at the most rows the XLA-graph path gives them at
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
-   exact integer arithmetic; the redesigned lad2 and lad3 (one block per
-   row) also at 1, 37 and 513 rows and on inputs at the digit bounds.
+   exact integer arithmetic; the redesigned lad1, lad2, lad3 and
+   fq2pow16mul (one block per row) also at 1, 37 and 513 rows and on
+   inputs at the digit bounds.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
    is outside the window (it is printed beside them as ``issue_ms``, 20
@@ -47,7 +49,8 @@ ported; phases 11-12 the split default.
    PyTorch's glue kernels, and the device's idle share over that dispatch;
    then the ladder stretch of that batch (the 128 iterations of
    ``point_mul_bits_ladder`` between two marker kernels): the host's wall
-   across it, the device's span and busy time in it, its idle share;
+   across it, the device's span and busy time in it, its idle share; then
+   the host's cost of one eager launch with the card idle and busy;
 6. XLA slice: the same four batches through
    ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
    ``ops/batch_verify``) with every launch counter set to 0 just before
@@ -100,9 +103,14 @@ ported; phases 11-12 the split default.
     block-proposal priority, every launch counter set to 0 just before:
     every verdict True, each fused kernel launched, sets/s, batches
     flushed, the in-flight peak and the share of the wall in which two
-    batches' host spans (pack start to verdict read) were open; then 4 jobs, one holding a corrupted set, after
-    which exactly that job is False; then a job past its deadline is
-    dropped with ``VerificationDroppedError``.
+    batches' host spans (pack start to verdict read) were open; then 4
+    jobs, one holding a corrupted set, after which exactly that job is
+    False; then a job past its deadline is dropped with
+    ``VerificationDroppedError``; then a pool over
+    ``TorchBlsVerifier(devices=[cuda:0] * 2)`` (``sharded_active``: the
+    merge cap grows to 2 x 128) given phase 9's 256 sets as gossip jobs,
+    whose merged batch rides the sharded tier, every verdict True, and two
+    128-set jobs, one holding a corrupted set, which give True, False.
 
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
@@ -226,6 +234,9 @@ MACS_PER_ROW = {
 # loop (129 pairs); the Fq6 product runs only in the final exponentiation.
 SHAPES = {
     "lad1": (512,), "lad2": (2560, 512), "lad3": (2560, 512),
+    # the square root's 256 (2 draws x 128) first; 2,560 kept last, so the
+    # kernels line reports the shape of earlier runs
+    "fq2pow16mul": (2 * BUCKET, 512, 2560),
     "tower_fq2_mul": (1, 12 * (BUCKET + 1)),
     "tower_fq2_sqr": (1, 2 * BUCKET),
     "tower_fq6_mul": (1,),
@@ -237,7 +248,7 @@ FUSED_SHAPES = (512, 2560)
 # the redesigned cooperative kernels (one block per row): also held at these
 # row counts (a single row; one past the ladder's 512) and on inputs at the
 # digit bounds, untimed
-COOP = ("lad2", "lad3")
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul")
 COOP_CHECK_ROWS = (1, 37, 513)
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
@@ -667,6 +678,38 @@ def ladder_stretch(verifier, packed, card: str) -> dict:
     return out
 
 
+def launch_cost(dev, card: str, n: int = 500) -> dict:
+    """Host microseconds of one eager launch, a 64-element ``add_`` and the
+    fold kernel on one row through its wrapper, n in a row, with the card
+    idle (each launch finds the card done with the last) and with the card
+    busy (all n queued behind a marker kernel that outlasts their issue):
+    whether the host's issue cost depends on the card's state.  A dispatch
+    that the host's launches bound leaves the card idle more as its kernels
+    get faster."""
+    from lodestar_tpu_torch.ops.fused_core import KERNELS
+
+    x = torch.zeros(64, device=dev)
+    row = torch.zeros((1, 50), device=dev)
+    ops = {"add_": lambda: x.add_(1), "fold": lambda: KERNELS["fold"](row)}
+    out = {"card": card, "launches": n}
+    stream = torch.cuda.current_stream(dev)
+    for name, op in ops.items():
+        for state in ("idle", "busy"):
+            op()
+            torch.cuda.synchronize()
+            if state == "busy":
+                torch.cuda._sleep(1_000_000_000)  # about 0.5 s of the card's clock
+            t0 = time.perf_counter()
+            for _ in range(n):
+                op()
+            out[f"{name}_{state}_us"] = (time.perf_counter() - t0) / n * 1e6
+            if state == "busy" and stream.query():
+                raise AssertionError("launch cost: the marker ended before the launches did")
+            torch.cuda.synchronize()
+    log("launch cost: " + json.dumps(out))
+    return out
+
+
 # -- phases 3-5: the fused path ----------------------------------------------
 
 
@@ -706,6 +749,7 @@ def run_fused(dev, card: str, pool, keys, sets):
         idle = profile_dispatch(packed, verifier, dispatch_s, card, FUSED,
                                 "fused", [ProfilerActivity.CPU, ProfilerActivity.CUDA])
         ladder_stretch(verifier, packed, card)
+        launch_cost(dev, card)
     return launches, rate, idle
 
 
@@ -1204,7 +1248,58 @@ async def _pool_rounds(pool, gossip, block, retry_jobs, late):
     return results, wall, spans, retried, retry_wall, dropped
 
 
-def run_pool(dev, card: str, pool, keys) -> dict:
+def gossip_jobs(sets):
+    """Gossip-sized jobs of 1, 2, 3, 2, 1, 2, 3, ... sets."""
+    jobs, i = [], 0
+    while i < len(sets):
+        size = (1, 2, 3, 2)[len(jobs) % 4]
+        jobs.append(sets[i:i + size])
+        i += size
+    return jobs
+
+
+async def _verify_all(pool, jobs):
+    return await asyncio.gather(*[pool.verify_signature_sets(job) for job in jobs])
+
+
+def run_pool_sharded(dev, card: str, sets256) -> dict:
+    """A pool over 2 logical shards of the card: with the tier active the
+    merge cap is 2 x BUCKET, so the gossip jobs of 256 sets merge into
+    batches that ride the sharded tier; two 128-set jobs, one holding a
+    corrupted set, ride it merged and are then retried one by one."""
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    mesh = TorchBlsVerifier(devices=[dev, dev], sharded_min_batch=SHARDED_BUCKET,
+                            rng=np.random.default_rng(SEED + 34))
+    bls = BlsBatchPool(mesh, pipeline_depth=2, flush_threshold=BUCKET, max_buffer_wait=0.02)
+    if not mesh.sharded_active or bls._flush_window()[1] != 2 * BUCKET:
+        raise AssertionError(f"pool sharded: tier active {mesh.sharded_active}, merge cap "
+                             f"{bls._flush_window()[1]}")
+    jobs = gossip_jobs(sets256)
+    t0 = time.perf_counter()
+    results = asyncio.run(_verify_all(bls, jobs))
+    wall = time.perf_counter() - t0
+    riding, batches = mesh.sharded_batches, len(bls.batch_spans)
+    bad = list(sets256[BUCKET:])
+    bad[-1] = dataclasses.replace(bad[-1], signature=sets256[0].signature)
+    retried = asyncio.run(_verify_all(bls, [sets256[:BUCKET], bad]))
+    bls.close()
+    mesh.close()
+    log(f"pool sharded: {len(jobs)} gossip jobs ({len(sets256)} sets) over 2 logical shards "
+        f"-> all True {all(r is True for r in results)} in {wall} s, "
+        f"{batches} batches, sharded batches {riding}; two {BUCKET}-set jobs, the second "
+        f"holding a corrupted set -> {retried} (sharded batches "
+        f"{mesh.sharded_batches}, batch retries {bls.batch_retries}) [{card}]")
+    if not all(r is True for r in results) or len(results) != len(jobs) or riding < 1:
+        raise AssertionError("pool sharded: the gossip jobs did not all verify on the tier")
+    if retried != [True, False] or bls.batch_retries != 1 or mesh.sharded_batches <= riding:
+        raise AssertionError("pool sharded: the merged batch with a corrupted set did not "
+                             "ride the tier and isolate its job")
+    return dict(wall=wall, batches=batches, sharded_batches=riding)
+
+
+def run_pool(dev, card: str, pool, keys, sets256) -> dict:
     from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import fused_core
@@ -1215,11 +1310,7 @@ def run_pool(dev, card: str, pool, keys) -> dict:
         block = make_sets(pool, keys[:POOL_BLOCK_SETS], b"pool block")
         verifier.pack(fresh[:BUCKET])  # the public keys cached, as on a node
         verifier.pack(fresh[BUCKET:2 * BUCKET])
-        gossip, i = [], 0
-        while i < len(fresh):  # jobs of 1, 2, 3, 2, 1, 2, 3, ... sets
-            size = (1, 2, 3, 2)[len(gossip) % 4]
-            gossip.append(fresh[i:i + size])
-            i += size
+        gossip = gossip_jobs(fresh)
         retry_sets = make_sets(pool, keys[:8], b"pool retry")
         retry_sets[5] = dataclasses.replace(retry_sets[5], signature=retry_sets[6].signature)
         retry_jobs = [retry_sets[j:j + 2] for j in range(0, 8, 2)]  # job 2 holds the bad set
@@ -1252,6 +1343,7 @@ def run_pool(dev, card: str, pool, keys) -> dict:
             f"{dict((f'{r}/{ln}', n) for (r, ln), n in bls.dropped_sets.items())}")
         if dropped != "deadline":
             raise AssertionError("pool: an expired job was not dropped")
+        run_pool_sharded(dev, card, sets256)
     return dict(rate=rate, batches=len(first), inflight_peak=bls.inflight_peak,
                 overlap_share=share, launches=launches)
 
@@ -1315,7 +1407,7 @@ def main(argv) -> int:
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
         if mode != "sharded":
             split = run_split(dev, card, pool, keys, sets, sets256)
-            pooled = run_pool(dev, card, pool, keys)
+            pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
             log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s beside the full-device "
                 f"{full} (phase 4); split sharded {split['sharded_rate']} sets/s at bucket "

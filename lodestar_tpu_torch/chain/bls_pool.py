@@ -12,7 +12,9 @@ each, attestation.ts:138) into dispatch-sized batches.
 - A failed merged batch is retried per job, so one bad gossip message
   cannot poison its batchmates (worker.ts:78-88).
 - Pipelining: the flusher keeps up to ``pipeline_depth`` merged batches in
-  flight per card (``verifier.n_devices``).  Against a verifier with
+  flight per card (``verifier.n_devices``); while the verifier's sharded
+  tier is active (``sharded_active``) a merged batch may hold
+  ``flush_threshold`` sets per shard (``mesh_devices``).  Against a verifier with
   ``verify_signature_sets_async`` (``TorchBlsVerifier``), batch N+1 is
   packed and its device program enqueued on a worker thread while batch N
   computes and batch N-1's host final exponentiation runs; other verifiers
@@ -172,9 +174,18 @@ class BlsBatchPool:
 
     def _flush_window(self) -> Tuple[int, int]:
         """(batches in flight at most, sets a merged batch at most):
-        ``pipeline_depth`` batches per card, each near ``flush_threshold``."""
+        ``pipeline_depth`` batches per card, each near ``flush_threshold``.
+        While the verifier's sharded tier is active the merge cap grows by
+        its shard count (``mesh_devices``: the port's ``n_devices`` counts
+        distinct cards, 1 for logical shards of one card), so that a storm
+        fills mesh-wide batches; the window stays, so light traffic still
+        drains into small batches for the per-card tier.  Read again on
+        every fill: a tier that goes away drops the cap back."""
         n_dev = max(1, getattr(self.verifier, "n_devices", 1))
-        return self.pipeline_depth * n_dev, max(self.flush_threshold, 1)
+        max_size = max(self.flush_threshold, 1)
+        if getattr(self.verifier, "sharded_active", False):
+            max_size *= max(1, getattr(self.verifier, "mesh_devices", n_dev))
+        return self.pipeline_depth * n_dev, max_size
 
     def _buffered_sets_changed(self) -> None:
         self._update_backpressure()

@@ -26,6 +26,12 @@ sharded tier (``ops/sharded_verify``, one batch split over every shard);
 any other batch runs whole on one card, the least loaded (batches in
 flight), round-robin among equals.  A failed launch or sync raises; there
 is no other path or tier to fall back to, and no batch is requeued.
+``sharded_active`` tells the pool that the tier can take a batch, so that
+it merges batches up to the mesh's bucket.
+
+``close()`` releases what the verifier holds (the sharded tier's program
+and its streams, the point cache); a verify after it raises.  The kernel
+libraries stay loaded: every verifier in the process shares them.
 """
 
 from __future__ import annotations
@@ -204,6 +210,20 @@ class TorchBlsVerifier:
         self._sched_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._rng_lock = threading.Lock()
+        self._closed = False
+
+    def close(self) -> None:
+        """Release the sharded tier's program (its streams) and the point
+        cache; a verify or dispatch after this raises.  Verdicts already
+        dispatched can still be read.  The kernel libraries stay loaded:
+        every verifier in the process shares them."""
+        self._closed = True
+        self._mesh_program = None
+        self.point_cache.clear()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("TorchBlsVerifier: closed")
 
     @property
     def n_devices(self) -> int:
@@ -231,6 +251,7 @@ class TorchBlsVerifier:
         chunks already enqueued are read, so that each returns its slot."""
         if not sets:
             raise ValueError("verify_signature_sets: empty batch of signature sets")
+        self._check_open()
         largest = BUCKETS[-1]
         if len(sets) > largest:
             parts = []
@@ -259,6 +280,13 @@ class TorchBlsVerifier:
                 and bucket % len(self.devices) == 0)
 
     @property
+    def sharded_active(self) -> bool:
+        """The sharded tier can take a batch: the verifier is open and some
+        bucket is eligible.  The pool reads it, on every fill, to grow its
+        merge cap to the mesh's bucket."""
+        return self._mesh_program is not None and any(map(self.sharded_eligible, BUCKETS))
+
+    @property
     def shard_enqueue_walls(self) -> List[float]:
         """Host seconds each shard took to enqueue its slice of the last
         sharded batch (empty when the tier is off or has not run)."""
@@ -285,6 +313,7 @@ class TorchBlsVerifier:
         """Enqueue one packed batch on the mesh or on the least loaded card;
         returns at once with its ``PendingVerdict``.  The batch holds its
         in-flight slot until the verdict's first ``result()`` ends."""
+        self._check_open()
         t0 = time.perf_counter()
         mesh = self.sharded_eligible(packed[0].shape[0])
         key = self._acquire(MESH if mesh else None)

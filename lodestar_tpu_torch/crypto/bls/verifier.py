@@ -122,6 +122,10 @@ class PointCache:
             while len(self._data) > self.maxsize:
                 self._data.popitem(last=False)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+
 
 class IBlsVerifier(Protocol):
     def verify_signature_sets(self, sets: Sequence[SignatureSet]) -> bool: ...

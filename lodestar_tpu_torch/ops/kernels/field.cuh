@@ -12,9 +12,10 @@
 // the shift x >> 8.
 //
 // The functions are __host__ __device__: the kernels in fused_kernels.cu
-// call the row_* bodies at the bottom (lad2 and lad3 the cooperative
-// bodies of field_coop.cuh, over the same steps), and host_shim.cpp builds
-// the very same bodies with g++ for the CPU parity test.
+// call the row_* bodies at the bottom (lad1, lad2, lad3 and fq2pow16mul
+// the cooperative bodies of field_coop.cuh, over the same steps), and
+// host_shim.cpp builds the very same bodies with g++ for the CPU parity
+// test.
 
 #pragma once
 
@@ -253,7 +254,7 @@ LF_CALL void canon(const int* xin, int* out, const int* K) {
   for (int k = 0; k < NL; ++k) out[k] = r[k];
 }
 
-// -- the eight one-thread row bodies ---------------------------------------------
+// -- the six one-thread row bodies -----------------------------------------------
 // in[i] / out[i] point at (N, 50) or (N, 2, 50) float32 arrays; each body
 // computes one row.
 
@@ -297,20 +298,6 @@ LF_HD void row_pow16mul(const float* const* in, float* const* out, int row, cons
   store(out[0] + row * NL, s);
 }
 
-// fused_core._fq2pow16mul_k: r^16 * t in Fq2
-LF_HD void row_fq2pow16mul(const float* const* in, float* const* out, int row, const int* K) {
-  fq2 r, t, s;
-  load2_fold(in[0] + row * 2 * NL, r, K);
-  load2_fold(in[1] + row * 2 * NL, t, K);
-  for (int i = 0; i < 4; ++i) {
-    fq2_sqr(r, s, K);
-    for (int c = 0; c < 2; ++c)
-      for (int j = 0; j < NL; ++j) r[c][j] = s[c][j];
-  }
-  fq2_mul(r, t, s, K);
-  store2(out[0] + row * 2 * NL, s);
-}
-
 // fused_core._fold_k
 LF_HD void row_fold(const float* const* in, float* const* out, int row, const int* K) {
   int x[NL];
@@ -324,40 +311,6 @@ LF_HD void row_canon(const float* const* in, float* const* out, int row, const i
   load(in[0] + row * NL, x);
   canon(x, o, K);
   store(out[0] + row * NL, o);
-}
-
-// fused_ladder._lad1_k. in: x1 y1 z1 x2 y2 z2 (loose);
-// out: z1z1 z2z2 a1 bb1 yz1 a2 bb2 yz2
-LF_HD void row_lad1(const float* const* in, float* const* out, int row, const int* K) {
-  const int o = row * 2 * NL;
-  fq2 x1, y1, z1, r;
-  load2_fold(in[2] + o, z1, K);
-  fq2_sqr(z1, r, K);
-  store2(out[0] + o, r);
-  {
-    fq2 z2;
-    load2_fold(in[5] + o, z2, K);
-    fq2_sqr(z2, r, K);
-    store2(out[1] + o, r);
-  }
-  load2_fold(in[0] + o, x1, K);
-  load2_fold(in[1] + o, y1, K);
-  fq2_sqr(x1, r, K);
-  store2(out[2] + o, r);
-  fq2_sqr(y1, r, K);
-  store2(out[3] + o, r);
-  fq2_mul(y1, z1, r, K);
-  store2(out[4] + o, r);
-  fq2 x2, y2, z2;
-  load2_fold(in[3] + o, x2, K);
-  load2_fold(in[4] + o, y2, K);
-  load2_fold(in[5] + o, z2, K);
-  fq2_sqr(x2, r, K);
-  store2(out[5] + o, r);
-  fq2_sqr(y2, r, K);
-  store2(out[6] + o, r);
-  fq2_mul(y2, z2, r, K);
-  store2(out[7] + o, r);
 }
 
 }  // namespace lf

@@ -1,13 +1,16 @@
 // Cooperative BLS12-381 field arithmetic for the G2 ladder's round kernels
-// lad2 and lad3: one thread block per row, one warp per Fq step, the
-// digits of a step across the warp's 32 lanes, every value of the row in
-// shared memory.
+// lad1, lad2 and lad3 and for fq2pow16mul: one thread block per row, one
+// warp per Fq step, the digits of a step across the warp's 32 lanes, every
+// value of the row in shared memory.
 //
-// Layout.  A block holds one ladder row: the constant table (staged once),
-// the row's inputs, its outputs and every intermediate, as int32 digits in
-// one shared-memory struct (Lad2, Lad3 below: 48,204 B with 8 warps), with
-// a scratch area of 462 ints per warp.  No step keeps a digit array in
-// local memory.
+// Layout.  A block holds one row: the constant table (staged once), the
+// row's inputs, its outputs and every intermediate, as int32 digits in one
+// shared-memory struct (Lad1, Lad2, Lad3, Fq2Pow16Mul below), with a
+// scratch area of 462 ints per warp.  No step keeps a digit array in local
+// memory.  The warp count is a template parameter of the layout, of Ctx
+// and of run_stages: each kernel has its own (LAD_WARPS, POW_WARPS), and
+// the host build, which holds every body in one translation unit, walks
+// the same count.
 //
 // One step on one warp (lane = threadIdx.x & 31):
 //   - the 50x50 digit product: lane k sums the anti-diagonal columns k and
@@ -45,20 +48,21 @@
 // carry bound), are real calls (LC_STEP): inlined into the twelve stages
 // of lad3 they made a body that ptxas held at 128 registers with spills,
 // two blocks a SM.  The rest is inlined (LC_HD); no step keeps an array of
-// its own.  ptxas sizes the registers for LF_COOP_MIN_BLOCKS = 4 blocks a
-// SM, as many as the shared memory admits (64 registers, a spill of a few
-// hundred bytes), which ran faster on the H100 than the uncapped build at
-// two or three blocks a SM.
+// its own.  ptxas sizes the registers at 64 a thread (Warps::MIN_BLOCKS:
+// 1,024 threads a SM; the shared memory admits at least that many blocks
+// of every layout here, at its default warp count), which ran faster on
+// the H100 than the uncapped build at two or three blocks a SM.
 
 #pragma once
 
 #include "field.cuh"
 
+// warps a block (other counts only for the card tests' variants)
 #ifndef LF_COOP_WARPS
-#define LF_COOP_WARPS 8  // another count only for the card tests' variants
+#define LF_COOP_WARPS 8  // lad1, lad2, lad3
 #endif
-#ifndef LF_COOP_MIN_BLOCKS
-#define LF_COOP_MIN_BLOCKS 4  // blocks a SM that ptxas sizes the registers for
+#ifndef LF_POW_WARPS
+#define LF_POW_WARPS 4  // fq2pow16mul
 #endif
 
 #define LC_HD static __host__ __device__ __forceinline__
@@ -88,10 +92,17 @@
 namespace lfc {
 
 using lf::NL;
-constexpr int NW = LF_COOP_WARPS;
-constexpr int THREADS = 32 * NW;
-constexpr int MIN_BLOCKS = LF_COOP_MIN_BLOCKS;
+constexpr int LAD_WARPS = LF_COOP_WARPS;
+constexpr int POW_WARPS = LF_POW_WARPS;
 constexpr int F2 = 2 * NL;   // one Fq2 value: component 0, then component 1
+
+// A layout's block of NW warps, and the blocks a SM that ptxas sizes
+// the registers for (64 registers a thread).
+template <int NW>
+struct Warps {
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int MIN_BLOCKS = 1024 / THREADS;
+};
 
 // one warp's scratch: two carry buffers as wide as a product (101 digits,
 // padded), two for the fold's 52 output columns, the first operand's sum
@@ -251,6 +262,7 @@ LC_HD Lin add_twice(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 2
 // A stage is walked twice: its products first, then its folds, numbered
 // on from the products; step t runs on warp t % NW, in that warp's
 // scratch.  So the heavy steps of a stage go to distinct warps.
+template <int NW>
 struct Ctx {
   int* scr;
   const int* K;
@@ -265,51 +277,59 @@ struct Ctx {
   }
 };
 
-LC_HD void t_mul(Ctx& c, const int* a, const int* a2, const int* b, const int* b2, int* out) {
+template <int NW>
+LC_HD void t_mul(Ctx<NW>& c, const int* a, const int* a2, const int* b, const int* b2, int* out) {
   int* S;
   if (c.take(0, S)) mul(a, a2, b, b2, out, S, c.K);
 }
 
-template <int BITS>
-LC_HD void t_fold(Ctx& c, Lin in, int* out) {
+template <int BITS, int NW>
+LC_HD void t_fold(Ctx<NW>& c, Lin in, int* out) {
   int* S;
   if (c.take(1, S)) fold<BITS>(in, out, S, c.K);
 }
 
 // Fq2 values, one step a component.
-LC_HD void fold2_entry(Ctx& c, const int* a, int* out) {  // loose -> semi-strict
+template <int NW>
+LC_HD void fold2_entry(Ctx<NW>& c, const int* a, int* out) {  // loose -> semi-strict
   for (int h = 0; h < F2; h += NL) t_fold<22>(c, raw(a + h), out + h);
 }
-LC_HD void add2(Ctx& c, const int* a, const int* b, int* out) {
+template <int NW>
+LC_HD void add2(Ctx<NW>& c, const int* a, const int* b, int* out) {
   for (int h = 0; h < F2; h += NL) t_fold<10>(c, add(a + h, b + h), out + h);
 }
-LC_HD void sub2(Ctx& c, const int* a, const int* b, int* out) {
+template <int NW>
+LC_HD void sub2(Ctx<NW>& c, const int* a, const int* b, int* out) {
   for (int h = 0; h < F2; h += NL) t_fold<13>(c, sub(a + h, b + h), out + h);
 }
-template <int BITS>
-LC_HD void scale2(Ctx& c, const int* a, int k, int* out) {
+template <int BITS, int NW>
+LC_HD void scale2(Ctx<NW>& c, const int* a, int k, int* out) {
   for (int h = 0; h < F2; h += NL) t_fold<BITS>(c, scale(a + h, k), out + h);
 }
 
 // lf::fq2_mul in two stages through t (3 x 50): the three Karatsuba
 // products, then out0 = t0 - t1 and out1 = t2 - (t0 + t1).
-LC_HD void fq2mul_products(Ctx& c, const int* a, const int* b, int* t) {
+template <int NW>
+LC_HD void fq2mul_products(Ctx<NW>& c, const int* a, const int* b, int* t) {
   t_mul(c, a, nullptr, b, nullptr, t);
   t_mul(c, a + NL, nullptr, b + NL, nullptr, t + NL);
   t_mul(c, a, a + NL, b, b + NL, t + 2 * NL);
 }
-LC_HD void fq2mul_finish(Ctx& c, const int* t, int* out) {
+template <int NW>
+LC_HD void fq2mul_finish(Ctx<NW>& c, const int* t, int* out) {
   t_fold<13>(c, sub(t, t + NL), out);
   t_fold<13>(c, sub_sum(t + 2 * NL, t, t + NL), out + NL);
 }
 
 // lf::fq2_sqr in two stages through t (d, then m): m = a0 a1 and
 // d = a0 - a1, then out0 = (a0 + a1) d and out1 = 2m.
-LC_HD void fq2sqr_products(Ctx& c, const int* a, int* t) {
+template <int NW>
+LC_HD void fq2sqr_products(Ctx<NW>& c, const int* a, int* t) {
   t_mul(c, a, nullptr, a + NL, nullptr, t + NL);
   t_fold<13>(c, sub(a, a + NL), t);
 }
-LC_HD void fq2sqr_finish(Ctx& c, const int* a, const int* t, int* out) {
+template <int NW>
+LC_HD void fq2sqr_finish(Ctx<NW>& c, const int* a, const int* t, int* out) {
   t_mul(c, a, a + NL, t, nullptr, out);
   t_fold<10>(c, scale(t + NL, 2), out + NL);
 }
@@ -336,8 +356,8 @@ LC_HD void store_row(const int* rows, int nout, float* const* out, int row) {
 // Run stage(st, c) for st = 0..nstages-1, its products, then its folds:
 // on the card every warp runs its own steps of a stage, then the block
 // syncs; on the CPU the warps run one after the other.
-template <class Stage>
-LC_HD void run_stages(Ctx& c, int nstages, Stage stage) {
+template <int NW, class Stage>
+LC_HD void run_stages(Ctx<NW>& c, int nstages, Stage stage) {
   for (int st = 0; st < nstages; ++st) {
 #ifdef __CUDA_ARCH__
     c.warp = (int)(threadIdx.x >> 5);
@@ -358,11 +378,65 @@ LC_HD void run_stages(Ctx& c, int nstages, Stage stage) {
   }
 }
 
+// -- fused_ladder._lad1_k ------------------------------------------------------
+
+// in: x1 y1 z1 x2 y2 z2 (loose); out: z1z1 z2z2 a1 bb1 yz1 a2 bb2 yz2, i.e.
+// z1^2, z2^2, then x^2, y^2 and y z of each doubling
+template <int NW>
+struct Lad1 : Warps<NW> {
+  int K[lf::K_LEN];
+  int in[6][F2];
+  int out[8][F2];
+  int f[6][F2];       // the inputs, folded
+  int q[6][F2];       // their square temporaries
+  int t[2][3 * NL];   // product temporaries of y1 z1 and y2 z2
+  int scr[NW * SCR];
+};
+
+// The schedule (S = Fq step):
+//   0: fold x1 y1 z1 x2 y2 z2                                      12 S
+//   1: the six squares and two products (products)                12 mul + 6 S
+//   2: the six squares and two products (finish)                  6 mul + 10 S
+template <int NW>
+struct Lad1Stages {
+  Lad1<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Lad1<NW>& r = *s;
+    switch (st) {
+      case 0:
+        for (int k = 0; k < 6; ++k) fold2_entry(c, r.in[k], r.f[k]);
+        break;
+      case 1:
+        for (int k = 0; k < 6; ++k) fq2sqr_products(c, r.f[k], r.q[k]);
+        fq2mul_products(c, r.f[1], r.f[2], r.t[0]);
+        fq2mul_products(c, r.f[4], r.f[5], r.t[1]);
+        break;
+      default:
+        // input k = x1 y1 z1 x2 y2 z2: its square is output 2 3 0 5 6 1
+        for (int k = 0; k < 6; ++k)
+          fq2sqr_finish(c, r.f[k], r.q[k], r.out[k % 3 == 2 ? k / 3 : 2 + 3 * (k / 3) + k % 3]);
+        fq2mul_finish(c, r.t[0], r.out[4]);
+        fq2mul_finish(c, r.t[1], r.out[7]);
+        break;
+    }
+  }
+};
+
+template <int NW>
+LC_HD void block_lad1(const float* const* in, float* const* out, int row, const int* K,
+                      Lad1<NW>& s) {
+  load_row(K, in, 6, row, s.K, s.in[0]);
+  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
+  run_stages(c, 3, Lad1Stages<NW>{&s});
+  store_row(s.out[0], 8, out, row);
+}
+
 // -- fused_ladder._lad2_k ------------------------------------------------------
 
 // in: x1 y1 x2 y2 (loose) z1z1 z2z2 a1 bb1 a2 bb2 (semi-strict);
 // out: u1 u2 s1y s2y, then e x3 dmx c8 for each doubling d
-struct Lad2 {
+template <int NW>
+struct Lad2 : Warps<NW> {
   int K[lf::K_LEN];
   int in[10][F2];
   int out[12][F2];
@@ -383,10 +457,11 @@ struct Lad2 {
 //   3: xbb2 (finish) x2, s1y, s2y (products), u1, u2 (finish)      8 mul + 6 S
 //   4: dh = xbb2 - ac x2, s1y, s2y (finish), c8 = 8cc x2           12 S
 //   5: dd = 2dh; 6: d2 = 2dd; 7: x3 = f - d2; 8: dmx = dd - x3     4 S each
+template <int NW>
 struct Lad2Stages {
-  Lad2* s;
-  LC_MHD void operator()(int st, Ctx& c) const {
-    Lad2& r = *s;
+  Lad2<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Lad2<NW>& r = *s;
     const int* z1z1 = r.in[4];
     const int* z2z2 = r.in[5];
     switch (st) {
@@ -436,11 +511,12 @@ struct Lad2Stages {
   }
 };
 
+template <int NW>
 LC_HD void block_lad2(const float* const* in, float* const* out, int row, const int* K,
-                      Lad2& s) {
+                      Lad2<NW>& s) {
   load_row(K, in, 10, row, s.K, s.in[0]);
-  Ctx c{s.scr, s.K, 0, 0, 0};
-  run_stages(c, 9, Lad2Stages{&s});
+  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
+  run_stages(c, 9, Lad2Stages<NW>{&s});
   store_row(s.out[0], 12, out, row);
 }
 
@@ -448,7 +524,8 @@ LC_HD void block_lad2(const float* const* in, float* const* out, int row, const 
 
 // in: z1 z2 (loose) u1 u2 s1y s2y z1z1 z2z2, then e dmx c8 yz for each
 // doubling (semi-strict); out: x3 y3 z3 h sd y3d1 z3d1 y3d2 z3d2
-struct Lad3 {
+template <int NW>
+struct Lad3 : Warps<NW> {
   int K[lf::K_LEN];
   int in[16][F2];
   int out[9][F2];
@@ -477,10 +554,11 @@ struct Lad3 {
 //   8: vmx = v - x3; s1j2 = 2 s1j                                  4 S
 //   9: rvx = rr vmx (products, t0)                                 3 mul
 //  10: rvx (finish); 11: y3 = rvx - s1j2                           2 S each
+template <int NW>
 struct Lad3Stages {
-  Lad3* s;
-  LC_MHD void operator()(int st, Ctx& c) const {
-    Lad3& r = *s;
+  Lad3<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Lad3<NW>& r = *s;
     int* x3 = r.out[0];
     int* h = r.out[3];
     int* sd = r.out[4];
@@ -551,12 +629,62 @@ struct Lad3Stages {
   }
 };
 
+template <int NW>
 LC_HD void block_lad3(const float* const* in, float* const* out, int row, const int* K,
-                      Lad3& s) {
+                      Lad3<NW>& s) {
   load_row(K, in, 16, row, s.K, s.in[0]);
-  Ctx c{s.scr, s.K, 0, 0, 0};
-  run_stages(c, 12, Lad3Stages{&s});
+  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
+  run_stages(c, 12, Lad3Stages<NW>{&s});
   store_row(s.out[0], 9, out, row);
+}
+
+// -- fused_core._fq2pow16mul_k -------------------------------------------------
+
+// in: r t (loose); out: r^16 t
+template <int NW>
+struct Fq2Pow16Mul : Warps<NW> {
+  int K[lf::K_LEN];
+  int in[2][F2];
+  int out[F2];
+  int r[2][F2];      // r folded, then its squares, alternately
+  int t[F2];         // t folded
+  int q[F2];         // square temporaries
+  int kt[3 * NL];    // product temporaries
+  int scr[NW * SCR];
+};
+
+// The schedule, serial by nature (S = Fq step):
+//   0: fold r t                                                     4 S
+//   1 + 2i: square i of r (products); 2 + 2i: (finish), i = 0..3    1 mul + 1 S each
+//   9: r t (products); 10: (finish)                                 3 mul; 2 S
+template <int NW>
+struct Fq2Pow16MulStages {
+  Fq2Pow16Mul<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Fq2Pow16Mul<NW>& r = *s;
+    const int i = (st - 1) / 2;  // the square of stages 1..8
+    if (st == 0) {
+      fold2_entry(c, r.in[0], r.r[0]);
+      fold2_entry(c, r.in[1], r.t);
+    } else if (st <= 8 && st % 2 == 1) {
+      fq2sqr_products(c, r.r[i % 2], r.q);
+    } else if (st <= 8) {
+      fq2sqr_finish(c, r.r[i % 2], r.q, r.r[(i + 1) % 2]);
+    } else if (st == 9) {
+      fq2mul_products(c, r.r[0], r.t, r.kt);
+    } else {
+      fq2mul_finish(c, r.kt, r.out);
+    }
+  }
+};
+
+template <int NW>
+LC_HD void block_fq2pow16mul(const float* const* in, float* const* out, int row, const int* K,
+                             Fq2Pow16Mul<NW>& s) {
+  load_row(K, in, 2, row, s.K, s.in[0]);
+  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
+  run_stages(c, 11, Fq2Pow16MulStages<NW>{&s});
+  store_row(s.out, 1, out, row);
 }
 
 }  // namespace lfc

@@ -2,7 +2,7 @@
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of the JAX
 // package.
 //
-// Design of eight of them (first, simple version): one thread per row of
+// Design of six of them (first, simple version): one thread per row of
 // the flat row axis, 32 threads a block (the main path has only 512 to
 // 2,560 rows, so small blocks spread them over more SMs), every index
 // checked against n; each runs the row body of the same name in
@@ -11,10 +11,12 @@
 // multiply-adds, and the heavy steps are real calls rather than inlined
 // copies.  There is no shared memory and no tensor-core use.
 //
-// The G2 ladder's round kernels lad2 and lad3 (redesigned): one block per
-// row, one warp per Fq step, the digits across the lanes, the row and the
-// constant table in shared memory (field_coop.cuh).  The ladder has 512
-// rows, so one thread per row left 16 of the 132 SMs with one warp each.
+// The G2 ladder's round kernels lad1, lad2 and lad3 and fq2pow16mul
+// (redesigned): one block per row, one warp per Fq step, the digits across
+// the lanes, the row and the constant table in shared memory
+// (field_coop.cuh).  The ladder has 512 rows and the square root's scan
+// 256, so one thread per row left 16 or 8 of the 132 SMs with one warp
+// each, walking a serial chain of 11 to 33 Fq products.
 //
 // What bounds them on this card: integer multiply-add throughput.  An Fq
 // product is 2,500 digit multiply-adds for the schoolbook plus 2,600 for
@@ -110,16 +112,6 @@ __global__ void pow16mul_k(Ptrs p, int n, const int* __restrict__ K) {
 LF_LAUNCHER(pow16mul, 2, 1)
 #endif
 
-#ifdef LF_KERNEL_fq2pow16mul
-// Replaces fused_core.py _fq2pow16mul_k (f2_pow16mul): r^16 * t in Fq2,
-// four Fq2 squares and one Karatsuba.  Operation-bound.
-__global__ void fq2pow16mul_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_fq2pow16mul(p.in, p.out, row, K);
-}
-LF_LAUNCHER(fq2pow16mul, 2, 1)
-#endif
-
 #ifdef LF_KERNEL_fold
 // Replaces fused_core.py _fold_k (f_fold): loose -> semi-strict, two carry
 // passes around a three-row fold.  About 150 multiply-adds against 400
@@ -143,47 +135,58 @@ __global__ void canon_k(Ptrs p, int n, const int* __restrict__ K) {
 LF_LAUNCHER(canon, 1, 1)
 #endif
 
-#ifdef LF_KERNEL_lad1
-// Replaces lodestar_tpu/ops/fused_ladder.py _lad1_k: round 1 of the
-// complete G2 double-and-add (z1^2, z2^2; x^2, y^2, y*z of both
-// doublings): 6 Fq2 squares and 2 Karatsubas a row.  Operation-bound.
-__global__ void lad1_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_lad1(p.in, p.out, row, K);
-}
-LF_LAUNCHER(lad1, 6, 8)
-#endif
-
-// One block of lfc::THREADS per row; the row's values, the constant table
-// and every warp's scratch in dynamic shared memory (lfc::Lad2 / Lad3; the
-// attribute admits a layout above 48 KB, as a build with more warps has).
-#define LF_COOP_LAUNCHER(NAME, NIN, NOUT, LAYOUT)                                 \
+// One block of LAYOUT::THREADS per row; the row's values, the constant
+// table and every warp's scratch in dynamic shared memory (the attribute
+// admits a layout above 48 KB, as lad2 and lad3 have).  The kernel body
+// casts the shared memory to LAYOUT and runs lfc::block_NAME on it.
+#define LF_COOP_KERNEL(NAME, NIN, NOUT, LAYOUT)                                   \
+  using NAME##_layout = LAYOUT;                                                   \
+  __global__ void __launch_bounds__(NAME##_layout::THREADS, NAME##_layout::MIN_BLOCKS) \
+      NAME##_k(Ptrs p, int n, const int* __restrict__ K) {                        \
+    extern __shared__ __align__(16) int smem[];                                   \
+    if ((int)blockIdx.x < n)                                                      \
+      lfc::block_##NAME(p.in, p.out, blockIdx.x, K,                               \
+                        *reinterpret_cast<NAME##_layout*>(smem));                 \
+  }                                                                               \
   extern "C" int launch_##NAME(void* const* ins, void* const* outs, int n,        \
                                const void* consts, void* stream) {                \
     if (n <= 0) return 0;                                                         \
     const Ptrs p = make_ptrs(ins, NIN, outs, NOUT);                               \
-    const int bytes = static_cast<int>(sizeof(lfc::LAYOUT));                      \
+    const int bytes = static_cast<int>(sizeof(NAME##_layout));                    \
     cudaError_t e = cudaFuncSetAttribute(                                         \
         NAME##_k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);            \
     if (e != cudaSuccess) return static_cast<int>(e);                             \
-    NAME##_k<<<n, lfc::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(      \
+    NAME##_k<<<n, NAME##_layout::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>( \
         p, n, static_cast<const int*>(consts));                                   \
     return static_cast<int>(cudaGetLastError());                                  \
   }                                                                               \
-  extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(lfc::LAYOUT)); }
+  extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(NAME##_layout)); }
+
+#ifdef LF_KERNEL_fq2pow16mul
+#include "field_coop.cuh"
+// Replaces fused_core.py _fq2pow16mul_k (f2_pow16mul): r^16 * t in Fq2,
+// four Fq2 squares and one Karatsuba, 11 Fq products a row in a chain
+// that allows at most 3 at once (the schedule beside
+// lfc::Fq2Pow16MulStages), so its block has lfc::POW_WARPS warps, fewer
+// than the ladder's.  Operation-bound.
+LF_COOP_KERNEL(fq2pow16mul, 2, 1, lfc::Fq2Pow16Mul<lfc::POW_WARPS>)
+#endif
+
+#ifdef LF_KERNEL_lad1
+#include "field_coop.cuh"
+// Replaces lodestar_tpu/ops/fused_ladder.py _lad1_k: round 1 of the
+// complete G2 double-and-add (z1^2, z2^2; x^2, y^2, y*z of both
+// doublings): 6 Fq2 squares and 2 Karatsubas, 18 Fq products a row, at
+// most 12 at once (the schedule beside lfc::Lad1Stages).  Operation-bound.
+LF_COOP_KERNEL(lad1, 6, 8, lfc::Lad1<lfc::LAD_WARPS>)
+#endif
 
 #ifdef LF_KERNEL_lad2
 #include "field_coop.cuh"
 // Replaces fused_ladder.py _lad2_k: the u/s cross terms and the doubling
 // glue (e, x3, d - x3, 8c) of both doublings, 24 Fq products a row, at
 // most 8 at once (the schedule beside lfc::Lad2Stages).  Operation-bound.
-__global__ void __launch_bounds__(lfc::THREADS, lfc::MIN_BLOCKS)
-    lad2_k(Ptrs p, int n, const int* __restrict__ K) {
-  extern __shared__ __align__(16) int smem[];
-  if ((int)blockIdx.x < n)
-    lfc::block_lad2(p.in, p.out, blockIdx.x, K, *reinterpret_cast<lfc::Lad2*>(smem));
-}
-LF_COOP_LAUNCHER(lad2, 10, 12, Lad2)
+LF_COOP_KERNEL(lad2, 10, 12, lfc::Lad2<lfc::LAD_WARPS>)
 #endif
 
 #ifdef LF_KERNEL_lad3
@@ -191,11 +194,5 @@ LF_COOP_LAUNCHER(lad2, 10, 12, Lad2)
 // Replaces fused_ladder.py _lad3_k: rounds 3-6 of the complete add and
 // y3/z3 of both doublings, 33 Fq products a row, at most 6 at once (the
 // schedule beside lfc::Lad3Stages).  Operation-bound.
-__global__ void __launch_bounds__(lfc::THREADS, lfc::MIN_BLOCKS)
-    lad3_k(Ptrs p, int n, const int* __restrict__ K) {
-  extern __shared__ __align__(16) int smem[];
-  if ((int)blockIdx.x < n)
-    lfc::block_lad3(p.in, p.out, blockIdx.x, K, *reinterpret_cast<lfc::Lad3*>(smem));
-}
-LF_COOP_LAUNCHER(lad3, 16, 9, Lad3)
+LF_COOP_KERNEL(lad3, 16, 9, lfc::Lad3<lfc::LAD_WARPS>)
 #endif

@@ -1,8 +1,9 @@
 // Host build of the kernels' row bodies (field.cuh, field_coop.cuh, tower.cuh, limbs.cuh)
 // with a plain C interface, for the CPU parity test: the same arithmetic
 // the CUDA kernels run, looped over rows on the CPU (the cooperative
-// bodies of lad2 and lad3 walk their lanes and warps in turn, over one
-// host copy of their shared-memory layout).  Built with g++ by
+// bodies of lad1, lad2, lad3 and fq2pow16mul walk their lanes and warps in
+// turn, over one host copy of their shared-memory layout, at the kernels'
+// warp counts).  Built with g++ by
 // tests/test_torch_kernel_host.py; not part of the device path.
 
 #include <memory>
@@ -40,12 +41,12 @@ LF_HOST(mul)
 LF_HOST(fq2mul)
 LF_HOST(fq2sqr)
 LF_HOST(pow16mul)
-LF_HOST(fq2pow16mul)
+LF_HOST_COOP(fq2pow16mul, Fq2Pow16Mul<lfc::POW_WARPS>)
 LF_HOST(fold)
 LF_HOST(canon)
-LF_HOST(lad1)
-LF_HOST_COOP(lad2, Lad2)
-LF_HOST_COOP(lad3, Lad3)
+LF_HOST_COOP(lad1, Lad1<lfc::LAD_WARPS>)
+LF_HOST_COOP(lad2, Lad2<lfc::LAD_WARPS>)
+LF_HOST_COOP(lad3, Lad3<lfc::LAD_WARPS>)
 LF_HOST(tower_fq2_mul)
 LF_HOST(tower_fq2_sqr)
 LF_HOST(tower_fq6_mul)

@@ -12,17 +12,22 @@ build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
 shows which stage of the compiler the fault follows.  The cooperative
-kernels lad2 and lad3 (field_coop.cuh) inline every step by design; the
-``ptxas-O1`` and ``coop-4-warps`` variants hold them at another ptxas level
-and another block size.
+kernels lad1, lad2, lad3 and fq2pow16mul (field_coop.cuh) keep the
+product and the fold as calls too; the ``ptxas-O1`` variant holds them at
+another ptxas level, and the ``*-warps`` variants at other block sizes
+(``LF_COOP_WARPS``: the ladder kernels' warps a block, 8 by default;
+``LF_POW_WARPS``: fq2pow16mul's, 4).
 
 For each variant and kernel it prints one JSON line: the rows that differ
-from the plain version over 1, 37, 512 and 2,560 rows and three seeds,
-and the first differing row's digits (for the ring hop: the chunks, of
-the ring's two shapes, that differ from a copy); then, for the fq2sqr,
-lad2, lad3, tower_fq12_mul, library_fq2_mul and ring_hop kernels, ptxas's
-register, stack and spill report, and the dynamic shared memory of a
-lad2 / lad3 block.  Needs a CUDA card and nvcc.
+from the plain version over 1, 37, 256, 512, 513 and 2,560 rows and three
+seeds, and the first differing row's digits (for the ring hop: the
+chunks, of the ring's two shapes, that differ from a copy); then, for the
+fq2sqr, lad1, lad2, lad3, fq2pow16mul, tower_fq12_mul, library_fq2_mul
+and ring_hop kernels, ptxas's register, stack and spill report; the
+dynamic shared memory of a cooperative kernel's block; and each
+cooperative kernel's device time at the rows chip_smoke times it at (20
+launches in a CUDA graph, replayed between CUDA events).  Needs a CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -55,14 +60,21 @@ VARIANTS = {
     "inlined-ptxas-O2": (INLINE, "-Xptxas", "-O2"),
     "inlined-G": (INLINE, "-G"),
     "ptxas-O1": ("-Xptxas", "-O1"),
-    "coop-4-warps": ("-DLF_COOP_WARPS=4", "-DLF_COOP_MIN_BLOCKS=8"),
+    "coop-4-warps": ("-DLF_COOP_WARPS=4",),  # the ladder's; fq2pow16mul has 4 already
+    "coop-12-warps": ("-DLF_COOP_WARPS=12",),
+    "pow-2-warps": ("-DLF_POW_WARPS=2",),
+    "pow-3-warps": ("-DLF_POW_WARPS=3",),
+    "pow-8-warps": ("-DLF_POW_WARPS=8",),
 }
-ROWS = (1, 37, 512, 513, 2560)
+ROWS = (1, 37, 256, 512, 513, 2560)
+PTXAS = ("fq2sqr", "lad1", "lad2", "lad3", "fq2pow16mul", "tower_fq12_mul", "library_fq2_mul",
+         "ring_hop")
 SEEDS = range(3)
 
 
-def launch(lib, k, ins):
-    """Run kernel k of library lib on CUDA rows, as Kernel.launch does."""
+def launch(lib, k, ins, sync: bool = True):
+    """Run kernel k of library lib on CUDA rows, as Kernel.launch does
+    (``sync``: then wait for the card)."""
     n = ins[0].shape[0]
     outs = [torch.empty((n,) + k.tail, dtype=torch.float32, device=ins[0].device)
             for _ in range(k.n_out)]
@@ -73,7 +85,8 @@ def launch(lib, k, ins):
     rc = getattr(lib, f"launch_{k.name}")(ins_arr, outs_arr, n, table.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"launch_{k.name} failed: cudaError {rc}")
-    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.synchronize()
     return outs
 
 
@@ -140,13 +153,18 @@ def main(names) -> int:
                   flush=True)
         print(json.dumps({"variant": variant, "kernel": "ring_hop", **check_ring(lib, dev)}),
               flush=True)
-        for name in ("fq2sqr", "lad2", "lad3", "tower_fq12_mul", "library_fq2_mul", "ring_hop"):
+        for name in PTXAS:
             print(json.dumps({"variant": variant, f"ptxas_{name}": ptxas_report(VARIANTS[variant], name)}),
                   flush=True)
         for name in chip_smoke.COOP:
+            k = fc.KERNELS[name]
+            ms = {}
+            for rows in chip_smoke.SHAPES[name]:
+                ins = chip_smoke.kernel_inputs(k, rows, np.random.default_rng(rows), dev)
+                ms[rows] = chip_smoke.graph_ms(lambda: launch(lib, k, ins, sync=False))
             print(json.dumps({"variant": variant,
-                              f"smem_bytes_{name}": getattr(lib, f"smem_bytes_{name}")()}),
-                  flush=True)
+                              f"smem_bytes_{name}": getattr(lib, f"smem_bytes_{name}")(),
+                              f"ms_{name}": ms}), flush=True)
     return 0
 
 

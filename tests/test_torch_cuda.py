@@ -3,7 +3,9 @@
 Run on the H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Each kernel (the fused path's ten, the XLA-graph path's four tower
 kernels and the library kernel) is held bitwise against its plain version
-on the same CUDA inputs, the library kernel also against the JAX vectors
+on the same CUDA inputs (the four cooperative kernels also at 1 to 2,560
+rows and at the digit bounds, and their launches do not wait for the
+card), the library kernel also against the JAX vectors
 of pallas_fuse(tower.fq2_mul) and the registry's every entry, and the
 bucket-4 slice of each path on the card against the CPU plain run.  The
 split dispatch (the host C final exponentiation) gives the JAX vectors'
@@ -19,6 +21,7 @@ the port does not run to the same check."""
 import asyncio
 import importlib.util
 import os
+import time
 
 import numpy as np
 import pytest
@@ -59,11 +62,11 @@ def test_kernel_equals_plain_version_on_the_card(name, rows, card):
 
 
 @pytest.mark.parametrize("seed", range(3))
-@pytest.mark.parametrize("rows", [1, 37, 512, 513, 1548, 2560])
+@pytest.mark.parametrize("rows", [1, 37, 256, 257, 512, 513, 1548, 2560])
 @pytest.mark.parametrize("name", chip_smoke.COOP)
 def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, seed, card):
-    """lad2 and lad3, one block per row: seeded rows and rows at the digit
-    bounds (2^22 - 1 loose, 256 semi-strict), bitwise."""
+    """lad1, lad2, lad3 and fq2pow16mul, one block per row: seeded rows and
+    rows at the digit bounds (2^22 - 1 loose, 256 semi-strict), bitwise."""
     k = fc.KERNELS[name]
     rng = np.random.default_rng(100 * rows + seed)
     for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):
@@ -73,6 +76,26 @@ def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, 
         assert k.launches == before + 1
         for g, w in zip(got, k.plain(*ins)):
             assert g.is_cuda and torch.equal(g, w)
+
+
+def test_cooperative_launch_does_not_wait_for_the_card(card):
+    """A cooperative kernel's launch, which sets the kernel's shared-memory
+    attribute, returns while earlier work still runs on the card: the host
+    runs ahead of the card through these launches too."""
+    stream = torch.cuda.current_stream(card)
+    for name in chip_smoke.COOP:
+        k = fc.KERNELS[name]
+        ins = chip_smoke.kernel_inputs(k, 4, np.random.default_rng(5), card)
+        k(*ins)  # the first launch on the card
+        torch.cuda.synchronize(card)
+        with torch.cuda.device(card):
+            torch.cuda._sleep(200_000_000)  # about 0.1 s of the card's clock
+        t0 = time.perf_counter()
+        k(*ins)
+        host_s = time.perf_counter() - t0
+        busy = not stream.query()
+        stream.synchronize()
+        assert busy and host_s < 0.02, f"{name}: the launch took {host_s} s on the host"
 
 
 def test_bucket4_miller_product_on_the_card_equals_the_cpu_plain_run(card):

@@ -2,8 +2,8 @@
 
 field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
 __host__ __device__ functions, field_coop.cuh the cooperative block bodies
-of lad2 and lad3 (one block per row, one warp per step), whose lanes and
-warps the host build walks in turn; ops/kernels/host_shim.cpp wraps them
+of lad1, lad2, lad3 and fq2pow16mul (one block per row, one warp per
+step), whose lanes and warps the host build walks in turn; ops/kernels/host_shim.cpp wraps them
 in a plain C interface.  Here g++ builds that shim (into build/, keyed by
 the sources' hash) and the fifteen bodies are held bitwise against the
 plain PyTorch versions; the cooperative ones also with their lanes and
@@ -69,7 +69,7 @@ def _host_build(flags) -> str:
     return lib
 
 
-COOP = ("lad2", "lad3")  # the cooperative bodies of field_coop.cuh
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul")  # the cooperative bodies of field_coop.cuh
 
 
 def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
@@ -110,9 +110,10 @@ def test_host_built_row_body_equals_plain_version_bitwise(name, host_lib):
 @pytest.mark.parametrize("name", COOP)
 def test_cooperative_ladder_bodies_equal_plain_versions_bitwise(name, rows, order, host_lib,
                                                                host_lib_reversed):
-    """lad2 and lad3 one step a warp, lanes and warps walked forwards and
-    backwards: a lane reading what another lane writes in the same step,
-    or a warp what another warp writes in the same stage, would differ."""
+    """The cooperative bodies one step a warp, lanes and warps walked
+    forwards and backwards: a lane reading what another lane writes in the
+    same step, or a warp what another warp writes in the same stage, would
+    differ."""
     lib = host_lib if order == "forward" else host_lib_reversed
     run_rows(lib, name, rows, rows)
     run_rows(lib, name, rows, rows + 1, edge=True)
@@ -122,27 +123,31 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     """field_coop.cuh keeps its two heavy steps, the digit product and the
     fold, out of line (inlined into every stage they made a body of 128
     registers with spills), inlines the rest, and holds every digit in
-    shared memory: its only arrays are the rows' layouts.  lad2 and lad3
-    run its block bodies."""
+    shared memory: its only arrays are the rows' layouts, each a template
+    over its warp count.  The cooperative kernels run its block bodies and
+    no one-thread body of theirs is left in field.cuh."""
     src = open(os.path.join(KDIR, "field_coop.cuh"), encoding="utf-8").read()
     assert re.search(r"^#define LC_STEP static __host__ __device__ __noinline__$", src, re.M)
     for step in ("fold", "mul"):
         assert re.search(rf"^LC_STEP void {step}\(", src, re.M), step
     assert "LF_INLINE_ALL" not in src
-    layouts = re.findall(r"^struct (Lad[23]) \{\n(.*?)^\};", src, re.M | re.S)
-    assert [name for name, _ in layouts] == ["Lad2", "Lad3"]
-    rest = re.sub(r"^struct Lad[23] \{\n.*?^\};", "", src, flags=re.M | re.S)
+    layout = r"^template <int NW>\nstruct (\w+) : Warps<NW> \{\n(.*?)^\};"
+    layouts = re.findall(layout, src, re.M | re.S)
+    assert [name for name, _ in layouts] == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul"]
+    rest = re.sub(layout, "", src, flags=re.M | re.S)
     code = re.sub(r"//[^\n]*", "", rest)
     assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
     from lodestar_tpu_torch.ops.kernels import _build
 
     assert "field_coop.cuh" in _build.SOURCES  # an edit rebuilds the kernels
     kernels = open(os.path.join(KDIR, "fused_kernels.cu"), encoding="utf-8").read()
+    assert "lfc::block_##NAME(" in kernels and "extern __shared__" in kernels
+    row_bodies = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
     for name in COOP:
         body = kernels[kernels.index(f"#ifdef LF_KERNEL_{name}"):]
         body = body[:body.index("#endif")]
-        assert '#include "field_coop.cuh"' in body and f"lfc::block_{name}(" in body
-        assert "extern __shared__" in body and f"lf::row_{name}" not in body
+        assert '#include "field_coop.cuh"' in body and f"LF_COOP_KERNEL({name}, " in body
+        assert f"lf::row_{name}" not in body and f"row_{name}(" not in row_bodies
 
 
 def test_heavy_steps_are_real_calls_in_the_kernels_build():

@@ -7,7 +7,8 @@ flush through TorchBlsVerifier on the CPU.
 The cases of tests/test_bls_pool.py come first, against the port's pool;
 its three utility cases (logger, retry helper, metrics exposition) have no
 module in the port, and the pool's counters and warnings stand in for
-them.  Timing: the assertions are on order (events between threads) and
+them.  Through TorchBlsVerifier on the CPU: one flush, a merged batch that
+rides the sharded tier over 2 logical shards, and the verifier's close().  Timing: the assertions are on order (events between threads) and
 counters; the one wall-clock bound is a 2x margin."""
 
 import asyncio
@@ -240,6 +241,30 @@ class TestPipeline:
         run(main())
 
 
+    def test_merge_cap_grows_by_the_shard_count_while_the_tier_is_active(self):
+        """A stub verifier whose sharded tier has 4 shards on one card: the
+        merge cap is flush_threshold x mesh_devices while sharded_active
+        and flush_threshold again once it is false; the window stays
+        pipeline_depth x n_devices."""
+
+        async def main():
+            v = StageVerifier()
+            v.sharded_active, v.mesh_devices = True, 4
+            pool = BlsBatchPool(v, max_buffer_wait=0.005, pipeline_depth=2, flush_threshold=2)
+            assert pool._flush_window() == (2, 8)
+            jobs = [pool.verify_signature_sets([make_set(i)]) for i in range(8)]
+            assert await asyncio.gather(*jobs) == [True] * 8
+            assert v.dispatched == [8]
+            v.sharded_active = False
+            assert pool._flush_window() == (2, 2)
+            jobs = [pool.verify_signature_sets([make_set(i)]) for i in range(8)]
+            assert await asyncio.gather(*jobs) == [True] * 8
+            assert v.dispatched == [8, 2, 2, 2, 2]
+            pool.close()
+
+        run(main())
+
+
 class TestCountersAndFailures:
     """In place of the JAX file's utility cases: the pool's counters and
     its warnings on failed dispatches."""
@@ -438,3 +463,56 @@ def test_one_flush_through_torch_verifier_on_the_cpu():
     assert results == [True, True, True]
     assert v.host_final_exps == 1 and pool.batch_retries == 0
     assert len(pool.batch_spans) == 1 and v.device_inflight() == {"cpu": 0}
+
+
+def test_merged_batch_rides_the_sharded_tier_on_the_cpu():
+    """Over 2 logical shards with ``sharded_min_batch=4`` the merge cap is
+    ``flush_threshold`` x 2: four one-set jobs merge into one batch of 4,
+    which the sharded tier verifies (the plain versions: several seconds)."""
+    import torch
+
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    async def main():
+        v = TorchBlsVerifier(device="cpu", devices=["cpu"] * 2, sharded_min_batch=4,
+                             rng=np.random.default_rng(10))
+        pool = BlsBatchPool(v, max_buffer_wait=0.01, flush_threshold=2)
+        assert v.sharded_active and pool._flush_window() == (2, 4)
+        results = await asyncio.gather(*[pool.verify_signature_sets([make_set(i)])
+                                         for i in range(4)])
+        pool.close()
+        return v, pool, results
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        v, pool, results = run(main())
+    finally:
+        torch.set_num_threads(threads)
+    assert results == [True] * 4
+    assert v.sharded_batches == 1 and len(pool.batch_spans) == 1
+    assert v.host_final_exps == 1 and pool.batch_retries == 0
+    assert v.device_inflight() == {"mesh": 0}
+
+
+def test_torch_verifier_close_releases_what_it_holds_and_refuses_verifies():
+    """TorchBlsVerifier has every method of the IBlsVerifier protocol;
+    close() drops the sharded tier's program and the point cache, after
+    which sharded_active is False and a verify or dispatch raises."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.crypto.bls.verifier import IBlsVerifier
+
+    v = TorchBlsVerifier(device="cpu", devices=["cpu"] * 2, sharded_min_batch=4)
+    members = [n for n, f in vars(IBlsVerifier).items() if callable(f) and not n.startswith("_")]
+    assert sorted(members) == ["close", "verify_signature_sets"]
+    assert all(callable(getattr(v, n)) for n in members)
+    packed = v.pack([make_set(0)])
+    assert v.sharded_active and len(v.point_cache) >= 1
+    v.close()
+    assert not v.sharded_active and len(v.point_cache) == 0 and v.shard_enqueue_walls == []
+    with pytest.raises(RuntimeError, match="closed"):
+        v.verify_signature_sets([make_set(0)])
+    with pytest.raises(RuntimeError, match="closed"):
+        v.dispatch(packed)
+    v.close()  # a second close is harmless
+    assert not TorchBlsVerifier(device="cpu").sharded_active  # one device: no tier
