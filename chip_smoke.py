@@ -14,15 +14,18 @@ its wall time on a line of its own:
    launch counter set to 0 just before, each entry bitwise equal to its
    plain version and every kernel launched; then each CUDA kernel against
    its plain PyTorch version on the card, on seeded inputs at the shapes
-   its path gives it (the fused field kernels at 512 and 2,560 rows,
-   fq2pow16mul also at the square root's 256, the ladder kernels at 512
+   its path gives it (mul, fq2sqr, fold and canon at 512 and 2,560 rows,
+   fq2pow16mul at the square root's 256 and at 512, fq2mul at the htc's
+   256 and 1,024 and the Miller loop's 2,322, pow16mul at the inversions'
+   256 and 512, each of these three also at 2,560, the ladder kernels at 512
    rows, lad2 and lad3 also at 2,560, the tower
    kernels at 1 row and at the most rows the XLA-graph path gives them at
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
-   exact integer arithmetic; the redesigned lad1, lad2, lad3 and
-   fq2pow16mul (one block per row) also at 1, 37 and 513 rows and on
-   inputs at the digit bounds.
+   exact integer arithmetic; the redesigned cooperative kernels (lad1,
+   lad2, lad3 and fq2pow16mul one block per row, fq2mul and pow16mul
+   several rows a block) also at 1, 37 and 513 rows and on inputs at the
+   digit bounds.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
    is outside the window (it is printed beside them as ``issue_ms``, 20
@@ -91,9 +94,12 @@ ported; phases 11-12 the split default.
     batches of 128, each split into pack, device Miller product (enqueue
     plus the sync on the event after the copies of ok and f to the host),
     read of f's host copy and host final exponentiation, and sets/s beside
-    phase 4's; the XLA-graph split at bucket 16 (valid, corrupted; its
-    kernels but the Fq6 product, which only the final exponentiation runs,
-    launched); the sharded split at bucket 256 over 2 logical shards
+    phase 4's; one more batch of 128 whose fq2mul and pow16mul launches
+    are logged as a histogram of their row counts; one batch's dispatch
+    under ``torch.profiler`` (as phase 5), the device's idle share over
+    the best device Miller product; the XLA-graph split at bucket 16
+    (valid, corrupted; its kernels but the Fq6 product, which only the
+    final exponentiation runs, launched); the sharded split at bucket 256 over 2 logical shards
     (valid, corrupted, a signature outside G2 in shard 1, one fresh timed
     batch) and over 4 (150 live sets: shard 3 all padding); with two or
     more cards, the sharded split across cuda:0 and cuda:1;
@@ -237,6 +243,11 @@ SHAPES = {
     # the square root's 256 (2 draws x 128) first; 2,560 kept last, so the
     # kernels line reports the shape of earlier runs
     "fq2pow16mul": (2 * BUCKET, 512, 2560),
+    # the htc's 256 and 1,024 (Fq2 values of 2 draws x 128 lane-stacked 1 and
+    # 4 deep) and the Miller loop's most, 18 lanes x 129 pairs
+    "fq2mul": (2 * BUCKET, 8 * BUCKET, 18 * (BUCKET + 1), 2560),
+    # the windowed inversions' and the Legendre scan's 256 and 512
+    "pow16mul": (2 * BUCKET, 4 * BUCKET, 2560),
     "tower_fq2_mul": (1, 12 * (BUCKET + 1)),
     "tower_fq2_sqr": (1, 2 * BUCKET),
     "tower_fq6_mul": (1,),
@@ -245,11 +256,14 @@ SHAPES = {
     "library_fq2_mul": (4, 12 * (BUCKET + 1)),
 }
 FUSED_SHAPES = (512, 2560)
-# the redesigned cooperative kernels (one block per row): also held at these
-# row counts (a single row; one past the ladder's 512) and on inputs at the
-# digit bounds, untimed
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul")
+# the redesigned cooperative kernels (one warp per Fq step; one row a block,
+# or several for fq2mul and pow16mul): also held at these row counts (a
+# single row; a partial last block for every rows-a-block count; one past
+# the ladder's 512) and on inputs at the digit bounds, untimed
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul")
 COOP_CHECK_ROWS = (1, 37, 513)
+# the kernels whose launches' row counts phase 11 logs as a histogram
+ROW_HISTOGRAM = ("fq2mul", "pow16mul")
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
@@ -410,8 +424,12 @@ def check_coop(k, rng, dev, card: str) -> None:
             held_against_plain(k, edge_inputs(k, rows, rng, dev),
                                f"at {rows} rows, inputs at the bounds")
     # an older checkout's one-thread kernels (a comparison run) have no size
-    smem = getattr(_build.load(), f"smem_bytes_{k.name}", None)
-    layout = (f"one block per row, {smem()} B of dynamic shared memory a block" if smem
+    lib = _build.load()
+    smem = getattr(lib, f"smem_bytes_{k.name}", None)
+    rows_per_block = getattr(lib, f"rows_per_block_{k.name}", lambda: 1)
+    threads = getattr(lib, f"threads_per_block_{k.name}", None)
+    layout = (f"{rows_per_block()} row(s) a block" + (f" of {threads()} threads" if threads else "")
+              + f", {smem()} B of dynamic shared memory a block" if smem
               else "one thread per row")
     log(f"kernel {k.name}: bitwise equal to plain at {COOP_CHECK_ROWS} rows and, inputs at "
         f"the digit bounds, at {COOP_CHECK_ROWS + SHAPES[k.name]} rows, {CHECKS} seeds each; "
@@ -1137,7 +1155,37 @@ def time_split(verifier, fresh, card: str):
     return rate, best
 
 
+def launch_rows(verifier, sets, names, path: str) -> dict:
+    """One batch through ``verifier`` with the launches of kernels ``names``
+    wrapped (as ``ladder_stretch`` marks its stretch) to record each
+    launch's row count; logs and returns {name: {rows: launches}}."""
+    from lodestar_tpu_torch.ops.fused_core import KERNELS
+
+    seen = {name: {} for name in names}
+    for name in names:
+        k = KERNELS[name]
+
+        def recorded(*rows, _launch=k.launch, _seen=seen[name]):
+            n = int(rows[0].shape[0])
+            _seen[n] = _seen.get(n, 0) + 1
+            return _launch(*rows)
+
+        k.launch = recorded
+    try:
+        ok = verifier.verify_signature_sets(sets)
+    finally:
+        for name in names:
+            del KERNELS[name].launch
+    if ok is not True:
+        raise AssertionError(f"{path} launch rows: the batch did not verify")
+    hist = {name: dict(sorted(h.items())) for name, h in seen.items()}
+    log(f"{path} launch rows (rows: launches) of a batch of {len(sets)}: " + json.dumps(hist))
+    return hist
+
+
 def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
+    from torch.profiler import ProfilerActivity
+
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import fused_core
 
@@ -1148,8 +1196,13 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
             raise AssertionError(f"split: the default verifier is {verifier.device}, "
                                  f"host_final_exp={verifier.host_final_exp}")
         out["launches"] = check_verdicts(verifier, sets, "split", FUSED)
+        out["launch_rows"] = launch_rows(verifier, sets, ROW_HISTOGRAM, "split")
         fresh = [make_sets(pool, keys[:BUCKET], b"split timed %d" % r) for r in range(3)]
         out["rate"], out["stages"] = time_split(verifier, fresh, card)
+        # the device's idle share over the best device Miller product
+        out["idle"] = profile_dispatch(verifier.pack(fresh[0]), verifier,
+                                       out["stages"]["device_miller"], card, FUSED, "split",
+                                       [ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
         xla = TorchBlsVerifier(fused=False, rng=np.random.default_rng(SEED + 30))
         small = sets[:SPLIT_XLA_BUCKET]
@@ -1409,7 +1462,8 @@ def main(argv) -> int:
             split = run_split(dev, card, pool, keys, sets, sets256)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
-            log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s beside the full-device "
+            log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s, device idle "
+                f"{split['idle']} of the device Miller product, beside the full-device "
                 f"{full} (phase 4); split sharded {split['sharded_rate']} sets/s at bucket "
                 f"{SHARDED_BUCKET}; pool {pooled['rate']} sets/s, {pooled['batches']} batches, "
                 f"inflight peak {pooled['inflight_peak']}, two host spans open "

@@ -4,7 +4,7 @@
 // float32 digits of the Python side, converted on load).  "Loose" digits
 // are <= 2^22 - 1; "semi-strict" digits are <= 256.  Every function here
 // reproduces, digit for digit, the integer values the JAX package's
-// fused_core computes (m_fold, m_mul, m_fq2_mul, m_fq2_sqr, m_add, m_sub
+// fused_core computes (m_fold, m_mul, m_fq2_sqr, m_add, m_sub
 // and the Barrett canonicalisation of _canon_k): the same carry passes
 // for the same bound, the same fold widths and the same truncations.
 // All values stay below 2^24, so int32 holds them exactly, and every
@@ -12,10 +12,11 @@
 // the shift x >> 8.
 //
 // The functions are __host__ __device__: the kernels in fused_kernels.cu
-// call the row_* bodies at the bottom (lad1, lad2, lad3 and fq2pow16mul
-// the cooperative bodies of field_coop.cuh, over the same steps), and
-// host_shim.cpp builds the very same bodies with g++ for the CPU parity
-// test.
+// call the row_* bodies at the bottom (lad1, lad2, lad3, fq2pow16mul,
+// fq2mul and pow16mul the cooperative bodies of field_coop.cuh, which
+// mirror these steps: fold, mul, and m_fq2_mul and m_fq2_sqr in stages),
+// and host_shim.cpp builds the very same bodies with g++ for the CPU
+// parity test.
 
 #pragma once
 
@@ -27,10 +28,10 @@
 #endif
 
 // Small helpers are inlined; the heavy steps (fold, the digit product,
-// the Fq2 product and square, the canonicalisation) are real calls.  With
+// the Fq2 square, the canonicalisation) are real calls.  With
 // them inlined as well, every kernel sits at 255 registers and spills, and
-// ptxas -O2/-O3 of CUDA 12.8 miscompiles the fq2mul, fq2sqr and ladder
-// kernels (right at ptxas -O0/-O1; tests/kernel_build_variants.py).
+// ptxas -O2/-O3 of CUDA 12.8 miscompiled the one-thread fq2mul, fq2sqr
+// and ladder kernels (right at ptxas -O0/-O1; tests/kernel_build_variants.py).
 #define LF_HD static __host__ __device__ __forceinline__
 #ifdef LF_INLINE_ALL  // every step inlined: the miscompiled layout
 #define LF_CALL LF_HD
@@ -139,21 +140,6 @@ LF_HD void scale(const int* a, int k, int* out, const int* K) {
 // Fq2 values are int[2][50] component pairs.
 typedef int fq2[2][NL];
 
-// m_fq2_mul: Karatsuba, three Fq products.
-LF_CALL void fq2_mul(const fq2 a, const fq2 b, fq2 out, const int* K) {
-  int t0[NL], t1[NL], t2[NL], sa[NL], sb[NL], u[NL];
-  mul<16>(a[0], b[0], t0, K);
-  mul<16>(a[1], b[1], t1, K);
-  for (int j = 0; j < NL; ++j) {
-    sa[j] = a[0][j] + a[1][j];
-    sb[j] = b[0][j] + b[1][j];
-  }
-  mul<18>(sa, sb, t2, K);
-  sub(t0, t1, out[0], K);
-  for (int j = 0; j < NL; ++j) u[j] = t2[j] + (K[K_PAD + j] - (t0[j] + t1[j]));
-  fold<NL, 13>(u, out[1], K);
-}
-
 // m_fq2_sqr: (a0 + a1)(a0 - a1) + 2 a0 a1 u.
 LF_CALL void fq2_sqr(const fq2 a, fq2 out, const int* K) {
   int d[NL], s[NL], m[NL];
@@ -254,7 +240,7 @@ LF_CALL void canon(const int* xin, int* out, const int* K) {
   for (int k = 0; k < NL; ++k) out[k] = r[k];
 }
 
-// -- the six one-thread row bodies -----------------------------------------------
+// -- the four one-thread row bodies ----------------------------------------------
 // in[i] / out[i] point at (N, 50) or (N, 2, 50) float32 arrays; each body
 // computes one row.
 
@@ -267,15 +253,6 @@ LF_HD void row_mul(const float* const* in, float* const* out, int row, const int
   store(out[0] + row * NL, o);
 }
 
-// fused_core._fq2mul_k
-LF_HD void row_fq2mul(const float* const* in, float* const* out, int row, const int* K) {
-  fq2 a, b, o;
-  load2_fold(in[0] + row * 2 * NL, a, K);
-  load2_fold(in[1] + row * 2 * NL, b, K);
-  fq2_mul(a, b, o, K);
-  store2(out[0] + row * 2 * NL, o);
-}
-
 // fused_core._fq2sqr_k: the square and the folded input
 LF_HD void row_fq2sqr(const float* const* in, float* const* out, int row, const int* K) {
   fq2 a, o;
@@ -283,19 +260,6 @@ LF_HD void row_fq2sqr(const float* const* in, float* const* out, int row, const 
   fq2_sqr(a, o, K);
   store2(out[0] + row * 2 * NL, o);
   store2(out[1] + row * 2 * NL, a);
-}
-
-// fused_core._pow16mul_k: r^16 * t in Fq
-LF_HD void row_pow16mul(const float* const* in, float* const* out, int row, const int* K) {
-  int r[NL], t[NL], s[NL];
-  load_fold(in[0] + row * NL, r, K);
-  load_fold(in[1] + row * NL, t, K);
-  for (int i = 0; i < 4; ++i) {
-    mul<16>(r, r, s, K);
-    for (int j = 0; j < NL; ++j) r[j] = s[j];
-  }
-  mul<16>(r, t, s, K);
-  store(out[0] + row * NL, s);
 }
 
 // fused_core._fold_k

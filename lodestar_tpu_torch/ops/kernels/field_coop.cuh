@@ -1,16 +1,19 @@
-// Cooperative BLS12-381 field arithmetic for the G2 ladder's round kernels
-// lad1, lad2 and lad3 and for fq2pow16mul: one thread block per row, one
-// warp per Fq step, the digits of a step across the warp's 32 lanes, every
-// value of the row in shared memory.
+// Cooperative BLS12-381 field arithmetic for six of the fused kernels: the
+// G2 ladder's round kernels lad1, lad2 and lad3, fq2pow16mul, fq2mul and
+// pow16mul.  One warp per Fq step, the digits of a step across the warp's
+// 32 lanes, every value of a row in shared memory; a row has NW warps and
+// a block R rows.
 //
-// Layout.  A block holds one row: the constant table (staged once), the
-// row's inputs, its outputs and every intermediate, as int32 digits in one
-// shared-memory struct (Lad1, Lad2, Lad3, Fq2Pow16Mul below), with a
-// scratch area of 462 ints per warp.  No step keeps a digit array in local
-// memory.  The warp count is a template parameter of the layout, of Ctx
-// and of run_stages: each kernel has its own (LAD_WARPS, POW_WARPS), and
-// the host build, which holds every body in one translation unit, walks
-// the same count.
+// Layout.  A block (Block below) holds the constant table, staged once for
+// its R rows, and R row layouts (Lad1, Lad2, Lad3, Fq2Pow16Mul, Fq2Mul,
+// Pow16Mul): each row's inputs, outputs and intermediates as int32 digits,
+// with a scratch area of 462 ints per warp of the row.  No step keeps a
+// digit array in local memory.  The warp and row counts are template
+// parameters of the layouts, of Ctx and of run_stages: each kernel has its
+// own (the *Block aliases at the bottom), and the host build, which holds
+// every body in one translation unit, walks the same counts.  The last
+// block's missing rows (row >= n) load zeros, run every stage and reach
+// every sync, and are not stored.
 //
 // One step on one warp (lane = threadIdx.x & 31):
 //   - the 50x50 digit product: lane k sums the anti-diagonal columns k and
@@ -21,9 +24,10 @@
 //     buffer and written to another, so a lane reads its neighbour's old
 //     digit from shared memory;
 //   - the fold: lane j sums h_r * RED[r][j] over the folded rows r.
-// The steps are separated by __syncwarp(); the row's stages (the sets of
-// independent steps, each on its own warp: "the schedule" beside each
-// kernel body) by __syncthreads().
+// The steps are separated by __syncwarp(); a row's stages (the sets of
+// independent steps, each on its own warp of the row: "the schedule"
+// beside each kernel body) by __syncthreads(), which every row of the
+// block reaches at the same stage.
 //
 // Why this equals field.cuh digit for digit.  carry_pass reads only the old
 // x_(i-1) (it walks i downwards), so a pass that reads one buffer and writes
@@ -37,32 +41,53 @@
 //
 // The same source runs on the CPU (host_shim.cpp, built with g++ for the
 // parity test): there LC_LANE_FOR walks every lane's index in turn, the
-// block's warps run one after the other, stage by stage, and the syncs are
-// no-ops.  That is the parallel run because within one step no lane reads
-// a location that another lane writes, and within one stage no warp reads
-// what another warp writes.  -DLC_HOST_REVERSED walks lanes and warps in
-// the opposite order; the parity test builds both orders, so a step that
-// broke either rule would show as a difference.
+// block's warps (every row's) run one after the other, stage by stage, the
+// blocks one after the other, and the syncs are no-ops.  That is the
+// parallel run because within one step no lane reads a location that
+// another lane writes, within one stage no warp reads what another warp
+// writes, and no row reads another's values.  -DLC_HOST_REVERSED walks
+// lanes, warps and blocks in the opposite order; the parity test builds
+// both orders, so a step that broke either rule would show as a
+// difference.
 //
 // Calls and registers.  The two heavy steps, mul and fold (one instance a
 // carry bound), are real calls (LC_STEP): inlined into the twelve stages
 // of lad3 they made a body that ptxas held at 128 registers with spills,
 // two blocks a SM.  The rest is inlined (LC_HD); no step keeps an array of
 // its own.  ptxas sizes the registers at 64 a thread (Warps::MIN_BLOCKS:
-// 1,024 threads a SM; the shared memory admits at least that many blocks
-// of every layout here, at its default warp count), which ran faster on
-// the H100 than the uncapped build at two or three blocks a SM.
+// 1,024 threads a SM, for a block of 32 x NW x R threads; the shared
+// memory admits at least that many blocks of every layout here, at its
+// default counts), which ran faster on the H100 than the uncapped build at
+// two or three blocks a SM.
+//
+// The constant table.  A block stages it (11.8 KB) into shared memory
+// before its first stage; -DLF_COOP_K_GLOBAL (a variant for the card
+// tests) reads it from global memory through the cache instead.  On the
+// H100 staging cost a block of one row on one warp ~2.5 us (fq2mul and
+// pow16mul at 256 rows, one wave), which the rows of a block share; read
+// from global memory the table made the ladder kernels and fq2pow16mul
+// 1-11 % slower (PERF.md).
 
 #pragma once
 
 #include "field.cuh"
 
-// warps a block (other counts only for the card tests' variants)
+// warps a row and rows a block (other counts only for the card tests'
+// variants)
 #ifndef LF_COOP_WARPS
-#define LF_COOP_WARPS 8  // lad1, lad2, lad3
+#define LF_COOP_WARPS 8  // lad1, lad2, lad3: warps, one row a block
 #endif
 #ifndef LF_POW_WARPS
-#define LF_POW_WARPS 4  // fq2pow16mul
+#define LF_POW_WARPS 4  // fq2pow16mul: warps, one row a block
+#endif
+#ifndef LF_FQ2MUL_WARPS
+#define LF_FQ2MUL_WARPS 3  // fq2mul: warps a row
+#endif
+#ifndef LF_FQ2MUL_ROWS
+#define LF_FQ2MUL_ROWS 2  // fq2mul: rows a block
+#endif
+#ifndef LF_POW16_ROWS
+#define LF_POW16_ROWS 4  // pow16mul: rows a block, one warp a row
 #endif
 
 #define LC_HD static __host__ __device__ __forceinline__
@@ -94,14 +119,24 @@ namespace lfc {
 using lf::NL;
 constexpr int LAD_WARPS = LF_COOP_WARPS;
 constexpr int POW_WARPS = LF_POW_WARPS;
+constexpr int FQ2MUL_WARPS = LF_FQ2MUL_WARPS;
+constexpr int FQ2MUL_ROWS = LF_FQ2MUL_ROWS;
+constexpr int POW16_ROWS = LF_POW16_ROWS;
 constexpr int F2 = 2 * NL;   // one Fq2 value: component 0, then component 1
+#ifdef LF_COOP_K_GLOBAL
+constexpr int K_STAGED = 1;  // the table is read from global memory
+#else
+constexpr int K_STAGED = lf::K_LEN;
+#endif
 
-// A layout's block of NW warps, and the blocks a SM that ptxas sizes
+// A block of R rows of NW warps each, and the blocks a SM that ptxas sizes
 // the registers for (64 registers a thread).
-template <int NW>
+template <int NW, int R>
 struct Warps {
-  static constexpr int THREADS = 32 * NW;
+  static constexpr int ROWS = R;
+  static constexpr int THREADS = 32 * NW * R;
   static constexpr int MIN_BLOCKS = 1024 / THREADS;
+  static_assert(THREADS <= 1024, "a block is at most 1,024 threads");
 };
 
 // one warp's scratch: two carry buffers as wide as a product (101 digits,
@@ -334,48 +369,91 @@ LC_HD void fq2sqr_finish(Ctx<NW>& c, const int* a, const int* t, int* out) {
   t_fold<10>(c, scale(t + NL, 2), out + NL);
 }
 
-// -- loads, stores, and the run of a row's stages -------------------------------
+// -- the block: loads, stores, and the run of its rows' stages ----------------
 
-LC_HD void load_row(const int* K, const float* const* in, int nin, int row, int* consts,
-                    int* rows) {
-  LC_BLOCK_FOR(i, lf::K_LEN) consts[i] = K[i];
-  LC_BLOCK_FOR(i, nin * F2) {
-    const int k = i / F2;
-    rows[i] = (int)in[k][row * F2 + (i - k * F2)];
+// The constant table and R row layouts Row<NW>, whose first members are
+// in (the inputs) and out (the outputs).
+template <template <int> class Row, int NW, int R>
+struct Block : Warps<NW, R> {
+  int K[K_STAGED];
+  Row<NW> row[R];
+};
+
+// Rows block * R .. block * R + R - 1 of the nin inputs, W digits a row
+// (F2 for Fq2 values, NL for Fq), into each row's in; zeros for a row past
+// n.  Returns the table the steps read: the block's copy of K, staged
+// here, or K itself under LF_COOP_K_GLOBAL.
+//
+// A loop a row, here and in store_rows, and row 0 written out in
+// run_stages for one row a block: ptxas's allocation of the ladder kernels
+// (64 registers, with spills) moves with the form of this code, and on
+// the H100 this form gave their one-row times back, where one flat loop
+// over the block's rows cost lad2 12 % (PERF.md).
+template <int W, template <int> class Row, int NW, int R>
+LC_HD const int* load_rows(const float* const* in, int nin, int n, int block, const int* K,
+                           Block<Row, NW, R>& s) {
+#ifndef LF_COOP_K_GLOBAL
+  LC_BLOCK_FOR(i, lf::K_LEN) s.K[i] = K[i];
+  K = s.K;
+#endif
+  for (int r = 0; r < R; ++r) {
+    const int row = block * R + r;
+    int* dst = reinterpret_cast<int*>(s.row[r].in);
+    LC_BLOCK_FOR(j, nin * W) {
+      const int k = j / W;
+      dst[j] = row < n ? (int)in[k][row * W + (j - k * W)] : 0;
+    }
   }
   LC_SYNC_BLOCK();
+  return K;
 }
 
-LC_HD void store_row(const int* rows, int nout, float* const* out, int row) {
-  LC_BLOCK_FOR(i, nout * F2) {
-    const int k = i / F2;
-    out[k][row * F2 + (i - k * F2)] = (float)rows[i];
+template <int W, template <int> class Row, int NW, int R>
+LC_HD void store_rows(const Block<Row, NW, R>& s, int nout, float* const* out, int n, int block) {
+  for (int r = 0; r < R; ++r) {
+    const int row = block * R + r;
+    const int* src = reinterpret_cast<const int*>(s.row[r].out);
+    if (row < n) {
+      LC_BLOCK_FOR(j, nout * W) {
+        const int k = j / W;
+        out[k][row * W + (j - k * W)] = (float)src[j];
+      }
+    }
   }
 }
 
-// Run stage(st, c) for st = 0..nstages-1, its products, then its folds:
-// on the card every warp runs its own steps of a stage, then the block
-// syncs; on the CPU the warps run one after the other.
-template <int NW, class Stage>
-LC_HD void run_stages(Ctx<NW>& c, int nstages, Stage stage) {
-  for (int st = 0; st < nstages; ++st) {
+// Run Stages<NW>{&row}(st, c) for st = 0..nstages-1 on every row, its
+// products, then its folds, the steps reading the table k: warp w of the
+// block is warp w % NW of row w / NW (written out for one row a block, so
+// that the compiler sees row 0).  On the card every warp runs its own
+// steps of a stage, then the block syncs; on the CPU the block's warps run
+// one after the other.
+template <template <int> class Stages, template <int> class Row, int NW, int R>
+LC_HD void run_stages(Block<Row, NW, R>& s, const int* k, int nstages) {
 #ifdef __CUDA_ARCH__
-    c.warp = (int)(threadIdx.x >> 5);
+  const int w = (int)(threadIdx.x >> 5);
+  Row<NW>& row = s.row[R == 1 ? 0 : w / NW];
+  const Stages<NW> stage{&row};
+  Ctx<NW> c{row.scr, k, R == 1 ? w : w % NW, 0, 0};
+  for (int st = 0; st < nstages; ++st) {
     c.t = 0;
     for (c.pass = 0; c.pass < 2; ++c.pass) stage(st, c);
     LC_SYNC_BLOCK();
-#else
-    for (int i = 0; i < NW; ++i) {
-#ifdef LC_HOST_REVERSED
-      c.warp = NW - 1 - i;
-#else
-      c.warp = i;
-#endif
-      c.t = 0;
-      for (c.pass = 0; c.pass < 2; ++c.pass) stage(st, c);
-    }
-#endif
   }
+#else
+  for (int st = 0; st < nstages; ++st) {
+    for (int i = 0; i < NW * R; ++i) {
+#ifdef LC_HOST_REVERSED
+      const int w = NW * R - 1 - i;
+#else
+      const int w = i;
+#endif
+      Row<NW>& row = s.row[w / NW];
+      Ctx<NW> c{row.scr, k, w % NW, 0, 0};
+      for (c.pass = 0; c.pass < 2; ++c.pass) Stages<NW>{&row}(st, c);
+    }
+  }
+#endif
 }
 
 // -- fused_ladder._lad1_k ------------------------------------------------------
@@ -383,8 +461,7 @@ LC_HD void run_stages(Ctx<NW>& c, int nstages, Stage stage) {
 // in: x1 y1 z1 x2 y2 z2 (loose); out: z1z1 z2z2 a1 bb1 yz1 a2 bb2 yz2, i.e.
 // z1^2, z2^2, then x^2, y^2 and y z of each doubling
 template <int NW>
-struct Lad1 : Warps<NW> {
-  int K[lf::K_LEN];
+struct Lad1 {
   int in[6][F2];
   int out[8][F2];
   int f[6][F2];       // the inputs, folded
@@ -422,13 +499,12 @@ struct Lad1Stages {
   }
 };
 
-template <int NW>
-LC_HD void block_lad1(const float* const* in, float* const* out, int row, const int* K,
-                      Lad1<NW>& s) {
-  load_row(K, in, 6, row, s.K, s.in[0]);
-  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
-  run_stages(c, 3, Lad1Stages<NW>{&s});
-  store_row(s.out[0], 8, out, row);
+template <int NW, int R>
+LC_HD void block_lad1(const float* const* in, float* const* out, int n, int block,
+                      const int* K, Block<Lad1, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 6, n, block, K, s);
+  run_stages<Lad1Stages>(s, k, 3);
+  store_rows<F2>(s, 8, out, n, block);
 }
 
 // -- fused_ladder._lad2_k ------------------------------------------------------
@@ -436,8 +512,7 @@ LC_HD void block_lad1(const float* const* in, float* const* out, int row, const 
 // in: x1 y1 x2 y2 (loose) z1z1 z2z2 a1 bb1 a2 bb2 (semi-strict);
 // out: u1 u2 s1y s2y, then e x3 dmx c8 for each doubling d
 template <int NW>
-struct Lad2 : Warps<NW> {
-  int K[lf::K_LEN];
+struct Lad2 {
   int in[10][F2];
   int out[12][F2];
   int xy[4][F2];                    // x1 y1 x2 y2, folded
@@ -511,13 +586,12 @@ struct Lad2Stages {
   }
 };
 
-template <int NW>
-LC_HD void block_lad2(const float* const* in, float* const* out, int row, const int* K,
-                      Lad2<NW>& s) {
-  load_row(K, in, 10, row, s.K, s.in[0]);
-  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
-  run_stages(c, 9, Lad2Stages<NW>{&s});
-  store_row(s.out[0], 12, out, row);
+template <int NW, int R>
+LC_HD void block_lad2(const float* const* in, float* const* out, int n, int block,
+                      const int* K, Block<Lad2, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 10, n, block, K, s);
+  run_stages<Lad2Stages>(s, k, 9);
+  store_rows<F2>(s, 12, out, n, block);
 }
 
 // -- fused_ladder._lad3_k ------------------------------------------------------
@@ -525,8 +599,7 @@ LC_HD void block_lad2(const float* const* in, float* const* out, int row, const 
 // in: z1 z2 (loose) u1 u2 s1y s2y z1z1 z2z2, then e dmx c8 yz for each
 // doubling (semi-strict); out: x3 y3 z3 h sd y3d1 z3d1 y3d2 z3d2
 template <int NW>
-struct Lad3 : Warps<NW> {
-  int K[lf::K_LEN];
+struct Lad3 {
   int in[16][F2];
   int out[9][F2];
   int z1[F2], z2[F2], zz[F2], hh[F2], zsum[F2], s1f[F2], s2f[F2], ed[2][F2], i2[F2],
@@ -629,21 +702,19 @@ struct Lad3Stages {
   }
 };
 
-template <int NW>
-LC_HD void block_lad3(const float* const* in, float* const* out, int row, const int* K,
-                      Lad3<NW>& s) {
-  load_row(K, in, 16, row, s.K, s.in[0]);
-  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
-  run_stages(c, 12, Lad3Stages<NW>{&s});
-  store_row(s.out[0], 9, out, row);
+template <int NW, int R>
+LC_HD void block_lad3(const float* const* in, float* const* out, int n, int block,
+                      const int* K, Block<Lad3, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 16, n, block, K, s);
+  run_stages<Lad3Stages>(s, k, 12);
+  store_rows<F2>(s, 9, out, n, block);
 }
 
 // -- fused_core._fq2pow16mul_k -------------------------------------------------
 
 // in: r t (loose); out: r^16 t
 template <int NW>
-struct Fq2Pow16Mul : Warps<NW> {
-  int K[lf::K_LEN];
+struct Fq2Pow16Mul {
   int in[2][F2];
   int out[F2];
   int r[2][F2];      // r folded, then its squares, alternately
@@ -678,13 +749,102 @@ struct Fq2Pow16MulStages {
   }
 };
 
-template <int NW>
-LC_HD void block_fq2pow16mul(const float* const* in, float* const* out, int row, const int* K,
-                             Fq2Pow16Mul<NW>& s) {
-  load_row(K, in, 2, row, s.K, s.in[0]);
-  Ctx<NW> c{s.scr, s.K, 0, 0, 0};
-  run_stages(c, 11, Fq2Pow16MulStages<NW>{&s});
-  store_row(s.out, 1, out, row);
+template <int NW, int R>
+LC_HD void block_fq2pow16mul(const float* const* in, float* const* out, int n, int block,
+                             const int* K, Block<Fq2Pow16Mul, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 2, n, block, K, s);
+  run_stages<Fq2Pow16MulStages>(s, k, 11);
+  store_rows<F2>(s, 1, out, n, block);
 }
+
+// -- fused_core._fq2mul_k ------------------------------------------------------
+
+// in: a b (loose); out: a b in Fq2
+template <int NW>
+struct Fq2Mul {
+  int in[2][F2];
+  int out[F2];
+  int f[2][F2];    // a and b folded
+  int t[3 * NL];   // the three products
+  int scr[NW * SCR];
+};
+
+// The schedule (S = Fq step; at most 3 steps at once):
+//   0: fold a0 a1 b0 b1                                             4 S
+//   1: a0 b0, a1 b1, (a0 + a1)(b0 + b1)                             3 mul
+//   2: out0 = t0 - t1, out1 = t2 - (t0 + t1)                        2 S
+template <int NW>
+struct Fq2MulStages {
+  Fq2Mul<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Fq2Mul<NW>& r = *s;
+    if (st == 0) {
+      fold2_entry(c, r.in[0], r.f[0]);
+      fold2_entry(c, r.in[1], r.f[1]);
+    } else if (st == 1) {
+      fq2mul_products(c, r.f[0], r.f[1], r.t);
+    } else {
+      fq2mul_finish(c, r.t, r.out);
+    }
+  }
+};
+
+template <int NW, int R>
+LC_HD void block_fq2mul(const float* const* in, float* const* out, int n, int block,
+                        const int* K, Block<Fq2Mul, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 2, n, block, K, s);
+  run_stages<Fq2MulStages>(s, k, 3);
+  store_rows<F2>(s, 1, out, n, block);
+}
+
+// -- fused_core._pow16mul_k ----------------------------------------------------
+
+// in: r t (loose, Fq); out: r^16 t
+template <int NW>
+struct Pow16Mul {
+  int in[2][NL];
+  int out[NL];
+  int r[2][NL];   // r folded, then its squares, alternately
+  int t[NL];      // t folded
+  int scr[NW * SCR];
+};
+
+// The schedule, serial by nature (S = Fq step):
+//   0: fold r t                                                     2 S
+//   1 + i: square i of r, from r[i % 2] into r[(i + 1) % 2]         1 mul each
+//   5: r t                                                          1 mul
+template <int NW>
+struct Pow16MulStages {
+  Pow16Mul<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Pow16Mul<NW>& r = *s;
+    if (st == 0) {
+      t_fold<22>(c, raw(r.in[0]), r.r[0]);
+      t_fold<22>(c, raw(r.in[1]), r.t);
+    } else if (st <= 4) {
+      const int i = st - 1;
+      t_mul(c, r.r[i % 2], nullptr, r.r[i % 2], nullptr, r.r[(i + 1) % 2]);
+    } else {
+      t_mul(c, r.r[0], nullptr, r.t, nullptr, r.out);
+    }
+  }
+};
+
+template <int NW, int R>
+LC_HD void block_pow16mul(const float* const* in, float* const* out, int n, int block,
+                          const int* K, Block<Pow16Mul, NW, R>& s) {
+  const int* k = load_rows<NL>(in, 2, n, block, K, s);
+  run_stages<Pow16MulStages>(s, k, 6);
+  store_rows<NL>(s, 1, out, n, block);
+}
+
+// -- the kernels' blocks (warps a row, rows a block) ----------------------------
+
+using Lad1Block = Block<Lad1, LAD_WARPS, 1>;
+using Lad2Block = Block<Lad2, LAD_WARPS, 1>;
+using Lad3Block = Block<Lad3, LAD_WARPS, 1>;
+using Fq2Pow16MulBlock = Block<Fq2Pow16Mul, POW_WARPS, 1>;
+using Fq2MulBlock = Block<Fq2Mul, FQ2MUL_WARPS, FQ2MUL_ROWS>;
+using Pow16MulBlock = Block<Pow16Mul, 1, POW16_ROWS>;
 
 }  // namespace lfc

@@ -2,21 +2,25 @@
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of the JAX
 // package.
 //
-// Design of six of them (first, simple version): one thread per row of
-// the flat row axis, 32 threads a block (the main path has only 512 to
-// 2,560 rows, so small blocks spread them over more SMs), every index
-// checked against n; each runs the row body of the same name in
-// field.cuh.  A row's digits live in per-thread int32 arrays in local
-// memory; the 50x50 digit product is a plain schoolbook loop of int32
-// multiply-adds, and the heavy steps are real calls rather than inlined
-// copies.  There is no shared memory and no tensor-core use.
+// Design of four of them (mul, fq2sqr, fold, canon; first, simple
+// version): one thread per row of the flat row axis, 32 threads a block
+// (the main path has only 512 to 2,560 rows, so small blocks spread them
+// over more SMs), every index checked against n; each runs the row body of
+// the same name in field.cuh.  A row's digits live in per-thread int32
+// arrays in local memory; the 50x50 digit product is a plain schoolbook
+// loop of int32 multiply-adds, and the heavy steps are real calls rather
+// than inlined copies.  There is no shared memory and no tensor-core use.
 //
-// The G2 ladder's round kernels lad1, lad2 and lad3 and fq2pow16mul
-// (redesigned): one block per row, one warp per Fq step, the digits across
-// the lanes, the row and the constant table in shared memory
-// (field_coop.cuh).  The ladder has 512 rows and the square root's scan
-// 256, so one thread per row left 16 or 8 of the 132 SMs with one warp
-// each, walking a serial chain of 11 to 33 Fq products.
+// The other six (redesigned: the G2 ladder's round kernels lad1, lad2 and
+// lad3, fq2pow16mul, fq2mul and pow16mul) are cooperative: one warp per Fq
+// step, the digits across the lanes, each row's values and the block's
+// constant table in shared memory (field_coop.cuh).  The ladder kernels
+// and fq2pow16mul run one row a block on 8 or 4 warps; fq2mul (3 warps a
+// row) and pow16mul (1 warp a row), whose rows are short chains (3 and 6
+// stages), 2 and 4 rows a block, so that the table is staged once for all
+// of them.  One thread per
+// row left 8 to 73 of the 132 SMs with one warp each at the paths'
+// shapes, walking a serial chain of 3 to 33 Fq products.
 //
 // What bounds them on this card: integer multiply-add throughput.  An Fq
 // product is 2,500 digit multiply-adds for the schoolbook plus 2,600 for
@@ -82,16 +86,6 @@ __global__ void mul_k(Ptrs p, int n, const int* __restrict__ K) {
 LF_LAUNCHER(mul, 2, 1)
 #endif
 
-#ifdef LF_KERNEL_fq2mul
-// Replaces fused_core.py _fq2mul_k (f2_mul): Fq2 Karatsuba, three Fq
-// products.  Operation-bound.
-__global__ void fq2mul_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_fq2mul(p.in, p.out, row, K);
-}
-LF_LAUNCHER(fq2mul, 2, 1)
-#endif
-
 #ifdef LF_KERNEL_fq2sqr
 // Replaces fused_core.py _fq2sqr_k (f2_sqr): Fq2 square plus the folded
 // input as a second output.  Operation-bound.
@@ -100,16 +94,6 @@ __global__ void fq2sqr_k(Ptrs p, int n, const int* __restrict__ K) {
   if (row < n) lf::row_fq2sqr(p.in, p.out, row, K);
 }
 LF_LAUNCHER(fq2sqr, 1, 2)
-#endif
-
-#ifdef LF_KERNEL_pow16mul
-// Replaces fused_core.py _pow16mul_k (f_pow16mul): r^16 * t in Fq, five
-// Fq products in sequence.  Operation-bound.
-__global__ void pow16mul_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_pow16mul(p.in, p.out, row, K);
-}
-LF_LAUNCHER(pow16mul, 2, 1)
 #endif
 
 #ifdef LF_KERNEL_fold
@@ -135,18 +119,19 @@ __global__ void canon_k(Ptrs p, int n, const int* __restrict__ K) {
 LF_LAUNCHER(canon, 1, 1)
 #endif
 
-// One block of LAYOUT::THREADS per row; the row's values, the constant
-// table and every warp's scratch in dynamic shared memory (the attribute
-// admits a layout above 48 KB, as lad2 and lad3 have).  The kernel body
-// casts the shared memory to LAYOUT and runs lfc::block_NAME on it.
+// One block of LAYOUT::THREADS per LAYOUT::ROWS rows; the rows' values, the
+// constant table and every warp's scratch in dynamic shared memory (the
+// attribute admits a layout above 48 KB, as lad2 and lad3 have).  The
+// kernel body casts the shared memory to LAYOUT and runs lfc::block_NAME
+// on it, which masks the last block's missing rows (every thread reaches
+// every __syncthreads).
 #define LF_COOP_KERNEL(NAME, NIN, NOUT, LAYOUT)                                   \
   using NAME##_layout = LAYOUT;                                                   \
   __global__ void __launch_bounds__(NAME##_layout::THREADS, NAME##_layout::MIN_BLOCKS) \
       NAME##_k(Ptrs p, int n, const int* __restrict__ K) {                        \
     extern __shared__ __align__(16) int smem[];                                   \
-    if ((int)blockIdx.x < n)                                                      \
-      lfc::block_##NAME(p.in, p.out, blockIdx.x, K,                               \
-                        *reinterpret_cast<NAME##_layout*>(smem));                 \
+    lfc::block_##NAME(p.in, p.out, n, (int)blockIdx.x, K,                         \
+                      *reinterpret_cast<NAME##_layout*>(smem));                   \
   }                                                                               \
   extern "C" int launch_##NAME(void* const* ins, void* const* outs, int n,        \
                                const void* consts, void* stream) {                \
@@ -156,11 +141,33 @@ LF_LAUNCHER(canon, 1, 1)
     cudaError_t e = cudaFuncSetAttribute(                                         \
         NAME##_k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);            \
     if (e != cudaSuccess) return static_cast<int>(e);                             \
-    NAME##_k<<<n, NAME##_layout::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>( \
+    const int blocks = (n + NAME##_layout::ROWS - 1) / NAME##_layout::ROWS;       \
+    NAME##_k<<<blocks, NAME##_layout::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>( \
         p, n, static_cast<const int*>(consts));                                   \
     return static_cast<int>(cudaGetLastError());                                  \
   }                                                                               \
-  extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(NAME##_layout)); }
+  extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(NAME##_layout)); } \
+  extern "C" int rows_per_block_##NAME() { return NAME##_layout::ROWS; }          \
+  extern "C" int threads_per_block_##NAME() { return NAME##_layout::THREADS; }
+
+#ifdef LF_KERNEL_fq2mul
+#include "field_coop.cuh"
+// Replaces fused_core.py _fq2mul_k (f2_mul): Fq2 Karatsuba, the entry folds
+// of a and b, three Fq products (at most 3 at once), two finishing folds
+// (the schedule beside lfc::Fq2MulStages).  Its rows (256 to 2,322 on the
+// path) are short chains, so a block holds lfc::FQ2MUL_ROWS rows of
+// lfc::FQ2MUL_WARPS warps each.  Operation-bound.
+LF_COOP_KERNEL(fq2mul, 2, 1, lfc::Fq2MulBlock)
+#endif
+
+#ifdef LF_KERNEL_pow16mul
+#include "field_coop.cuh"
+// Replaces fused_core.py _pow16mul_k (f_pow16mul): r^16 * t in Fq, the
+// entry folds and five Fq products in sequence (the schedule beside
+// lfc::Pow16MulStages), one warp a row, lfc::POW16_ROWS rows a block.
+// Operation-bound.
+LF_COOP_KERNEL(pow16mul, 2, 1, lfc::Pow16MulBlock)
+#endif
 
 #ifdef LF_KERNEL_fq2pow16mul
 #include "field_coop.cuh"
@@ -169,7 +176,7 @@ LF_LAUNCHER(canon, 1, 1)
 // that allows at most 3 at once (the schedule beside
 // lfc::Fq2Pow16MulStages), so its block has lfc::POW_WARPS warps, fewer
 // than the ladder's.  Operation-bound.
-LF_COOP_KERNEL(fq2pow16mul, 2, 1, lfc::Fq2Pow16Mul<lfc::POW_WARPS>)
+LF_COOP_KERNEL(fq2pow16mul, 2, 1, lfc::Fq2Pow16MulBlock)
 #endif
 
 #ifdef LF_KERNEL_lad1
@@ -178,7 +185,7 @@ LF_COOP_KERNEL(fq2pow16mul, 2, 1, lfc::Fq2Pow16Mul<lfc::POW_WARPS>)
 // complete G2 double-and-add (z1^2, z2^2; x^2, y^2, y*z of both
 // doublings): 6 Fq2 squares and 2 Karatsubas, 18 Fq products a row, at
 // most 12 at once (the schedule beside lfc::Lad1Stages).  Operation-bound.
-LF_COOP_KERNEL(lad1, 6, 8, lfc::Lad1<lfc::LAD_WARPS>)
+LF_COOP_KERNEL(lad1, 6, 8, lfc::Lad1Block)
 #endif
 
 #ifdef LF_KERNEL_lad2
@@ -186,7 +193,7 @@ LF_COOP_KERNEL(lad1, 6, 8, lfc::Lad1<lfc::LAD_WARPS>)
 // Replaces fused_ladder.py _lad2_k: the u/s cross terms and the doubling
 // glue (e, x3, d - x3, 8c) of both doublings, 24 Fq products a row, at
 // most 8 at once (the schedule beside lfc::Lad2Stages).  Operation-bound.
-LF_COOP_KERNEL(lad2, 10, 12, lfc::Lad2<lfc::LAD_WARPS>)
+LF_COOP_KERNEL(lad2, 10, 12, lfc::Lad2Block)
 #endif
 
 #ifdef LF_KERNEL_lad3
@@ -194,5 +201,5 @@ LF_COOP_KERNEL(lad2, 10, 12, lfc::Lad2<lfc::LAD_WARPS>)
 // Replaces fused_ladder.py _lad3_k: rounds 3-6 of the complete add and
 // y3/z3 of both doublings, 33 Fq products a row, at most 6 at once (the
 // schedule beside lfc::Lad3Stages).  Operation-bound.
-LF_COOP_KERNEL(lad3, 16, 9, lfc::Lad3<lfc::LAD_WARPS>)
+LF_COOP_KERNEL(lad3, 16, 9, lfc::Lad3Block)
 #endif

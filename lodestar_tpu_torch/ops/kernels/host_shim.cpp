@@ -1,11 +1,14 @@
 // Host build of the kernels' row bodies (field.cuh, field_coop.cuh, tower.cuh, limbs.cuh)
 // with a plain C interface, for the CPU parity test: the same arithmetic
-// the CUDA kernels run, looped over rows on the CPU (the cooperative
-// bodies of lad1, lad2, lad3 and fq2pow16mul walk their lanes and warps in
-// turn, over one host copy of their shared-memory layout, at the kernels'
-// warp counts).  Built with g++ by
+// the CUDA kernels run, looped over rows on the CPU.  The cooperative
+// bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul and pow16mul walk their
+// blocks, and in each its rows' warps and lanes, in turn (backwards under
+// -DLC_HOST_REVERSED), over one host copy of their shared-memory layout at
+// the kernels' warp and row counts, filled with -1 before each block so
+// that a read of a value the block did not write shows.  Built with g++ by
 // tests/test_torch_kernel_host.py; not part of the device path.
 
+#include <algorithm>
 #include <memory>
 
 #include "field_coop.cuh"
@@ -24,6 +27,12 @@
     return 0;                                                                \
   }
 
+#ifdef LC_HOST_REVERSED
+#define LF_HOST_BLOCK(i, blocks) ((blocks) - 1 - (i))
+#else
+#define LF_HOST_BLOCK(i, blocks) (i)
+#endif
+
 #define LF_HOST_COOP(NAME, LAYOUT)                                           \
   extern "C" int host_##NAME(void* const* ins, void* const* outs, int n,     \
                              const void* consts) {                           \
@@ -32,21 +41,25 @@
     for (int i = 0; i < 16 && ins[i]; ++i) in[i] = (const float*)ins[i];     \
     for (int i = 0; i < 12 && outs[i]; ++i) out[i] = (float*)outs[i];        \
     std::unique_ptr<lfc::LAYOUT> s(new lfc::LAYOUT());                       \
-    for (int row = 0; row < n; ++row)                                        \
-      lfc::block_##NAME(in, out, row, (const int*)consts, *s);               \
+    const int blocks = (n + lfc::LAYOUT::ROWS - 1) / lfc::LAYOUT::ROWS;      \
+    for (int i = 0; i < blocks; ++i) {                                       \
+      std::fill_n(reinterpret_cast<int*>(s.get()), sizeof(lfc::LAYOUT) / sizeof(int), -1); \
+      lfc::block_##NAME(in, out, n, LF_HOST_BLOCK(i, blocks), (const int*)consts, *s); \
+    }                                                                        \
     return 0;                                                                \
-  }
+  }                                                                          \
+  extern "C" int host_rows_per_block_##NAME() { return lfc::LAYOUT::ROWS; }
 
 LF_HOST(mul)
-LF_HOST(fq2mul)
+LF_HOST_COOP(fq2mul, Fq2MulBlock)
 LF_HOST(fq2sqr)
-LF_HOST(pow16mul)
-LF_HOST_COOP(fq2pow16mul, Fq2Pow16Mul<lfc::POW_WARPS>)
+LF_HOST_COOP(pow16mul, Pow16MulBlock)
+LF_HOST_COOP(fq2pow16mul, Fq2Pow16MulBlock)
 LF_HOST(fold)
 LF_HOST(canon)
-LF_HOST_COOP(lad1, Lad1<lfc::LAD_WARPS>)
-LF_HOST_COOP(lad2, Lad2<lfc::LAD_WARPS>)
-LF_HOST_COOP(lad3, Lad3<lfc::LAD_WARPS>)
+LF_HOST_COOP(lad1, Lad1Block)
+LF_HOST_COOP(lad2, Lad2Block)
+LF_HOST_COOP(lad3, Lad3Block)
 LF_HOST(tower_fq2_mul)
 LF_HOST(tower_fq2_sqr)
 LF_HOST(tower_fq6_mul)

@@ -1,7 +1,7 @@
 """Builds of the port's kernel sources that the port does not run, held
 against the plain versions on the card.
 
-    python3 tests/kernel_build_variants.py [variant ...]
+    python3 tests/kernel_build_variants.py [--kernels a,b,...] [variant ...]
 
 The port builds field.cuh, tower.cuh and limbs.cuh with their heavy steps
 (fold, the digit product, the Fq2 product and square, the
@@ -12,22 +12,29 @@ build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
 shows which stage of the compiler the fault follows.  The cooperative
-kernels lad1, lad2, lad3 and fq2pow16mul (field_coop.cuh) keep the
-product and the fold as calls too; the ``ptxas-O1`` variant holds them at
-another ptxas level, and the ``*-warps`` variants at other block sizes
-(``LF_COOP_WARPS``: the ladder kernels' warps a block, 8 by default;
-``LF_POW_WARPS``: fq2pow16mul's, 4).
+kernels lad1, lad2, lad3, fq2pow16mul, fq2mul and pow16mul
+(field_coop.cuh) keep the product and the fold as calls too; the
+``ptxas-O1`` variant holds them at another ptxas level, the ``*-warps``
+variants at other block sizes (``LF_COOP_WARPS``: the ladder kernels'
+warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
+``LF_FQ2MUL_WARPS``: fq2mul's warps a row, 3), the ``rows-*`` variants at
+other rows a block (``LF_FQ2MUL_ROWS``, 2 by default, and
+``LF_POW16_ROWS``, 4, set together: the two kernels are timed apart), and
+``k-global`` with the constant table read from global memory instead of
+staged into each block's shared memory (``LF_COOP_K_GLOBAL``).
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 256, 512, 513 and 2,560 rows and three
 seeds, and the first differing row's digits (for the ring hop: the
 chunks, of the ring's two shapes, that differ from a copy); then, for the
-fq2sqr, lad1, lad2, lad3, fq2pow16mul, tower_fq12_mul, library_fq2_mul
-and ring_hop kernels, ptxas's register, stack and spill report; the
-dynamic shared memory of a cooperative kernel's block; and each
-cooperative kernel's device time at the rows chip_smoke times it at (20
-launches in a CUDA graph, replayed between CUDA events).  Needs a CUDA
-card and nvcc.
+fq2mul, fq2sqr, pow16mul, lad1, lad2, lad3, fq2pow16mul, tower_fq12_mul,
+library_fq2_mul and ring_hop kernels, ptxas's register, stack and spill
+report; the dynamic shared memory, rows and threads of a cooperative
+kernel's block; and each cooperative kernel's device time at the rows
+chip_smoke times it at (20 launches in a CUDA graph, replayed between
+CUDA events).  ``--kernels`` keeps the checks, reports and times to the
+kernels named (the ring hop's check runs when it is named).  Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -65,10 +72,21 @@ VARIANTS = {
     "pow-2-warps": ("-DLF_POW_WARPS=2",),
     "pow-3-warps": ("-DLF_POW_WARPS=3",),
     "pow-8-warps": ("-DLF_POW_WARPS=8",),
+    # fq2mul's and pow16mul's rows a block, set together
+    "rows-1": ("-DLF_FQ2MUL_ROWS=1", "-DLF_POW16_ROWS=1"),
+    "rows-2": ("-DLF_FQ2MUL_ROWS=2", "-DLF_POW16_ROWS=2"),
+    "rows-4": ("-DLF_FQ2MUL_ROWS=4", "-DLF_POW16_ROWS=4"),
+    "rows-8": ("-DLF_FQ2MUL_ROWS=8", "-DLF_POW16_ROWS=8"),
+    # fq2mul's three products one after the other, on one warp a row
+    "fq2mul-1-warp-rows-1": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=1"),
+    "fq2mul-1-warp-rows-4": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=4"),
+    "fq2mul-1-warp-rows-8": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=8"),
+    "k-global": ("-DLF_COOP_K_GLOBAL",),
+    "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", "-DLF_FQ2MUL_ROWS=1", "-DLF_POW16_ROWS=1"),
 }
 ROWS = (1, 37, 256, 512, 513, 2560)
-PTXAS = ("fq2sqr", "lad1", "lad2", "lad3", "fq2pow16mul", "tower_fq12_mul", "library_fq2_mul",
-         "ring_hop")
+PTXAS = ("fq2mul", "fq2sqr", "pow16mul", "lad1", "lad2", "lad3", "fq2pow16mul", "tower_fq12_mul",
+         "library_fq2_mul", "ring_hop")
 SEEDS = range(3)
 
 
@@ -130,33 +148,51 @@ def check_ring(lib, dev) -> dict:
     return {"chunks_checked": checked, "chunks_differ": differ}
 
 
-def ptxas_report(extra, name: str) -> list:
-    """ptxas's resource lines for kernel ``name`` of a variant."""
-    src = os.path.join(os.path.dirname(_build.__file__), _build.LAUNCHERS[name])
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, f"-DLF_KERNEL_{name}",
-           "-Xptxas", "-v", "-c", "-o", os.devnull, src]
-    out = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    return [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
-            if "registers" in ln or "stack frame" in ln or "spill" in ln or "smem" in ln]
+def ptxas_reports(extra, names) -> dict:
+    """ptxas's resource lines for each kernel of ``names`` in a variant,
+    the nvcc processes started together."""
+    procs = {}
+    for name in names:
+        src = os.path.join(os.path.dirname(_build.__file__), _build.LAUNCHERS[name])
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, f"-DLF_KERNEL_{name}",
+               "-Xptxas", "-v", "-c", "-o", os.devnull, src]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    out = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v of {name} failed:\n{log}")
+        out[name] = [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "stack frame" in ln or "spill" in ln or "smem" in ln]
+    return out
 
 
-def main(names) -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_build_variants: no CUDA device", file=sys.stderr)
         return 2
+    kernels = list(fc.KERNELS) + ["ring_hop"]
+    if argv[:1] == ["--kernels"]:
+        kernels, argv = argv[1].split(","), argv[2:]
+    unknown = [v for v in argv if v not in VARIANTS] + [
+        k for k in kernels if k not in fc.KERNELS and k != "ring_hop"]
+    if unknown:
+        print(f"kernel_build_variants: unknown variants or kernels {unknown}", file=sys.stderr)
+        return 2
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line(), flush=True)
-    for variant in names:
+    for variant in argv or list(VARIANTS):
         lib = _build.load(VARIANTS[variant])
-        for name, k in fc.KERNELS.items():
-            print(json.dumps({"variant": variant, "kernel": name, **check(lib, k, dev)}),
-                  flush=True)
-        print(json.dumps({"variant": variant, "kernel": "ring_hop", **check_ring(lib, dev)}),
-              flush=True)
-        for name in PTXAS:
-            print(json.dumps({"variant": variant, f"ptxas_{name}": ptxas_report(VARIANTS[variant], name)}),
-                  flush=True)
+        for name in kernels:
+            result = check_ring(lib, dev) if name == "ring_hop" else check(lib, fc.KERNELS[name], dev)
+            print(json.dumps({"variant": variant, "kernel": name, **result}), flush=True)
+        reports = ptxas_reports(VARIANTS[variant], [n for n in PTXAS if n in kernels])
+        for name, report in reports.items():
+            print(json.dumps({"variant": variant, f"ptxas_{name}": report}), flush=True)
         for name in chip_smoke.COOP:
+            if name not in kernels:
+                continue
             k = fc.KERNELS[name]
             ms = {}
             for rows in chip_smoke.SHAPES[name]:
@@ -164,9 +200,11 @@ def main(names) -> int:
                 ms[rows] = chip_smoke.graph_ms(lambda: launch(lib, k, ins, sync=False))
             print(json.dumps({"variant": variant,
                               f"smem_bytes_{name}": getattr(lib, f"smem_bytes_{name}")(),
+                              f"rows_per_block_{name}": getattr(lib, f"rows_per_block_{name}")(),
+                              f"threads_per_block_{name}": getattr(lib, f"threads_per_block_{name}")(),
                               f"ms_{name}": ms}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or list(VARIANTS)))
+    sys.exit(main(sys.argv[1:]))

@@ -2,8 +2,9 @@
 
 field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
 __host__ __device__ functions, field_coop.cuh the cooperative block bodies
-of lad1, lad2, lad3 and fq2pow16mul (one block per row, one warp per
-step), whose lanes and warps the host build walks in turn; ops/kernels/host_shim.cpp wraps them
+of lad1, lad2, lad3, fq2pow16mul, fq2mul and pow16mul (one warp per step;
+one row a block, or several for fq2mul and pow16mul), whose blocks, rows,
+warps and lanes the host build walks in turn; ops/kernels/host_shim.cpp wraps them
 in a plain C interface.  Here g++ builds that shim (into build/, keyed by
 the sources' hash) and the fifteen bodies are held bitwise against the
 plain PyTorch versions; the cooperative ones also with their lanes and
@@ -69,16 +70,18 @@ def _host_build(flags) -> str:
     return lib
 
 
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul")  # the cooperative bodies of field_coop.cuh
+COOP = chip_smoke.COOP  # the cooperative bodies of field_coop.cuh
+PARTIAL_ROWS = 37  # rows that leave a partial last block for every rows-a-block count
 
 
 def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
     """Kernel ``name``'s row body from the host library against its plain
-    version on ``rows`` seeded rows (``edge``: rows at the digit bounds)."""
+    version on ``rows`` seeded rows (``edge``: rows at the digit bounds);
+    each output has one guard row past the last, which must stay unwritten."""
     k = fc.KERNELS[name]
     rng = np.random.default_rng(seed)
     ins = (chip_smoke.edge_inputs if edge else chip_smoke.kernel_inputs)(k, rows, rng, "cpu")
-    outs = [torch.empty((rows,) + k.tail) for _ in range(k.n_out)]
+    outs = [torch.full((rows + 1,) + k.tail, -7.0) for _ in range(k.n_out)]
     ins_arr = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in ins))  # null-terminated
     outs_arr = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in outs))
     fn = getattr(lib, f"host_{name}")
@@ -86,8 +89,9 @@ def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
     fn.restype = ctypes.c_int
     assert fn(ins_arr, outs_arr, rows, fc._CONST_TABLE.ctypes.data) == 0
     for got, want in zip(outs, k.plain(*ins)):
-        assert torch.equal(got, want), name
-        assert float(got.max()) <= 256
+        assert torch.equal(got[:rows], want), name
+        assert float(got[:rows].max()) <= 256
+        assert bool((got[rows] == -7.0).all()), f"{name} wrote past its last row"
 
 
 @pytest.fixture(scope="module")
@@ -106,17 +110,33 @@ def test_host_built_row_body_equals_plain_version_bitwise(name, host_lib):
 
 
 @pytest.mark.parametrize("order", ["forward", "reversed"])
-@pytest.mark.parametrize("rows", [ROWS, 37])
+@pytest.mark.parametrize("rows", [ROWS, PARTIAL_ROWS])
 @pytest.mark.parametrize("name", COOP)
 def test_cooperative_ladder_bodies_equal_plain_versions_bitwise(name, rows, order, host_lib,
                                                                host_lib_reversed):
-    """The cooperative bodies one step a warp, lanes and warps walked
-    forwards and backwards: a lane reading what another lane writes in the
-    same step, or a warp what another warp writes in the same stage, would
-    differ."""
+    """The cooperative bodies one step a warp, blocks, rows, lanes and
+    warps walked forwards and backwards: a lane reading what another lane
+    writes in the same step, or a warp what another warp (of its row or of
+    another row) writes in the same stage, would differ."""
     lib = host_lib if order == "forward" else host_lib_reversed
     run_rows(lib, name, rows, rows)
     run_rows(lib, name, rows, rows + 1, edge=True)
+
+
+@pytest.mark.parametrize("name", COOP)
+def test_cooperative_bodies_mask_the_last_blocks_missing_rows(name, host_lib, host_lib_reversed):
+    """A kernel of several rows a block runs ceil(n / R) blocks, the last
+    one's missing rows on zeros and unstored: at one row (R - 1 rows
+    missing) and at PARTIAL_ROWS, which leaves a partial last block for the
+    build's R, in both walk orders, the rows equal the plain version and
+    nothing past them is written."""
+    per_block = getattr(host_lib, f"host_rows_per_block_{name}")()
+    assert per_block == 1 or PARTIAL_ROWS % per_block != 0, per_block
+    for lib in (host_lib, host_lib_reversed):
+        assert getattr(lib, f"host_rows_per_block_{name}")() == per_block
+        for rows in (1, PARTIAL_ROWS):
+            run_rows(lib, name, rows, 3 * rows)
+            run_rows(lib, name, rows, 3 * rows + 1, edge=True)
 
 
 def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
@@ -131,10 +151,13 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     for step in ("fold", "mul"):
         assert re.search(rf"^LC_STEP void {step}\(", src, re.M), step
     assert "LF_INLINE_ALL" not in src
-    layout = r"^template <int NW>\nstruct (\w+) : Warps<NW> \{\n(.*?)^\};"
+    block = r"^template <template <int> class Row, int NW, int R>\nstruct Block : Warps<NW, R> \{\n.*?^\};"
+    assert len(re.findall(block, src, re.M | re.S)) == 1
+    # the row layouts (inputs first), each a template over its warp count
+    layout = r"^template <int NW>\nstruct (\w+) \{\n  int in\[.*?^\};"
     layouts = re.findall(layout, src, re.M | re.S)
-    assert [name for name, _ in layouts] == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul"]
-    rest = re.sub(layout, "", src, flags=re.M | re.S)
+    assert layouts == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul"]
+    rest = re.sub(layout, "", re.sub(block, "", src, flags=re.M | re.S), flags=re.M | re.S)
     code = re.sub(r"//[^\n]*", "", rest)
     assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
     from lodestar_tpu_torch.ops.kernels import _build
@@ -155,7 +178,7 @@ def test_heavy_steps_are_real_calls_in_the_kernels_build():
     the steps that make a kernel big stay out-of-line calls by default."""
     src = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
     assert re.search(r"#else\n#define LF_CALL static __host__ __device__ __noinline__\n", src)
-    for step in ("fold", "mul", "fq2_mul", "fq2_sqr", "cond_sub", "canon"):
+    for step in ("fold", "mul", "fq2_sqr", "cond_sub", "canon"):
         assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
     tower = open(os.path.join(KDIR, "tower.cuh"), encoding="utf-8").read()
     for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul", "tw_fq12_mul"):
