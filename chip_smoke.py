@@ -14,17 +14,18 @@ its wall time on a line of its own:
    launch counter set to 0 just before, each entry bitwise equal to its
    plain version and every kernel launched; then each CUDA kernel against
    its plain PyTorch version on the card, on seeded inputs at the shapes
-   its path gives it (mul, fq2sqr, fold and canon at 512 and 2,560 rows,
-   fq2pow16mul at the square root's 256 and at 512, fq2mul at the htc's
-   256 and 1,024 and the Miller loop's 2,322, pow16mul at the inversions'
-   256 and 512, each of these three also at 2,560, the ladder kernels at 512
-   rows, lad2 and lad3 also at 2,560, the tower
+   its path gives it (fold and canon at 512 and 2,560 rows, mul at 128,
+   256, 384, 512 and 3,584, fq2sqr at the final exponentiation's 9 and the
+   htc's 256 and 512, fq2pow16mul at the square root's 256 and at 512,
+   fq2mul at the htc's 256 and 1,024 and the Miller loop's 2,322, pow16mul
+   at the inversions' 256 and 512, each of these six also at 2,560, the
+   ladder kernels at 512 rows, lad2 and lad3 also at 2,560, the tower
    kernels at 1 row and at the most rows the XLA-graph path gives them at
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
    exact integer arithmetic; the redesigned cooperative kernels (lad1,
-   lad2, lad3 and fq2pow16mul one block per row, fq2mul and pow16mul
-   several rows a block) also at 1, 37 and 513 rows and on inputs at the
+   lad2, lad3 and fq2pow16mul one block per row, fq2mul, pow16mul, mul
+   and fq2sqr several rows a block) also at 1, 37 and 513 rows and on inputs at the
    digit bounds.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
@@ -40,7 +41,9 @@ ported; phases 11-12 the split default.
    128 with every launch counter set to 0 just before: the valid batch
    verifies, every fused-path kernel launched; then a corrupted
    signature, a signature outside G2 and 100 live sets in bucket 128 give
-   False, False, True; the batch-128 example inputs verify through
+   False, False, True; one more valid batch whose launches of fq2mul,
+   pow16mul, mul and fq2sqr are logged as a histogram of their row
+   counts; the batch-128 example inputs verify through
    ``verify_signature_sets_fused``; the card's Miller product at bucket 4
    equals the CPU plain run's canonically, digit for digit;
 4. fused times: three batches of 128 fresh signatures (new messages, so
@@ -94,8 +97,8 @@ ported; phases 11-12 the split default.
     batches of 128, each split into pack, device Miller product (enqueue
     plus the sync on the event after the copies of ok and f to the host),
     read of f's host copy and host final exponentiation, and sets/s beside
-    phase 4's; one more batch of 128 whose fq2mul and pow16mul launches
-    are logged as a histogram of their row counts; one batch's dispatch
+    phase 4's; one more batch of 128 whose fq2mul, pow16mul, mul and
+    fq2sqr launches are logged as a histogram of their row counts; one batch's dispatch
     under ``torch.profiler`` (as phase 5), the device's idle share over
     the best device Miller product; the XLA-graph split at bucket 16
     (valid, corrupted; its kernels but the Fq6 product, which only the
@@ -248,6 +251,12 @@ SHAPES = {
     "fq2mul": (2 * BUCKET, 8 * BUCKET, 18 * (BUCKET + 1), 2560),
     # the windowed inversions' and the Legendre scan's 256 and 512
     "pow16mul": (2 * BUCKET, 4 * BUCKET, 2560),
+    # a split batch's most frequent (128 to 512 rows, 592 of 602 launches)
+    # and its largest, 3,584
+    "mul": (BUCKET, 2 * BUCKET, 3 * BUCKET, 4 * BUCKET, 28 * BUCKET, 2560),
+    # the full-device final exponentiation's 9 (the nine Fq2 squares of a
+    # cyclotomic square, 326 launches) and the htc's 256 and 512
+    "fq2sqr": (9, 2 * BUCKET, 4 * BUCKET, 2560),
     "tower_fq2_mul": (1, 12 * (BUCKET + 1)),
     "tower_fq2_sqr": (1, 2 * BUCKET),
     "tower_fq6_mul": (1,),
@@ -257,13 +266,13 @@ SHAPES = {
 }
 FUSED_SHAPES = (512, 2560)
 # the redesigned cooperative kernels (one warp per Fq step; one row a block,
-# or several for fq2mul and pow16mul): also held at these row counts (a
-# single row; a partial last block for every rows-a-block count; one past
-# the ladder's 512) and on inputs at the digit bounds, untimed
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul")
+# or several for fq2mul, pow16mul, mul and fq2sqr): also held at these row
+# counts (a single row; a partial last block for every rows-a-block count;
+# one past the ladder's 512) and on inputs at the digit bounds, untimed
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr")
 COOP_CHECK_ROWS = (1, 37, 513)
-# the kernels whose launches' row counts phase 11 logs as a histogram
-ROW_HISTOGRAM = ("fq2mul", "pow16mul")
+# the kernels whose launches' row counts phases 3 and 11 log as a histogram
+ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr")
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
@@ -741,6 +750,7 @@ def run_fused(dev, card: str, pool, keys, sets):
         verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED),
                                     host_final_exp=False)
         launches = check_verdicts(verifier, sets, "fused", FUSED)
+        launch_rows(verifier, sets, ROW_HISTOGRAM, "fused")
 
         args = fused_verify.from_packed(fused_verify.example_inputs(BUCKET), dev)
         got = bool(fused_verify.verify_signature_sets_fused(*args))

@@ -4,19 +4,19 @@
 // float32 digits of the Python side, converted on load).  "Loose" digits
 // are <= 2^22 - 1; "semi-strict" digits are <= 256.  Every function here
 // reproduces, digit for digit, the integer values the JAX package's
-// fused_core computes (m_fold, m_mul, m_fq2_sqr, m_add, m_sub
-// and the Barrett canonicalisation of _canon_k): the same carry passes
-// for the same bound, the same fold widths and the same truncations.
+// fused_core computes (m_fold, m_mul, m_add, m_sub and the Barrett
+// canonicalisation of _canon_k): the same carry passes for the same
+// bound, the same fold widths and the same truncations.
 // All values stay below 2^24, so int32 holds them exactly, and every
 // floor(x / 256) of the JAX code acts on a non-negative integer and is
 // the shift x >> 8.
 //
-// The functions are __host__ __device__: the kernels in fused_kernels.cu
-// call the row_* bodies at the bottom (lad1, lad2, lad3, fq2pow16mul,
-// fq2mul and pow16mul the cooperative bodies of field_coop.cuh, which
-// mirror these steps: fold, mul, and m_fq2_mul and m_fq2_sqr in stages),
-// and host_shim.cpp builds the very same bodies with g++ for the CPU
-// parity test.
+// The functions are __host__ __device__: the fold and canon kernels in
+// fused_kernels.cu call the row_* bodies at the bottom (the other eight
+// the cooperative bodies of field_coop.cuh, which mirror these steps:
+// fold, mul, and m_fq2_mul and m_fq2_sqr in stages), tower.cuh builds the
+// tower products on them, and host_shim.cpp builds the very same bodies
+// with g++ for the CPU parity test.
 
 #pragma once
 
@@ -28,10 +28,10 @@
 #endif
 
 // Small helpers are inlined; the heavy steps (fold, the digit product,
-// the Fq2 square, the canonicalisation) are real calls.  With
-// them inlined as well, every kernel sits at 255 registers and spills, and
-// ptxas -O2/-O3 of CUDA 12.8 miscompiled the one-thread fq2mul, fq2sqr
-// and ladder kernels (right at ptxas -O0/-O1; tests/kernel_build_variants.py).
+// the canonicalisation) are real calls.  With them inlined as well, every
+// kernel sits at 255 registers and spills, and ptxas -O2/-O3 of CUDA 12.8
+// miscompiled the one-thread fq2mul, fq2sqr and ladder kernels (right at
+// ptxas -O0/-O1; tests/kernel_build_variants.py).
 #define LF_HD static __host__ __device__ __forceinline__
 #ifdef LF_INLINE_ALL  // every step inlined: the miscompiled layout
 #define LF_CALL LF_HD
@@ -140,16 +140,6 @@ LF_HD void scale(const int* a, int k, int* out, const int* K) {
 // Fq2 values are int[2][50] component pairs.
 typedef int fq2[2][NL];
 
-// m_fq2_sqr: (a0 + a1)(a0 - a1) + 2 a0 a1 u.
-LF_CALL void fq2_sqr(const fq2 a, fq2 out, const int* K) {
-  int d[NL], s[NL], m[NL];
-  sub(a[0], a[1], d, K);
-  for (int j = 0; j < NL; ++j) s[j] = a[0][j] + a[1][j];
-  mul<17>(s, d, out[0], K);
-  mul<16>(a[0], a[1], m, K);
-  scale<10>(m, 2, out[1], K);
-}
-
 LF_HD void fq2_add(const fq2 a, const fq2 b, fq2 out, const int* K) {
   add(a[0], b[0], out[0], K);
   add(a[1], b[1], out[1], K);
@@ -180,11 +170,6 @@ LF_HD void load_fold(const float* p, int* x, const int* K) {
 LF_HD void load2(const float* p, fq2 x) {
   load(p, x[0]);
   load(p + NL, x[1]);
-}
-
-LF_HD void load2_fold(const float* p, fq2 x, const int* K) {
-  load_fold(p, x[0], K);
-  load_fold(p + NL, x[1], K);
 }
 
 LF_HD void store2(float* p, const fq2 x) {
@@ -240,27 +225,9 @@ LF_CALL void canon(const int* xin, int* out, const int* K) {
   for (int k = 0; k < NL; ++k) out[k] = r[k];
 }
 
-// -- the four one-thread row bodies ----------------------------------------------
+// -- the two one-thread row bodies ---------------------------------------------
 // in[i] / out[i] point at (N, 50) or (N, 2, 50) float32 arrays; each body
 // computes one row.
-
-// fused_core._mul_k
-LF_HD void row_mul(const float* const* in, float* const* out, int row, const int* K) {
-  int a[NL], b[NL], o[NL];
-  load_fold(in[0] + row * NL, a, K);
-  load_fold(in[1] + row * NL, b, K);
-  mul<16>(a, b, o, K);
-  store(out[0] + row * NL, o);
-}
-
-// fused_core._fq2sqr_k: the square and the folded input
-LF_HD void row_fq2sqr(const float* const* in, float* const* out, int row, const int* K) {
-  fq2 a, o;
-  load2_fold(in[0] + row * 2 * NL, a, K);
-  fq2_sqr(a, o, K);
-  store2(out[0] + row * 2 * NL, o);
-  store2(out[1] + row * 2 * NL, a);
-}
 
 // fused_core._fold_k
 LF_HD void row_fold(const float* const* in, float* const* out, int row, const int* K) {

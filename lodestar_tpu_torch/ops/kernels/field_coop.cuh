@@ -1,12 +1,12 @@
-// Cooperative BLS12-381 field arithmetic for six of the fused kernels: the
-// G2 ladder's round kernels lad1, lad2 and lad3, fq2pow16mul, fq2mul and
-// pow16mul.  One warp per Fq step, the digits of a step across the warp's
+// Cooperative BLS12-381 field arithmetic for eight of the fused kernels:
+// the G2 ladder's round kernels lad1, lad2 and lad3, fq2pow16mul, fq2mul,
+// pow16mul, mul and fq2sqr.  One warp per Fq step, the digits of a step across the warp's
 // 32 lanes, every value of a row in shared memory; a row has NW warps and
 // a block R rows.
 //
 // Layout.  A block (Block below) holds the constant table, staged once for
 // its R rows, and R row layouts (Lad1, Lad2, Lad3, Fq2Pow16Mul, Fq2Mul,
-// Pow16Mul): each row's inputs, outputs and intermediates as int32 digits,
+// Pow16Mul, Mul, Fq2Sqr): each row's inputs, outputs and intermediates as int32 digits,
 // with a scratch area of 462 ints per warp of the row.  No step keeps a
 // digit array in local memory.  The warp and row counts are template
 // parameters of the layouts, of Ctx and of run_stages: each kernel has its
@@ -66,7 +66,8 @@
 // H100 staging cost a block of one row on one warp ~2.5 us (fq2mul and
 // pow16mul at 256 rows, one wave), which the rows of a block share; read
 // from global memory the table made the ladder kernels and fq2pow16mul
-// 1-11 % slower (PERF.md).
+// 1-11 % slower, and mul and fq2sqr at one row of two warps a block no
+// faster than staged at two rows (PERF.md).
 
 #pragma once
 
@@ -88,6 +89,18 @@
 #endif
 #ifndef LF_POW16_ROWS
 #define LF_POW16_ROWS 4  // pow16mul: rows a block, one warp a row
+#endif
+#ifndef LF_MUL_WARPS
+#define LF_MUL_WARPS 2  // mul: warps a row
+#endif
+#ifndef LF_MUL_ROWS
+#define LF_MUL_ROWS 2  // mul: rows a block
+#endif
+#ifndef LF_FQ2SQR_WARPS
+#define LF_FQ2SQR_WARPS 2  // fq2sqr: warps a row
+#endif
+#ifndef LF_FQ2SQR_ROWS
+#define LF_FQ2SQR_ROWS 2  // fq2sqr: rows a block
 #endif
 
 #define LC_HD static __host__ __device__ __forceinline__
@@ -122,6 +135,10 @@ constexpr int POW_WARPS = LF_POW_WARPS;
 constexpr int FQ2MUL_WARPS = LF_FQ2MUL_WARPS;
 constexpr int FQ2MUL_ROWS = LF_FQ2MUL_ROWS;
 constexpr int POW16_ROWS = LF_POW16_ROWS;
+constexpr int MUL_WARPS = LF_MUL_WARPS;
+constexpr int MUL_ROWS = LF_MUL_ROWS;
+constexpr int FQ2SQR_WARPS = LF_FQ2SQR_WARPS;
+constexpr int FQ2SQR_ROWS = LF_FQ2SQR_ROWS;
 constexpr int F2 = 2 * NL;   // one Fq2 value: component 0, then component 1
 #ifdef LF_COOP_K_GLOBAL
 constexpr int K_STAGED = 1;  // the table is read from global memory
@@ -838,6 +855,80 @@ LC_HD void block_pow16mul(const float* const* in, float* const* out, int n, int 
   store_rows<NL>(s, 1, out, n, block);
 }
 
+// -- fused_core._mul_k ---------------------------------------------------------
+
+// in: a b (loose, Fq); out: a b
+template <int NW>
+struct Mul {
+  int in[2][NL];
+  int out[NL];
+  int f[2][NL];   // a and b folded
+  int scr[NW * SCR];
+};
+
+// The schedule (S = Fq step):
+//   0: fold a b                                                     2 S
+//   1: a b                                                          1 mul
+template <int NW>
+struct MulStages {
+  Mul<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Mul<NW>& r = *s;
+    if (st == 0) {
+      t_fold<22>(c, raw(r.in[0]), r.f[0]);
+      t_fold<22>(c, raw(r.in[1]), r.f[1]);
+    } else {
+      t_mul(c, r.f[0], nullptr, r.f[1], nullptr, r.out);
+    }
+  }
+};
+
+template <int NW, int R>
+LC_HD void block_mul(const float* const* in, float* const* out, int n, int block,
+                     const int* K, Block<Mul, NW, R>& s) {
+  const int* k = load_rows<NL>(in, 2, n, block, K, s);
+  run_stages<MulStages>(s, k, 2);
+  store_rows<NL>(s, 1, out, n, block);
+}
+
+// -- fused_core._fq2sqr_k ------------------------------------------------------
+
+// in: a (loose); out: a^2 in Fq2, then a folded
+template <int NW>
+struct Fq2Sqr {
+  int in[1][F2];
+  int out[2][F2];
+  int q[F2];      // the square's temporaries
+  int scr[NW * SCR];
+};
+
+// The schedule (S = Fq step; at most 2 steps at once):
+//   0: fold a0 a1 into out1                                         2 S
+//   1: m = a0 a1 (products), d = a0 - a1                            1 mul + 1 S
+//   2: out0 = (a0 + a1) d, then 2m                                  1 mul + 1 S
+template <int NW>
+struct Fq2SqrStages {
+  Fq2Sqr<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    Fq2Sqr<NW>& r = *s;
+    if (st == 0) {
+      fold2_entry(c, r.in[0], r.out[1]);
+    } else if (st == 1) {
+      fq2sqr_products(c, r.out[1], r.q);
+    } else {
+      fq2sqr_finish(c, r.out[1], r.q, r.out[0]);
+    }
+  }
+};
+
+template <int NW, int R>
+LC_HD void block_fq2sqr(const float* const* in, float* const* out, int n, int block,
+                        const int* K, Block<Fq2Sqr, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 1, n, block, K, s);
+  run_stages<Fq2SqrStages>(s, k, 3);
+  store_rows<F2>(s, 2, out, n, block);
+}
+
 // -- the kernels' blocks (warps a row, rows a block) ----------------------------
 
 using Lad1Block = Block<Lad1, LAD_WARPS, 1>;
@@ -846,5 +937,7 @@ using Lad3Block = Block<Lad3, LAD_WARPS, 1>;
 using Fq2Pow16MulBlock = Block<Fq2Pow16Mul, POW_WARPS, 1>;
 using Fq2MulBlock = Block<Fq2Mul, FQ2MUL_WARPS, FQ2MUL_ROWS>;
 using Pow16MulBlock = Block<Pow16Mul, 1, POW16_ROWS>;
+using MulBlock = Block<Mul, MUL_WARPS, MUL_ROWS>;
+using Fq2SqrBlock = Block<Fq2Sqr, FQ2SQR_WARPS, FQ2SQR_ROWS>;
 
 }  // namespace lfc

@@ -2,32 +2,31 @@
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of the JAX
 // package.
 //
-// Design of four of them (mul, fq2sqr, fold, canon; first, simple
-// version): one thread per row of the flat row axis, 32 threads a block
-// (the main path has only 512 to 2,560 rows, so small blocks spread them
-// over more SMs), every index checked against n; each runs the row body of
-// the same name in field.cuh.  A row's digits live in per-thread int32
-// arrays in local memory; the 50x50 digit product is a plain schoolbook
-// loop of int32 multiply-adds, and the heavy steps are real calls rather
-// than inlined copies.  There is no shared memory and no tensor-core use.
+// Design of two of them (fold, canon; first, simple version): one thread
+// per row of the flat row axis, 32 threads a block (the main path has only
+// 512 to 2,560 rows, so small blocks spread them over more SMs), every
+// index checked against n; each runs the row body of the same name in
+// field.cuh.  A row's digits live in per-thread int32 arrays in local
+// memory, and the heavy steps are real calls rather than inlined copies.
+// There is no shared memory and no tensor-core use.
 //
-// The other six (redesigned: the G2 ladder's round kernels lad1, lad2 and
-// lad3, fq2pow16mul, fq2mul and pow16mul) are cooperative: one warp per Fq
-// step, the digits across the lanes, each row's values and the block's
-// constant table in shared memory (field_coop.cuh).  The ladder kernels
-// and fq2pow16mul run one row a block on 8 or 4 warps; fq2mul (3 warps a
-// row) and pow16mul (1 warp a row), whose rows are short chains (3 and 6
-// stages), 2 and 4 rows a block, so that the table is staged once for all
-// of them.  One thread per
-// row left 8 to 73 of the 132 SMs with one warp each at the paths'
-// shapes, walking a serial chain of 3 to 33 Fq products.
+// The other eight (redesigned: the G2 ladder's round kernels lad1, lad2
+// and lad3, fq2pow16mul, fq2mul, pow16mul, mul and fq2sqr) are
+// cooperative: one warp per Fq step, the digits across the lanes, each
+// row's values and the block's constant table in shared memory
+// (field_coop.cuh).  The ladder kernels and fq2pow16mul run one row a
+// block on 8 or 4 warps; fq2mul, pow16mul, mul and fq2sqr, whose rows are
+// short chains (2 to 6 stages), several rows a block where that pays for
+// the table's staging (the *Block aliases of field_coop.cuh).  One thread
+// per row left 1 to 73 of the 132 SMs with one warp each at the paths'
+// shapes, walking a serial chain of 1 to 33 Fq products.
 //
 // What bounds them on this card: integer multiply-add throughput.  An Fq
 // product is 2,500 digit multiply-adds for the schoolbook plus 2,600 for
 // the fold through the RED rows, against 400 bytes of input per operand
 // row, so every kernel but fold does hundreds of int32 operations per
 // byte it moves and sits on the operation side of the roofline.  In the
-// one-thread version each thread is bound by its own serial chain of
+// one-thread kernels each thread is bound by its own serial chain of
 // local-memory loads and stores instead.
 //
 // Every launcher is extern "C" with a plain interface for ctypes: input
@@ -75,26 +74,6 @@ static Ptrs make_ptrs(void* const* ins, int nin, void* const* outs, int nout) {
         p, n, static_cast<const int*>(consts));                                   \
     return static_cast<int>(cudaGetLastError());                                  \
   }
-
-#ifdef LF_KERNEL_mul
-// Replaces lodestar_tpu/ops/fused_core.py _mul_k (f_mul): Fq product of
-// two loose rows.  Operation-bound: ~5,400 multiply-adds a row.
-__global__ void mul_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_mul(p.in, p.out, row, K);
-}
-LF_LAUNCHER(mul, 2, 1)
-#endif
-
-#ifdef LF_KERNEL_fq2sqr
-// Replaces fused_core.py _fq2sqr_k (f2_sqr): Fq2 square plus the folded
-// input as a second output.  Operation-bound.
-__global__ void fq2sqr_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_fq2sqr(p.in, p.out, row, K);
-}
-LF_LAUNCHER(fq2sqr, 1, 2)
-#endif
 
 #ifdef LF_KERNEL_fold
 // Replaces fused_core.py _fold_k (f_fold): loose -> semi-strict, two carry
@@ -149,6 +128,25 @@ LF_LAUNCHER(canon, 1, 1)
   extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(NAME##_layout)); } \
   extern "C" int rows_per_block_##NAME() { return NAME##_layout::ROWS; }          \
   extern "C" int threads_per_block_##NAME() { return NAME##_layout::THREADS; }
+
+#ifdef LF_KERNEL_mul
+#include "field_coop.cuh"
+// Replaces lodestar_tpu/ops/fused_core.py _mul_k (f_mul): Fq product of
+// two loose rows, the two entry folds at once, then one product (the
+// schedule beside lfc::MulStages), lfc::MUL_ROWS rows of lfc::MUL_WARPS
+// warps a block.  Operation-bound: ~5,400 multiply-adds a row.
+LF_COOP_KERNEL(mul, 2, 1, lfc::MulBlock)
+#endif
+
+#ifdef LF_KERNEL_fq2sqr
+#include "field_coop.cuh"
+// Replaces fused_core.py _fq2sqr_k (f2_sqr): Fq2 square plus the folded
+// input as a second output, the entry folds, two Fq products and two
+// small folds, at most 2 steps at once (the schedule beside
+// lfc::Fq2SqrStages), lfc::FQ2SQR_ROWS rows of lfc::FQ2SQR_WARPS warps a
+// block.  Operation-bound.
+LF_COOP_KERNEL(fq2sqr, 1, 2, lfc::Fq2SqrBlock)
+#endif
 
 #ifdef LF_KERNEL_fq2mul
 #include "field_coop.cuh"

@@ -1,8 +1,8 @@
 // Host build of the kernels' row bodies (field.cuh, field_coop.cuh, tower.cuh, limbs.cuh)
 // with a plain C interface, for the CPU parity test: the same arithmetic
 // the CUDA kernels run, looped over rows on the CPU.  The cooperative
-// bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul and pow16mul walk their
-// blocks, and in each its rows' warps and lanes, in turn (backwards under
+// bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul and
+// fq2sqr walk their blocks, and in each its rows' warps and lanes, in turn (backwards under
 // -DLC_HOST_REVERSED), over one host copy of their shared-memory layout at
 // the kernels' warp and row counts, filled with -1 before each block so
 // that a read of a value the block did not write shows.  Built with g++ by
@@ -50,9 +50,9 @@
   }                                                                          \
   extern "C" int host_rows_per_block_##NAME() { return lfc::LAYOUT::ROWS; }
 
-LF_HOST(mul)
+LF_HOST_COOP(mul, MulBlock)
 LF_HOST_COOP(fq2mul, Fq2MulBlock)
-LF_HOST(fq2sqr)
+LF_HOST_COOP(fq2sqr, Fq2SqrBlock)
 LF_HOST_COOP(pow16mul, Pow16MulBlock)
 LF_HOST_COOP(fq2pow16mul, Fq2Pow16MulBlock)
 LF_HOST(fold)

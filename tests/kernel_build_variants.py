@@ -12,29 +12,31 @@ build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
 shows which stage of the compiler the fault follows.  The cooperative
-kernels lad1, lad2, lad3, fq2pow16mul, fq2mul and pow16mul
+kernels lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul and fq2sqr
 (field_coop.cuh) keep the product and the fold as calls too; the
 ``ptxas-O1`` variant holds them at another ptxas level, the ``*-warps``
 variants at other block sizes (``LF_COOP_WARPS``: the ladder kernels'
 warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
-``LF_FQ2MUL_WARPS``: fq2mul's warps a row, 3), the ``rows-*`` variants at
-other rows a block (``LF_FQ2MUL_ROWS``, 2 by default, and
-``LF_POW16_ROWS``, 4, set together: the two kernels are timed apart), and
-``k-global`` with the constant table read from global memory instead of
+``LF_FQ2MUL_WARPS``: fq2mul's warps a row, 3; ``LF_MUL_WARPS`` and
+``LF_FQ2SQR_WARPS``: mul's and fq2sqr's, set together with their rows a
+block in the ``mul-fq2sqr-*`` variants), the ``rows-*`` variants at other
+rows a block (``LF_FQ2MUL_ROWS``, ``LF_POW16_ROWS``, ``LF_MUL_ROWS`` and
+``LF_FQ2SQR_ROWS``, set together: the kernels are timed apart), and
+``k-global*`` with the constant table read from global memory instead of
 staged into each block's shared memory (``LF_COOP_K_GLOBAL``).
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 256, 512, 513 and 2,560 rows and three
 seeds, and the first differing row's digits (for the ring hop: the
-chunks, of the ring's two shapes, that differ from a copy); then, for the
-fq2mul, fq2sqr, pow16mul, lad1, lad2, lad3, fq2pow16mul, tower_fq12_mul,
-library_fq2_mul and ring_hop kernels, ptxas's register, stack and spill
-report; the dynamic shared memory, rows and threads of a cooperative
-kernel's block; and each cooperative kernel's device time at the rows
-chip_smoke times it at (20 launches in a CUDA graph, replayed between
-CUDA events).  ``--kernels`` keeps the checks, reports and times to the
-kernels named (the ring hop's check runs when it is named).  Needs a
-CUDA card and nvcc.
+chunks, of the ring's two shapes, that differ from a copy); then each
+kernel's ptxas report (registers, stack, spills); the dynamic shared
+memory, rows and threads of a cooperative kernel's block; and each
+cooperative kernel's device time at the rows chip_smoke times it at (20
+launches in a CUDA graph, replayed between CUDA events).  A variant
+builds only the kernels it checks, one nvcc process each, all started
+together; ``--kernels`` names them (the ring hop's check runs when it is
+named), and by default every kernel is built.  Needs a CUDA card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -58,6 +60,17 @@ from lodestar_tpu_torch.ops import tower_kernels  # noqa: E402,F401 - registers 
 from lodestar_tpu_torch.ops.kernels import _build  # noqa: E402
 
 INLINE = "-DLF_INLINE_ALL"
+
+
+def _rows(r: int):
+    return tuple(f"-DLF_{k}_ROWS={r}" for k in ("FQ2MUL", "POW16", "MUL", "FQ2SQR"))
+
+
+def _mul_fq2sqr(warps: int, rows: int):
+    return tuple(f"-DLF_{k}_{what}={v}" for k in ("MUL", "FQ2SQR")
+                 for what, v in (("WARPS", warps), ("ROWS", rows)))
+
+
 VARIANTS = {
     "calls": (),
     "inlined": (INLINE,),
@@ -72,21 +85,20 @@ VARIANTS = {
     "pow-2-warps": ("-DLF_POW_WARPS=2",),
     "pow-3-warps": ("-DLF_POW_WARPS=3",),
     "pow-8-warps": ("-DLF_POW_WARPS=8",),
-    # fq2mul's and pow16mul's rows a block, set together
-    "rows-1": ("-DLF_FQ2MUL_ROWS=1", "-DLF_POW16_ROWS=1"),
-    "rows-2": ("-DLF_FQ2MUL_ROWS=2", "-DLF_POW16_ROWS=2"),
-    "rows-4": ("-DLF_FQ2MUL_ROWS=4", "-DLF_POW16_ROWS=4"),
-    "rows-8": ("-DLF_FQ2MUL_ROWS=8", "-DLF_POW16_ROWS=8"),
+    # the rows a block of fq2mul, pow16mul, mul and fq2sqr, set together
+    **{f"rows-{r}": _rows(r) for r in (1, 2, 4, 8)},
     # fq2mul's three products one after the other, on one warp a row
     "fq2mul-1-warp-rows-1": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=1"),
     "fq2mul-1-warp-rows-4": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=4"),
     "fq2mul-1-warp-rows-8": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=8"),
+    # mul's and fq2sqr's warps a row and rows a block, set together
+    **{f"mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": _mul_fq2sqr(w, r) for w in (1, 2) for r in (1, 2, 4, 8)},
     "k-global": ("-DLF_COOP_K_GLOBAL",),
-    "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", "-DLF_FQ2MUL_ROWS=1", "-DLF_POW16_ROWS=1"),
+    "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", *_rows(1)),
+    **{f"k-global-mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": ("-DLF_COOP_K_GLOBAL", *_mul_fq2sqr(w, r))
+       for w in (1, 2) for r in (1, 4)},
 }
 ROWS = (1, 37, 256, 512, 513, 2560)
-PTXAS = ("fq2mul", "fq2sqr", "pow16mul", "lad1", "lad2", "lad3", "fq2pow16mul", "tower_fq12_mul",
-         "library_fq2_mul", "ring_hop")
 SEEDS = range(3)
 
 
@@ -148,24 +160,40 @@ def check_ring(lib, dev) -> dict:
     return {"chunks_checked": checked, "chunks_differ": differ}
 
 
-def ptxas_reports(extra, names) -> dict:
-    """ptxas's resource lines for each kernel of ``names`` in a variant,
-    the nvcc processes started together."""
+def build(extra, names):
+    """The kernels ``names`` built with a variant's flags, one nvcc process
+    each (all started together, ptxas's report on), and linked into one
+    library under build/; returns the library, its launchers' argument
+    types declared as ``_build.load`` declares them, and, per kernel,
+    ptxas's register, stack, spill and shared-memory lines."""
+    out = os.path.join(_build.BUILD_DIR, f"variant_{_build._digest((*extra, *names))}")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
         src = os.path.join(os.path.dirname(_build.__file__), _build.LAUNCHERS[name])
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, f"-DLF_KERNEL_{name}",
-               "-Xptxas", "-v", "-c", "-o", os.devnull, src]
+               "-Xptxas", "-v", "-c", "-o", f"{out}.{name}.o", src]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
-    out = {}
+    reports = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc -Xptxas -v of {name} failed:\n{log}")
-        out[name] = [ln.strip() for ln in log.splitlines()
-                     if "registers" in ln or "stack frame" in ln or "spill" in ln or "smem" in ln]
-    return out
+        reports[name] = [ln.strip() for ln in log.splitlines()
+                         if "registers" in ln or "stack frame" in ln or "spill" in ln or "smem" in ln]
+    subprocess.run([_build._nvcc(), "-shared", "-o", f"{out}.so", *(f"{out}.{n}.o" for n in names)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(f"{out}.so")
+    ptr_array = ctypes.POINTER(ctypes.c_void_p)
+    for name in names:
+        fn = getattr(lib, f"launch_{name}")
+        if name == "ring_hop":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        else:
+            fn.argtypes = [ptr_array, ptr_array, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib, reports
 
 
 def main(argv) -> int:
@@ -183,11 +211,10 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line(), flush=True)
     for variant in argv or list(VARIANTS):
-        lib = _build.load(VARIANTS[variant])
+        lib, reports = build(VARIANTS[variant], kernels)
         for name in kernels:
             result = check_ring(lib, dev) if name == "ring_hop" else check(lib, fc.KERNELS[name], dev)
             print(json.dumps({"variant": variant, "kernel": name, **result}), flush=True)
-        reports = ptxas_reports(VARIANTS[variant], [n for n in PTXAS if n in kernels])
         for name, report in reports.items():
             print(json.dumps({"variant": variant, f"ptxas_{name}": report}), flush=True)
         for name in chip_smoke.COOP:

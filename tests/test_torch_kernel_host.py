@@ -2,9 +2,9 @@
 
 field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
 __host__ __device__ functions, field_coop.cuh the cooperative block bodies
-of lad1, lad2, lad3, fq2pow16mul, fq2mul and pow16mul (one warp per step;
-one row a block, or several for fq2mul and pow16mul), whose blocks, rows,
-warps and lanes the host build walks in turn; ops/kernels/host_shim.cpp wraps them
+of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul and fq2sqr (one
+warp per step; one row a block, or several for fq2mul, pow16mul, mul and
+fq2sqr), whose blocks, rows, warps and lanes the host build walks in turn; ops/kernels/host_shim.cpp wraps them
 in a plain C interface.  Here g++ builds that shim (into build/, keyed by
 the sources' hash) and the fifteen bodies are held bitwise against the
 plain PyTorch versions; the cooperative ones also with their lanes and
@@ -156,7 +156,7 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     # the row layouts (inputs first), each a template over its warp count
     layout = r"^template <int NW>\nstruct (\w+) \{\n  int in\[.*?^\};"
     layouts = re.findall(layout, src, re.M | re.S)
-    assert layouts == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul"]
+    assert layouts == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul", "Fq2Sqr"]
     rest = re.sub(layout, "", re.sub(block, "", src, flags=re.M | re.S), flags=re.M | re.S)
     code = re.sub(r"//[^\n]*", "", rest)
     assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
@@ -178,7 +178,7 @@ def test_heavy_steps_are_real_calls_in_the_kernels_build():
     the steps that make a kernel big stay out-of-line calls by default."""
     src = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
     assert re.search(r"#else\n#define LF_CALL static __host__ __device__ __noinline__\n", src)
-    for step in ("fold", "mul", "fq2_sqr", "cond_sub", "canon"):
+    for step in ("fold", "mul", "cond_sub", "canon"):
         assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
     tower = open(os.path.join(KDIR, "tower.cuh"), encoding="utf-8").read()
     for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul", "tw_fq12_mul"):
