@@ -14,7 +14,8 @@ its wall time on a line of its own:
    launch counter set to 0 just before, each entry bitwise equal to its
    plain version and every kernel launched; then each CUDA kernel against
    its plain PyTorch version on the card, on seeded inputs at the shapes
-   its path gives it (fold and canon at 512 and 2,560 rows, mul at 128,
+   its path gives it (fold at 1,024 rows, canon at 512, 1,280 and the
+   ladder predicate's 5,120, mul at 128,
    256, 384, 512 and 3,584, fq2sqr at the final exponentiation's 9 and the
    htc's 256 and 512, fq2pow16mul at the square root's 256 and at 512,
    fq2mul at the htc's 256 and 1,024 and the Miller loop's 2,322, pow16mul
@@ -24,9 +25,9 @@ its wall time on a line of its own:
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
    exact integer arithmetic; the redesigned cooperative kernels (lad1,
-   lad2, lad3 and fq2pow16mul one block per row, fq2mul, pow16mul, mul
-   and fq2sqr several rows a block) also at 1, 37 and 513 rows and on inputs at the
-   digit bounds.
+   lad2, lad3 and fq2pow16mul one block per row, fq2mul, pow16mul, mul,
+   fq2sqr and canon several rows a block) also at 1, 37 and 513 rows and
+   on inputs at the digit bounds.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
    is outside the window (it is printed beside them as ``issue_ms``, 20
@@ -42,7 +43,7 @@ ported; phases 11-12 the split default.
    verifies, every fused-path kernel launched; then a corrupted
    signature, a signature outside G2 and 100 live sets in bucket 128 give
    False, False, True; one more valid batch whose launches of fq2mul,
-   pow16mul, mul and fq2sqr are logged as a histogram of their row
+   pow16mul, mul, fq2sqr, fold and canon are logged as a histogram of their row
    counts; the batch-128 example inputs verify through
    ``verify_signature_sets_fused``; the card's Miller product at bucket 4
    equals the CPU plain run's canonically, digit for digit;
@@ -67,11 +68,16 @@ ported; phases 11-12 the split default.
 7. XLA times and profile: phases 4 and 5 for the XLA-graph program
    (profiled with device activity only: the program makes about a million
    launches);
-8. ring: the ring hop kernel (``ops/ring_gather``) against its plain
+8. ring: the ring hop kernel alone against ``copy_`` at chunks of 0-40,
+   600, 1,027 and 4,099 floats, pointers 0, 4, 8 and 12 bytes past a
+   16-byte boundary; then
+   (``ops/ring_gather``) against its plain
    version, bitwise, as a whole all-gather and as a one-hop permute, at 2
    and 4 logical shards on card 0 and on a (6, 2, 50) GT partial and a
    (2,) verdict-bits chunk, three seeded inputs each; the device time of
-   one hop, of one whole gather and of ``Tensor.copy_``; with two or more
+   one hop at both shapes (the bits at an odd, 8-byte aligned slot) beside
+   ``copy_`` of the same slots, ``Tensor.copy_`` of a chunk and an empty
+   kernel of one block, the hop's eager issue time, one whole gather; with two or more
    cards visible, the same across min(count, 4) cards (peer access);
 9. sharded slice: ``TorchBlsVerifier(devices=[cuda:0] * 2, sharded=True,
    sharded_min_batch=256)`` with every launch counter set to 0 just
@@ -97,8 +103,8 @@ ported; phases 11-12 the split default.
     batches of 128, each split into pack, device Miller product (enqueue
     plus the sync on the event after the copies of ok and f to the host),
     read of f's host copy and host final exponentiation, and sets/s beside
-    phase 4's; one more batch of 128 whose fq2mul, pow16mul, mul and
-    fq2sqr launches are logged as a histogram of their row counts; one batch's dispatch
+    phase 4's; one more batch of 128 whose fq2mul, pow16mul, mul, fq2sqr,
+    fold and canon launches are logged as a histogram of their row counts; one batch's dispatch
     under ``torch.profiler`` (as phase 5), the device's idle share over
     the best device Miller product; the XLA-graph split at bucket 16
     (valid, corrupted; its kernels but the Fq6 product, which only the
@@ -141,6 +147,7 @@ the ``kernels`` object.
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import dataclasses
 import json
 import multiprocessing
@@ -166,6 +173,11 @@ BUCKET = 128  # the node's MAX_SIGNATURE_SETS_PER_JOB
 SHARDED_BUCKET = 256  # the sharded tier's default smallest bucket (the largest)
 RING_SHAPES = ((6, 2, 50), (2,))  # a GT partial, the two verdict bits
 RING_SHARDS = (2, 4)
+# the hop alone: chunk lengths (floats; 0-40, and three that take more than
+# one block or more than one item a thread) and pointer offsets (bytes
+# past a 16-byte boundary) it is held against copy_ at
+HOP_LENGTHS = (*range(41), 600, 1027, 4099)
+HOP_OFFSETS = (0, 4, 8, 12)
 # seeded inputs each kernel is held against its plain version on, per shape
 # (a miscompiled build can be wrong on a few rows in thousands)
 CHECKS = 3
@@ -263,16 +275,20 @@ SHAPES = {
     "tower_fq12_mul": (1, BUCKET + 1),
     # the registry's B = 4, and the tower Fq2 product's largest shape
     "library_fq2_mul": (4, 12 * (BUCKET + 1)),
+    # its 3 launches a batch, at 1,024 rows
+    "fold": (8 * BUCKET,),
+    # 6 launches at 512 rows, 3 at 1,280 and the ladder's stacked predicate,
+    # 5 values x 512 rows x 2 components, 128 of its 138 launches (last)
+    "canon": (4 * BUCKET, 10 * BUCKET, 40 * BUCKET),
 }
-FUSED_SHAPES = (512, 2560)
 # the redesigned cooperative kernels (one warp per Fq step; one row a block,
-# or several for fq2mul, pow16mul, mul and fq2sqr): also held at these row
+# or several for fq2mul, pow16mul, mul, fq2sqr and canon): also held at these row
 # counts (a single row; a partial last block for every rows-a-block count;
 # one past the ladder's 512) and on inputs at the digit bounds, untimed
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr")
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "canon")
 COOP_CHECK_ROWS = (1, 37, 513)
 # the kernels whose launches' row counts phases 3 and 11 log as a histogram
-ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr")
+ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr", "fold", "canon")
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
@@ -369,6 +385,52 @@ def edge_inputs(kernel, rows: int, rng: np.random.Generator, dev):
     return out
 
 
+# canon's inputs at the edges of its branches (canon_edge_rows)
+LOOSE_TOP = (1 << 22) - 1
+CANON_EDGES = ("loose-max", "zero", "p-1", "p", "p+1", "2p-1", "2p", "3p-1", "carry-chain")
+
+
+def _loose(digits: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """The same value in loose digits: digit i takes b * 256 from digit
+    i + 1, b drawn up to what both digits allow."""
+    x = digits.astype(np.int64).copy()
+    for i in range(len(x) - 1):
+        x[i] += 256 * (b := int(rng.integers(0, min(x[i + 1], (LOOSE_TOP - x[i]) // 256) + 1)))
+        x[i + 1] -= b
+    return x
+
+
+def canon_edge_rows(case: str, seed: int) -> torch.Tensor:
+    """Loose (rows, 50) inputs of canon at one edge of its branches, from a
+    seed: every digit at the loose bound 2^22 - 1 (and at random ones near
+    it); zero; the values p - 1 .. 3p - 1 around the conditional
+    subtractions, strict and in seeded loose digits; a run of 255 digits
+    up to digit 48 above one digit of 256 at seeded places, a propagate
+    chain of up to 48 digits through the fold's carry passes and the
+    51-digit ripple after them."""
+    from lodestar_tpu_torch.crypto.bls.fields import P
+    from lodestar_tpu_torch.ops import limbs as fl
+
+    rng = np.random.default_rng(seed)
+    if case == "loose-max":
+        rows = [np.full(50, LOOSE_TOP)] + [LOOSE_TOP - rng.integers(0, 256, 50) for _ in range(3)]
+    elif case == "zero":
+        rows = [np.zeros(50, np.int64)] * 2
+    elif case == "carry-chain":
+        rows = []
+        for start in (0, *rng.integers(1, 40, 3)):
+            row = np.zeros(50, np.int64)
+            row[:start] = rng.integers(0, 256, start)
+            row[start], row[start + 1:49] = 256, 255
+            rows.append(row)
+    else:
+        k, d = {"p-1": (1, -1), "p": (1, 0), "p+1": (1, 1), "2p-1": (2, -1), "2p": (2, 0),
+                "3p-1": (3, -1)}[case]
+        strict = fl.int_to_limbs(k * P + d).astype(np.int64)
+        rows = [strict] + [_loose(strict, rng) for _ in range(3)]
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
 def run_registry(dev, card: str) -> dict:
     """The library kernel's path: every entry of the kernel registry run
     once on the card at its example shapes, every launch counter 0 just
@@ -432,6 +494,9 @@ def check_coop(k, rng, dev, card: str) -> None:
         for _ in range(CHECKS):
             held_against_plain(k, edge_inputs(k, rows, rng, dev),
                                f"at {rows} rows, inputs at the bounds")
+    if k.name == "canon":
+        for i, case in enumerate(CANON_EDGES):
+            held_against_plain(k, [canon_edge_rows(case, i).to(dev)], f"at the edge {case}")
     # an older checkout's one-thread kernels (a comparison run) have no size
     lib = _build.load()
     smem = getattr(lib, f"smem_bytes_{k.name}", None)
@@ -440,8 +505,10 @@ def check_coop(k, rng, dev, card: str) -> None:
     layout = (f"{rows_per_block()} row(s) a block" + (f" of {threads()} threads" if threads else "")
               + f", {smem()} B of dynamic shared memory a block" if smem
               else "one thread per row")
+    edges = f", and at its branch edges {CANON_EDGES}" if k.name == "canon" else ""
     log(f"kernel {k.name}: bitwise equal to plain at {COOP_CHECK_ROWS} rows and, inputs at "
-        f"the digit bounds, at {COOP_CHECK_ROWS + SHAPES[k.name]} rows, {CHECKS} seeds each; "
+        f"the digit bounds, at {COOP_CHECK_ROWS + SHAPES[k.name]} rows, {CHECKS} seeds each"
+        f"{edges}; "
         f"{layout} [{card}]")
 
 
@@ -455,7 +522,7 @@ def check_kernels(dev, card: str):
         if name in COOP:
             check_coop(k, rng, dev, card)
         by_rows = {}
-        for rows in SHAPES.get(name, FUSED_SHAPES):
+        for rows in SHAPES[name]:
             err = 0.0
             for _ in range(CHECKS):
                 ins = kernel_inputs(k, rows, rng, dev)
@@ -864,42 +931,87 @@ def check_ring(devices, rng: np.random.Generator, card: str, label: str) -> dict
                 if g.device != w.device or not torch.equal(g, w):
                     raise AssertionError(f"ring {label} n={n} {shape}: kernel differs from plain")
                 err = max(err, float((g - w).abs().max()))
-    # times at the GT partial
-    shape = RING_SHAPES[0]
-    chunks = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(d)
-              for d in devices]
-    out = [torch.empty((n,) + shape, device=d) for d in devices]
+    # times at both ring shapes: the GT partial's slot 0 (16-byte aligned)
+    # and the verdict bits' slot 1 (8-byte aligned), beside copy_ of the
+    # same slots, Tensor.copy_ of a chunk and an empty kernel of one block
+    from lodestar_tpu_torch.ops.kernels import _build
+
     cur = torch.cuda.current_stream(devices[0])
     cross = devices[0] != devices[1 % n]
+    lib = _build.load()
+    by_shape = {}
     with torch.cuda.device(devices[0]):
-        if cross:  # a hop and a copy_ from card 0 to card 1 are not one-card graphs
-            hop = events_ms([cur], lambda: rg.launch_hop(out[0][0], out[1][0], cur))
-            plain = events_ms([cur], lambda: out[1][0].copy_(out[0][0]))
-            lib_dst = torch.empty(shape, device=devices[1])
-            lib = events_ms([cur], lambda: lib_dst.copy_(chunks[0]))
-        else:
-            hop = graph_ms(lambda: rg.launch_hop(out[0][0], out[1][0],
-                                                 torch.cuda.current_stream()))
-            plain = graph_ms(lambda: out[1][0].copy_(out[0][0]))
-            lib_dst = torch.empty(shape, device=devices[0])
-            lib = graph_ms(lambda: lib_dst.copy_(chunks[1]))
-    gather = events_ms(streams, lambda: rg.ring_all_gather(chunks, out, streams))
-    plain_gather = events_ms([cur], lambda: rg.ring_all_gather_plain(chunks, out))
+        timer = (lambda fn: events_ms([cur], fn)) if cross else graph_ms
+        # (an older checkout's library, in a comparison run, has no empty kernel)
+        empty = timer(lambda: lib.launch_empty(ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream))) if hasattr(lib, "launch_empty") else None
+        for shape, slot in zip(RING_SHAPES, (0, 1)):
+            chunks = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(d)
+                      for d in devices]
+            out = [torch.empty((n,) + shape, device=d) for d in devices]
+            src, dst = out[0][slot], out[1][slot]
+            hop = timer(lambda: rg.launch_hop(src, dst, torch.cuda.current_stream()))
+            issue = issue_ms(lambda: rg.launch_hop(src, dst, torch.cuda.current_stream()))
+            plain = timer(lambda: dst.copy_(src))
+            lib_dst = torch.empty(shape, device=devices[1 % n])
+            library = timer(lambda: lib_dst.copy_(chunks[0]))
+            b_ms, b_by = ring_bound(4 * int(np.prod(shape)), cross)
+            by_shape[str(shape)] = dict(slot=slot, ms=hop, issue_ms=issue, plain_ms=plain,
+                                        library_ms=library, bound_ms=b_ms, bound_by=b_by)
+            if slot == 0:
+                gt_chunks, gt_out = chunks, out
+    gt = by_shape[str(RING_SHAPES[0])]
+    gather = events_ms(streams, lambda: rg.ring_all_gather(gt_chunks, gt_out, streams))
+    plain_gather = events_ms([cur], lambda: rg.ring_all_gather_plain(gt_chunks, gt_out))
     launches = n * n  # n seeds and n (n - 1) hops
-    b_ms, b_by = ring_bound(4 * int(np.prod(shape)), cross)
     log(f"ring {label} n={n}: gather and permute bitwise equal to plain on {RING_SHAPES}, "
-        f"{CHECKS} inputs each; one hop {hop:.5f} ms device (plain copy_ {plain:.5f} ms, "
-        f"Tensor.copy_ {lib:.5f} ms, bound {b_ms:.7f} ms by {b_by}); one gather "
-        f"{launches} launches, {gather:.5f} ms eager over {n} streams "
-        f"(plain {plain_gather:.5f} ms eager) [{card}]")
-    return dict(n=n, max_abs_err=err, ms=hop, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, gather_ms=gather, plain_gather_ms=plain_gather,
-                launches_per_gather=launches)
+        f"{CHECKS} inputs each; one hop, device ms by shape (slot): "
+        + "; ".join(f"{k} ({v['slot']}) {v['ms']:.5f} (eager issue {v['issue_ms']:.5f}, plain "
+                    f"copy_ {v['plain_ms']:.5f}, Tensor.copy_ {v['library_ms']:.5f}, bound "
+                    f"{v['bound_ms']:.3g} by {v['bound_by']})" for k, v in by_shape.items())
+        + f"; an empty kernel of one block {'not in this build' if empty is None else f'{empty:.5f} ms'}"
+        f"; one gather of {RING_SHAPES[0]} "
+        f"chunks {launches} launches, {gather:.5f} ms eager over {n} streams (plain "
+        f"{plain_gather:.5f} ms eager) [{card}]")
+    return dict(n=n, max_abs_err=err, ms=gt["ms"], plain_ms=gt["plain_ms"],
+                library_ms=gt["library_ms"], bound_ms=gt["bound_ms"], bound_by=gt["bound_by"],
+                issue_ms=gt["issue_ms"], empty_ms=empty, by_shape=by_shape, gather_ms=gather,
+                plain_gather_ms=plain_gather, launches_per_gather=launches)
+
+
+def check_hop_offsets(dev, rng: np.random.Generator, card: str, lib=None) -> None:
+    """The hop alone against copy_ at chunks of HOP_LENGTHS floats whose
+    pointers lie HOP_OFFSETS bytes past a 16-byte boundary (the float4 path
+    and the scalar one; an odd slot of the verdict-bits stack is 8-byte
+    aligned), nothing written outside the chunk; ``lib``: another build of
+    the kernels than the port's."""
+    from lodestar_tpu_torch.ops.kernels import _build
+
+    lib = lib or _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    width = max(HOP_LENGTHS) + 8
+    for so in HOP_OFFSETS:
+        for do in HOP_OFFSETS:
+            src = torch.from_numpy(rng.standard_normal(width).astype(np.float32)).to(dev)
+            for n in HOP_LENGTHS:
+                dst = torch.full((width,), -7.0, device=dev)
+                want = dst.clone()
+                a, b = (-src.data_ptr() % 16 + so) // 4, (-dst.data_ptr() % 16 + do) // 4
+                rc = lib.launch_ring_hop(src.data_ptr() + 4 * a, dst.data_ptr() + 4 * b, n, stream)
+                if rc != 0:
+                    raise RuntimeError(f"ring hop: launch failed: cudaError {rc}")
+                want[b:b + n].copy_(src[a:a + n])
+                if not torch.equal(dst, want):
+                    raise AssertionError(f"ring hop: {n} floats at offsets {so} -> {do} bytes "
+                                         "differ from copy_")
+    log(f"ring hop: bitwise equal to copy_ at chunks of 0-40, 600, 1,027 and 4,099 floats at "
+        f"source and destination offsets {HOP_OFFSETS} bytes past a 16-byte boundary [{card}]")
 
 
 def run_ring(dev, card: str) -> dict:
     rng = np.random.default_rng(SEED + 2)
     with Phase("8 ring"):
+        check_hop_offsets(dev, rng, card)
         results = {n: check_ring([dev] * n, rng, card, "logical") for n in RING_SHARDS}
         count = torch.cuda.device_count()
         if count >= 2:
@@ -1533,6 +1645,9 @@ def main(argv) -> int:
         "bound_ms": hop["bound_ms"],
         "bound_by": hop["bound_by"],
         "library_ms": hop["library_ms"],
+        "issue_ms": hop["issue_ms"],
+        "empty_ms": hop["empty_ms"],
+        "by_shape": hop["by_shape"],
         "chunk_bytes": 4 * int(np.prod(RING_SHAPES[0])),
         "gather_ms": {str(k): v["gather_ms"] for k, v in ring.items()},
         "launches_by_path": by_path("ring_hop"),

@@ -31,7 +31,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "lodestar_tpu_torch")
 SOURCES = ("field.cuh", "field_coop.cuh", "fused_kernels.cu", "tower.cuh", "tower_kernels.cu",
-           "ring_kernels.cu", "limbs.cuh", "library_kernels.cu")
+           "ring_hop.cuh", "ring_kernels.cu", "limbs.cuh", "library_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -111,7 +111,8 @@ def build(extra: Tuple[str, ...] = ()) -> str:
 def load(extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every
     launcher's argument types declared: the row kernels' (ins, outs, n,
-    constant table, stream), the ring hop's (src, dst, n, stream)."""
+    constant table, stream), the ring hop's (src, dst, n, stream), the
+    empty kernel's (stream)."""
     global build_seconds
     with _lock:
         lib = _libs.get(extra)
@@ -129,6 +130,8 @@ def load(extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
             lib.launch_ring_hop.restype = ctypes.c_int
             lib.ring_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.ring_enable_peer.restype = ctypes.c_int
+            lib.launch_empty.argtypes = [ctypes.c_void_p]
+            lib.launch_empty.restype = ctypes.c_int
             build_seconds = time.perf_counter() - t0
             _libs[extra] = lib
     return lib

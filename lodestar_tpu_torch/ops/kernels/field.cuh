@@ -4,19 +4,19 @@
 // float32 digits of the Python side, converted on load).  "Loose" digits
 // are <= 2^22 - 1; "semi-strict" digits are <= 256.  Every function here
 // reproduces, digit for digit, the integer values the JAX package's
-// fused_core computes (m_fold, m_mul, m_add, m_sub and the Barrett
-// canonicalisation of _canon_k): the same carry passes for the same
-// bound, the same fold widths and the same truncations.
+// fused_core computes (m_fold, m_mul, m_add, m_sub): the same carry
+// passes for the same bound, the same fold widths and the same
+// truncations.
 // All values stay below 2^24, so int32 holds them exactly, and every
 // floor(x / 256) of the JAX code acts on a non-negative integer and is
 // the shift x >> 8.
 //
-// The functions are __host__ __device__: the fold and canon kernels in
-// fused_kernels.cu call the row_* bodies at the bottom (the other eight
-// the cooperative bodies of field_coop.cuh, which mirror these steps:
-// fold, mul, and m_fq2_mul and m_fq2_sqr in stages), tower.cuh builds the
-// tower products on them, and host_shim.cpp builds the very same bodies
-// with g++ for the CPU parity test.
+// The functions are __host__ __device__: the fold kernel in
+// fused_kernels.cu calls the row body at the bottom (the other nine the
+// cooperative bodies of field_coop.cuh, which mirror these steps: fold,
+// mul, m_fq2_mul and m_fq2_sqr in stages, and canon's Barrett reduction),
+// tower.cuh builds the tower products on them, and host_shim.cpp builds
+// the very same bodies with g++ for the CPU parity test.
 
 #pragma once
 
@@ -27,9 +27,8 @@
 #define __noinline__ __attribute__((noinline))
 #endif
 
-// Small helpers are inlined; the heavy steps (fold, the digit product,
-// the canonicalisation) are real calls.  With them inlined as well, every
-// kernel sits at 255 registers and spills, and ptxas -O2/-O3 of CUDA 12.8
+// Small helpers are inlined; the heavy steps (fold, the digit product)
+// are real calls.  With them inlined as well, every kernel sits at 255 registers and spills, and ptxas -O2/-O3 of CUDA 12.8
 // miscompiled the one-thread fq2mul, fq2sqr and ladder kernels (right at
 // ptxas -O0/-O1; tests/kernel_build_variants.py).
 #define LF_HD static __host__ __device__ __forceinline__
@@ -177,71 +176,14 @@ LF_HD void store2(float* p, const fq2 x) {
   store(p + NL, x[1]);
 }
 
-// -- canonical reduction ----------------------------------------------------
-
-// _k_ripple: exact serial carry over W output digits of a WIN-digit input;
-// the final carry is dropped.
-template <int WIN, int W>
-LF_HD void ripple(const int* x, int* out) {
-  int carry = 0;
-  for (int i = 0; i < W; ++i) {
-    const int t = (i < WIN ? x[i] : 0) + carry;
-    out[i] = t & 255;
-    carry = t >> 8;
-  }
-}
-
-// _k_cond_sub: r - c if r >= c else r, for strict r and a constant c.
-LF_CALL void cond_sub(int* r, const int* c) {
-  int t[NL], s[NL + 1];
-  for (int k = 0; k < NL; ++k) t[k] = r[k] + (255 - c[k]) + (k == 0);
-  ripple<NL, NL + 1>(t, s);
-  if (s[NL] == 1)
-    for (int k = 0; k < NL; ++k) r[k] = s[k];
-}
-
-// _canon_k: loose digits -> the canonical residue < p, strict digits.
-// Fold, ripple to 51 digits, Barrett quotient from the top 4 digits with
-// mu = floor(2^424 / p), subtract q*p, then two conditional subtractions.
-LF_CALL void canon(const int* xin, int* out, const int* K) {
-  int f[NL], x[NL + 1];
-  fold<NL, 22>(xin, f, K);
-  ripple<NL, NL + 1>(f, x);
-  int z[11], zr[12];
-  for (int k = 0; k < 11; ++k) z[k] = 0;
-  for (int i = 0; i < 4; ++i)
-    for (int k = 0; k < 6; ++k) z[i + k] += x[47 + i] * K[K_MU + k];
-  ripple<11, 12>(z, zr);
-  int qp[NL + 1], qr[NL + 1];
-  for (int k = 0; k < NL + 1; ++k) qp[k] = 0;
-  for (int i = 0; i < 3; ++i)
-    for (int k = 0; k < 48; ++k) qp[i + k] += zr[6 + i] * K[K_P48 + k];
-  ripple<NL + 1, NL + 1>(qp, qr);
-  int d[NL + 1], r[NL + 1];
-  for (int k = 0; k < NL + 1; ++k) d[k] = x[k] + (255 - qr[k]) + (k == 0);
-  ripple<NL + 1, NL + 1>(d, r);
-  cond_sub(r, K + K_P2C);
-  cond_sub(r, K + K_PC);
-  for (int k = 0; k < NL; ++k) out[k] = r[k];
-}
-
-// -- the two one-thread row bodies ---------------------------------------------
-// in[i] / out[i] point at (N, 50) or (N, 2, 50) float32 arrays; each body
-// computes one row.
+// -- the one-thread row body ----------------------------------------------------
+// in[0] / out[0] point at (N, 50) float32 arrays; the body computes one row.
 
 // fused_core._fold_k
 LF_HD void row_fold(const float* const* in, float* const* out, int row, const int* K) {
   int x[NL];
   load_fold(in[0] + row * NL, x, K);
   store(out[0] + row * NL, x);
-}
-
-// fused_core._canon_k
-LF_HD void row_canon(const float* const* in, float* const* out, int row, const int* K) {
-  int x[NL], o[NL];
-  load(in[0] + row * NL, x);
-  canon(x, o, K);
-  store(out[0] + row * NL, o);
 }
 
 }  // namespace lf

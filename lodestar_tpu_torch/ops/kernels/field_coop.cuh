@@ -1,19 +1,20 @@
-// Cooperative BLS12-381 field arithmetic for eight of the fused kernels:
+// Cooperative BLS12-381 field arithmetic for nine of the fused kernels:
 // the G2 ladder's round kernels lad1, lad2 and lad3, fq2pow16mul, fq2mul,
-// pow16mul, mul and fq2sqr.  One warp per Fq step, the digits of a step across the warp's
-// 32 lanes, every value of a row in shared memory; a row has NW warps and
-// a block R rows.
+// pow16mul, mul, fq2sqr and canon.  One warp per Fq step, the digits of a
+// step across the warp's 32 lanes, every value of a row in shared memory;
+// a row has NW warps and a block R rows.
 //
 // Layout.  A block (Block below) holds the constant table, staged once for
 // its R rows, and R row layouts (Lad1, Lad2, Lad3, Fq2Pow16Mul, Fq2Mul,
-// Pow16Mul, Mul, Fq2Sqr): each row's inputs, outputs and intermediates as int32 digits,
-// with a scratch area of 462 ints per warp of the row.  No step keeps a
-// digit array in local memory.  The warp and row counts are template
-// parameters of the layouts, of Ctx and of run_stages: each kernel has its
-// own (the *Block aliases at the bottom), and the host build, which holds
-// every body in one translation unit, walks the same counts.  The last
-// block's missing rows (row >= n) load zeros, run every stage and reach
-// every sync, and are not stored.
+// Pow16Mul, Mul, Fq2Sqr, Canon): each row's inputs, outputs and
+// intermediates as int32 digits, with a scratch area of 462 ints per warp
+// of the row.  No step keeps a digit array in local memory.  The warp and
+// row counts are template parameters of the layouts, of Ctx and of
+// run_stages: each kernel has its own (the *Block aliases at the bottom),
+// and the host build, which holds every body in one translation unit,
+// walks the same counts.  The last block's missing rows (row >= n) load
+// zeros, run every stage and reach every sync, and are not stored (canon,
+// whose warps share no stage, runs nothing for them).
 //
 // One step on one warp (lane = threadIdx.x & 31):
 //   - the 50x50 digit product: lane k sums the anti-diagonal columns k and
@@ -23,7 +24,10 @@
 //   - each carry pass: digit i becomes lo(x_i) + hi(x_(i-1)), read from one
 //     buffer and written to another, so a lane reads its neighbour's old
 //     digit from shared memory;
-//   - the fold: lane j sums h_r * RED[r][j] over the folded rows r.
+//   - the fold: lane j sums h_r * RED[r][j] over the folded rows r;
+//   - the exact ripple (canon): carry passes down to digits <= 256, then
+//     the 0/1 carries from the digit pairs' (generate, propagate) flags,
+//     which every lane ORs into two masks and resolves with one addition.
 // The steps are separated by __syncwarp(); a row's stages (the sets of
 // independent steps, each on its own warp of the row: "the schedule"
 // beside each kernel body) by __syncthreads(), which every row of the
@@ -37,7 +41,9 @@
 // in any order are the same integers.  Each step here takes the same
 // input, carry-pass count, fold width and truncation as its field.cuh twin
 // (fold<W, BITS>, mul, add, sub, scale), and every stage runs the steps of
-// the serial body on values that the earlier stages have finished.
+// the serial body on values that the earlier stages have finished.  An
+// exact ripple's output is the value mod 256^W in strict digits, which are
+// unique, so any exact ripple equals the serial one of fused_core._canon_k.
 //
 // The same source runs on the CPU (host_shim.cpp, built with g++ for the
 // parity test): there LC_LANE_FOR walks every lane's index in turn, the
@@ -67,7 +73,8 @@
 // pow16mul at 256 rows, one wave), which the rows of a block share; read
 // from global memory the table made the ladder kernels and fq2pow16mul
 // 1-11 % slower, and mul and fq2sqr at one row of two warps a block no
-// faster than staged at two rows (PERF.md).
+// faster than staged at two rows (PERF.md).  canon reads 304 of its 2,955
+// words (StagedK below).
 
 #pragma once
 
@@ -101,6 +108,12 @@
 #endif
 #ifndef LF_FQ2SQR_ROWS
 #define LF_FQ2SQR_ROWS 2  // fq2sqr: rows a block
+#endif
+#ifndef LF_CANON_ROWS
+#define LF_CANON_ROWS 4  // canon: rows a block, one warp a row
+#endif
+#ifndef LF_CANON_K_STAGED
+#define LF_CANON_K_STAGED 0  // canon: 1 stages its table slices, 0 reads them from global memory
 #endif
 
 #define LC_HD static __host__ __device__ __forceinline__
@@ -139,6 +152,7 @@ constexpr int MUL_WARPS = LF_MUL_WARPS;
 constexpr int MUL_ROWS = LF_MUL_ROWS;
 constexpr int FQ2SQR_WARPS = LF_FQ2SQR_WARPS;
 constexpr int FQ2SQR_ROWS = LF_FQ2SQR_ROWS;
+constexpr int CANON_ROWS = LF_CANON_ROWS;
 constexpr int F2 = 2 * NL;   // one Fq2 value: component 0, then component 1
 #ifdef LF_COOP_K_GLOBAL
 constexpr int K_STAGED = 1;  // the table is read from global memory
@@ -162,6 +176,10 @@ struct Warps {
 // is one address, the warp's 32 reads 32 consecutive words)
 constexpr int X0 = 0, X1 = 104, Y0 = 208, Y1 = 260, SA = 312, SB = 362;
 constexpr int SCR = SB + 2 * NL;
+// the exact ripple's buffers in the same scratch (free once the fold that
+// precedes it has written its output): two for the carry passes, the
+// digits after them, the digit pairs' carry flags (16-byte aligned)
+constexpr int RA = X0, RB = X1, RV = Y0, RF = Y1;
 
 // -- one warp's steps ---------------------------------------------------------
 
@@ -388,11 +406,18 @@ LC_HD void fq2sqr_finish(Ctx<NW>& c, const int* a, const int* t, int* out) {
 
 // -- the block: loads, stores, and the run of its rows' stages ----------------
 
+// The words of the constant table a block of Row stages: all of it, or
+// one under LF_COOP_K_GLOBAL (canon's own count is beside its layout).
+template <template <int> class Row>
+struct StagedK {
+  static constexpr int WORDS = K_STAGED;
+};
+
 // The constant table and R row layouts Row<NW>, whose first members are
 // in (the inputs) and out (the outputs).
 template <template <int> class Row, int NW, int R>
 struct Block : Warps<NW, R> {
-  int K[K_STAGED];
+  int K[StagedK<Row>::WORDS];
   Row<NW> row[R];
 };
 
@@ -929,6 +954,245 @@ LC_HD void block_fq2sqr(const float* const* in, float* const* out, int n, int bl
   store_rows<F2>(s, 2, out, n, block);
 }
 
+// -- fused_core._canon_k -------------------------------------------------------
+
+// The inputs of an exact ripple: digit i of a buffer of WIN digits (zero
+// above), the difference x + (255 - q) + [i = 0] of two 51-digit buffers,
+// and cond_sub's t = r' + (255 - c) + [i = 0] over the 50 digits of
+// r' = (s[50] = 1 ? s : r) (r itself when s is null) and a constant c.
+template <int WIN>
+struct Digits {
+  const int* x;
+  LC_MHD int operator()(int i) const { return i < WIN ? x[i] : 0; }
+};
+struct Diff {
+  const int *x, *q;
+  LC_MHD int operator()(int i) const { return x[i] + (255 - q[i]) + (i == 0); }
+};
+struct CondSub {
+  const int *r, *s, *c;
+  LC_MHD int pick(int i) const { return s && s[NL] == 1 ? s[i] : r[i]; }
+  LC_MHD int operator()(int i) const { return i < NL ? pick(i) + (255 - c[i]) + (i == 0) : 0; }
+};
+struct Buf {
+  const int* x;
+  LC_MHD int operator()(int i) const { return x[i]; }
+};
+
+// One carry pass of W digits from a functor into dst; the top carry is
+// dropped.
+template <int W, class In>
+LC_HD void carry_from(In in, int* dst) {
+  LC_LANE_FOR(i, W) dst[i] = (in(i) & 255) + (i == 0 ? 0 : in(i - 1) >> 8);
+  LC_SYNC_WARP();
+}
+
+// Four words, for 16-byte loads of the carry flags.
+struct alignas(16) Quad {
+  unsigned a, b, c, d;
+};
+
+// The 0/1 carries of W digits, LAST = 1: after one more carry pass of in,
+// LAST = 0: of in itself; every digit then is at most 256.  Lane l takes
+// the digit pair 2l, 2l + 1: its digits v and its flags G (the carry out
+// of the pair with no carry in: a digit of 256 generates, 255
+// propagates) and P (both digits 255), written as G << l and P << l.
+// Every lane then ORs the NP words of each into the masks g and p, and
+// the carries into the pairs are the bits of ((g | p) + g) ^ (g | p) ^ g
+// (the binary carries of that sum: into bit l + 1 comes g_l, or p_l and
+// the carry into bit l).  dst gets the value mod 256^W in strict digits.
+template <int W, int LAST, class In>
+LC_HD void carry_bits(In in, int* dst, int* S) {
+  constexpr int NP = (W + 1) / 2;
+  constexpr int NQ = (NP + 3) / 4;  // quads of flag words
+  static_assert(2 * NP <= RF - RV && NP <= 31 && RF + 8 * NQ <= SCR && RF % 4 == 0,
+                "ripple outside the scratch");
+  int* v = S + RV;
+#if defined(__CUDA_ARCH__) && defined(LF_CANON_BALLOT)
+  // a variant for the card tests: digits l and l + 32 on lane l, the
+  // flags as warp ballots
+  (void)v;
+  const int l = (int)(threadIdx.x & 31u);
+  int d0 = 0, d1 = 0;
+  if (l < W) d0 = LAST ? (in(l) & 255) + (l == 0 ? 0 : in(l - 1) >> 8) : in(l);
+  if (l + 32 < W) d1 = LAST ? (in(l + 32) & 255) + (in(l + 31) >> 8) : in(l + 32);
+  const unsigned long long g = __ballot_sync(0xffffffffu, d0 >> 8) |
+                               (unsigned long long)__ballot_sync(0xffffffffu, d1 >> 8) << 32;
+  const unsigned long long gp = __ballot_sync(0xffffffffu, (d0 + 1) >> 8) |
+                                (unsigned long long)__ballot_sync(0xffffffffu, (d1 + 1) >> 8) << 32;
+  const unsigned long long c = (gp + g) ^ gp ^ g;
+  if (l < W) dst[l] = (d0 + (int)((c >> l) & 1)) & 255;
+  if (l + 32 < W) dst[l + 32] = (d1 + (int)((c >> (l + 32)) & 1)) & 255;
+  __syncwarp();
+#else
+  unsigned* fg = reinterpret_cast<unsigned*>(S + RF);
+  unsigned* fp = fg + 4 * NQ;
+  LC_LANE_FOR(l, 4 * NQ) {
+    const int a = 2 * l, b = a + 1;
+    int va = 0, vb = 0;
+    if (l < NP) {
+      if (LAST) {
+        const int xa = in(a);
+        va = (xa & 255) + (a == 0 ? 0 : in(a - 1) >> 8);
+        if (b < W) vb = (in(b) & 255) + (xa >> 8);
+      } else {
+        va = in(a);
+        if (b < W) vb = in(b);
+      }
+      v[a] = va;
+      v[b] = vb;
+    }
+    const unsigned ga = va >> 8, pa = ((va + 1) >> 8) ^ ga;
+    const unsigned gb = vb >> 8, pb = ((vb + 1) >> 8) ^ gb;
+    fg[l] = (gb | (pb & ga)) << l;
+    fp[l] = (pa & pb) << l;
+  }
+  LC_SYNC_WARP();
+  LC_LANE_FOR(l, NP) {
+    unsigned g = 0, p = 0;
+    for (int q = 0; q < NQ; ++q) {  // the masks, every lane
+      const Quad x = reinterpret_cast<const Quad*>(fg)[q];
+      const Quad y = reinterpret_cast<const Quad*>(fp)[q];
+      g |= x.a | x.b | x.c | x.d;
+      p |= y.a | y.b | y.c | y.d;
+    }
+    const unsigned gp = g | p;
+    const unsigned c = (gp + g) ^ gp ^ g;  // bit l: the carry into pair l
+    const int a = 2 * l, b = a + 1;
+    const int ta = v[a] + (int)((c >> l) & 1u);
+    dst[a] = ta & 255;
+    if (b < W) dst[b] = (v[b] + (ta >> 8)) & 255;
+  }
+  LC_SYNC_WARP();
+#endif
+}
+
+// lf's exact ripple of W digits in(0..W-1), each at most 2^BITS - 1 (or
+// 256: BITS = 8), into dst: carry_passes(BITS) value-preserving passes,
+// the first reading in, each writing another buffer, the last taken
+// inside carry_bits.
+template <int W, int BITS, class In>
+LC_HD void ripple(In in, int* dst, int* S) {
+  constexpr int PASSES = lf::carry_passes(BITS);
+  static_assert(W <= RB - RA, "ripple outside the scratch");
+  if constexpr (PASSES <= 1) {
+    carry_bits<W, PASSES>(in, dst, S);
+    return;
+  }
+  int* a = S + RA;
+  int* b = S + RB;
+  carry_from<W>(in, a);
+  for (int p = 2; p < PASSES; ++p) {
+    carry_from<W>(Buf{a}, b);
+    int* t = a;
+    a = b;
+    b = t;
+  }
+  carry_bits<W, 1>(Buf{a}, dst, S);
+}
+
+// in: x (loose, Fq); canon's output, the canonical residue, goes straight
+// to global memory
+template <int NW>
+struct Canon {
+  int in[1][NL];
+  int f[NL];         // x folded
+  int x[NL + 1];     // its 51 strict digits
+  int qc[NL + 1];    // q p's columns
+  int qr[NL + 1];    // their strict digits
+  int r[NL + 1];     // x - q p, strict
+  int s[2][NL + 1];  // r - 2p, then r' - p, strict (s[50] = 1: no borrow)
+  alignas(16) int scr[NW * SCR];
+};
+
+// The table's words canon reads: the three RED rows of fold<50, 22>
+// (K_RED..), then mu, p (48 digits), p and 2p (K_MU.., one run).
+constexpr int CANON_K_TAIL = lf::K_P2C + NL - lf::K_MU;
+constexpr int CANON_K_WORDS = 3 * NL + CANON_K_TAIL;
+#if LF_CANON_K_STAGED && !defined(LF_COOP_K_GLOBAL)
+constexpr bool CANON_STAGED = true;
+#else
+constexpr bool CANON_STAGED = false;
+#endif
+template <>
+struct StagedK<Canon> {
+  static constexpr int WORDS = CANON_STAGED ? CANON_K_WORDS : 1;
+};
+
+// One row on one warp, in the order of lf's serial canon (the entry fold;
+// the ripple to 51 digits; the Barrett quotient from the top 4 digits
+// with mu = floor(2^424 / p) and its ripple, whose three digits every lane
+// needs and computes; q p and its ripple; x - q p and its ripple; the
+// conditional subtractions of 2p and of p, each a ripple whose top digit,
+// the no-borrow flag, all lanes read back), its table K (the RED rows at
+// K_RED) and kt (mu at kt[0], K_MU's run).
+template <int NW>
+LC_HD void canon_row(const float* in, float* out, int row, const int* K, const int* kt,
+                     Canon<NW>& r) {
+  int* S = r.scr;
+  const int* mu = kt;
+  const int* p48 = kt + (lf::K_P48 - lf::K_MU);
+  const int* pc = kt + (lf::K_PC - lf::K_MU);
+  const int* p2c = kt + (lf::K_P2C - lf::K_MU);
+  LC_LANE_FOR(j, NL) r.in[0][j] = (int)in[row * NL + j];
+  LC_SYNC_WARP();
+  fold<22>(raw(r.in[0]), r.f, S, K);
+  ripple<NL + 1, 8>(Digits<NL>{r.f}, r.x, S);
+  // the quotient q = zr[6..8], zr the strict digits of the 11 columns of
+  // x[47..50] mu: a serial ripple of columns 0..8 that every lane runs in
+  // registers (on the CPU once), each column below 4 * 255^2 < 2^18
+  int carry = 0, q0 = 0, q1 = 0, q2 = 0;
+  for (int k = 0; k < 9; ++k) {
+    int z = carry;
+    for (int i = 0; i < 4; ++i)
+      if (k - i >= 0 && k - i < 6) z += r.x[47 + i] * mu[k - i];
+    if (k == 6) q0 = z & 255;
+    if (k == 7) q1 = z & 255;
+    if (k == 8) q2 = z & 255;
+    carry = z >> 8;
+  }
+  LC_LANE_FOR(k, NL + 1) {
+    int q = 0;
+    if (k < 48) q += q0 * p48[k];
+    if (k >= 1 && k - 1 < 48) q += q1 * p48[k - 1];
+    if (k >= 2 && k - 2 < 48) q += q2 * p48[k - 2];
+    r.qc[k] = q;
+  }
+  LC_SYNC_WARP();
+  ripple<NL + 1, 18>(Buf{r.qc}, r.qr, S);
+  ripple<NL + 1, 9>(Diff{r.x, r.qr}, r.r, S);
+  ripple<NL + 1, 9>(CondSub{r.r, nullptr, p2c}, r.s[0], S);
+  ripple<NL + 1, 9>(CondSub{r.r, r.s[0], pc}, r.s[1], S);
+  const CondSub last{r.r, r.s[0], pc};
+  LC_LANE_FOR(k, NL) out[row * NL + k] = (float)(r.s[1][NL] == 1 ? r.s[1][k] : last.pick(k));
+}
+
+template <int NW, int R>
+LC_HD void block_canon(const float* const* in, float* const* out, int n, int block,
+                       const int* K, Block<Canon, NW, R>& s) {
+  static_assert(NW == 1, "canon runs one warp a row");
+  const int* kt = K + lf::K_MU;
+  if constexpr (CANON_STAGED) {
+    LC_BLOCK_FOR(i, CANON_K_WORDS) s.K[i] = K[i < 3 * NL ? lf::K_RED + i : lf::K_MU + i - 3 * NL];
+    LC_SYNC_BLOCK();
+    K = s.K;
+    kt = s.K + 3 * NL;
+  }
+#ifdef __CUDA_ARCH__
+  const int w = (int)(threadIdx.x >> 5);
+  if (block * R + w < n) canon_row(in[0], out[0], block * R + w, K, kt, s.row[w]);
+#else
+  for (int i = 0; i < R; ++i) {
+#ifdef LC_HOST_REVERSED
+    const int w = R - 1 - i;
+#else
+    const int w = i;
+#endif
+    if (block * R + w < n) canon_row(in[0], out[0], block * R + w, K, kt, s.row[w]);
+  }
+#endif
+}
+
 // -- the kernels' blocks (warps a row, rows a block) ----------------------------
 
 using Lad1Block = Block<Lad1, LAD_WARPS, 1>;
@@ -939,5 +1203,10 @@ using Fq2MulBlock = Block<Fq2Mul, FQ2MUL_WARPS, FQ2MUL_ROWS>;
 using Pow16MulBlock = Block<Pow16Mul, 1, POW16_ROWS>;
 using MulBlock = Block<Mul, MUL_WARPS, MUL_ROWS>;
 using Fq2SqrBlock = Block<Fq2Sqr, FQ2SQR_WARPS, FQ2SQR_ROWS>;
+// canon's registers sized for 2,048 threads a SM (32 a thread), so that
+// the 5,120 one-warp rows of its largest launch fit one wave
+struct CanonBlock : Block<Canon, 1, CANON_ROWS> {
+  static constexpr int MIN_BLOCKS = 2048 / THREADS;
+};
 
 }  // namespace lfc

@@ -2,32 +2,33 @@
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of the JAX
 // package.
 //
-// Design of two of them (fold, canon; first, simple version): one thread
-// per row of the flat row axis, 32 threads a block (the main path has only
-// 512 to 2,560 rows, so small blocks spread them over more SMs), every
-// index checked against n; each runs the row body of the same name in
-// field.cuh.  A row's digits live in per-thread int32 arrays in local
-// memory, and the heavy steps are real calls rather than inlined copies.
-// There is no shared memory and no tensor-core use.
+// Design of fold (first, simple version): one thread per row of the flat
+// row axis, 32 threads a block (its path has 1,024 rows, so small blocks
+// spread them over more SMs), every index checked against n; it runs
+// field.cuh's row_fold.  A row's digits live in per-thread int32 arrays in
+// local memory, and the heavy steps are real calls rather than inlined
+// copies.  There is no shared memory and no tensor-core use.
 //
-// The other eight (redesigned: the G2 ladder's round kernels lad1, lad2
-// and lad3, fq2pow16mul, fq2mul, pow16mul, mul and fq2sqr) are
+// The other nine (redesigned: the G2 ladder's round kernels lad1, lad2
+// and lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and canon) are
 // cooperative: one warp per Fq step, the digits across the lanes, each
-// row's values and the block's constant table in shared memory
-// (field_coop.cuh).  The ladder kernels and fq2pow16mul run one row a
-// block on 8 or 4 warps; fq2mul, pow16mul, mul and fq2sqr, whose rows are
-// short chains (2 to 6 stages), several rows a block where that pays for
-// the table's staging (the *Block aliases of field_coop.cuh).  One thread
-// per row left 1 to 73 of the 132 SMs with one warp each at the paths'
-// shapes, walking a serial chain of 1 to 33 Fq products.
+// row's values (and the block's constant table, or the slices of it that
+// canon reads) in shared memory (field_coop.cuh).  The ladder kernels and
+// fq2pow16mul run one row a block on 8 or 4 warps; fq2mul, pow16mul, mul,
+// fq2sqr and canon, whose rows are short chains (1 to 6 stages), several
+// rows a block where that pays for the table's staging (the *Block
+// aliases of field_coop.cuh).  One thread per row left 1 to 160 of the
+// 132 SMs with one warp each at the paths' shapes, walking a serial chain
+// of 1 to 33 Fq products, or canon's 260 dependent carry steps.
 //
 // What bounds them on this card: integer multiply-add throughput.  An Fq
 // product is 2,500 digit multiply-adds for the schoolbook plus 2,600 for
 // the fold through the RED rows, against 400 bytes of input per operand
-// row, so every kernel but fold does hundreds of int32 operations per
-// byte it moves and sits on the operation side of the roofline.  In the
-// one-thread kernels each thread is bound by its own serial chain of
-// local-memory loads and stores instead.
+// row, so every kernel but fold and canon does hundreds of int32
+// operations per byte it moves and sits on the operation side of the
+// roofline.  fold and canon (one fold and ~170 more multiply-adds a row)
+// sit on the memory side; what holds canon above that bound is its chain
+// of six exact ripples, each a few dependent warp steps.
 //
 // Every launcher is extern "C" with a plain interface for ctypes: input
 // and output pointer arrays, the row count, the int32 constant table, the
@@ -84,18 +85,6 @@ __global__ void fold_k(Ptrs p, int n, const int* __restrict__ K) {
   if (row < n) lf::row_fold(p.in, p.out, row, K);
 }
 LF_LAUNCHER(fold, 1, 1)
-#endif
-
-#ifdef LF_KERNEL_canon
-// Replaces fused_core.py _canon_k (f_canon): fold, 51-digit ripple,
-// Barrett quotient (mu = floor(2^424/p)), two conditional subtractions.
-// The five ripples are serial carry chains a thread walks digit by digit:
-// latency-bound per thread, hidden only by running many rows at once.
-__global__ void canon_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_canon(p.in, p.out, row, K);
-}
-LF_LAUNCHER(canon, 1, 1)
 #endif
 
 // One block of LAYOUT::THREADS per LAYOUT::ROWS rows; the rows' values, the
@@ -175,6 +164,22 @@ LF_COOP_KERNEL(pow16mul, 2, 1, lfc::Pow16MulBlock)
 // lfc::Fq2Pow16MulStages), so its block has lfc::POW_WARPS warps, fewer
 // than the ladder's.  Operation-bound.
 LF_COOP_KERNEL(fq2pow16mul, 2, 1, lfc::Fq2Pow16MulBlock)
+#endif
+
+#ifdef LF_KERNEL_canon
+#include "field_coop.cuh"
+// Replaces fused_core.py _canon_k (f_canon): loose -> the canonical
+// residue.  One warp a row, lfc::CANON_ROWS rows a block: the entry fold,
+// the exact ripple of x to 51 digits, the Barrett quotient's three digits
+// (in every lane's registers), then the exact ripples of q p, x - q p and
+// the conditional subtractions of 2p and p, each its carry passes and one
+// step that resolves the 0/1 carries from the OR of the digit pairs'
+// flags (lfc::canon_row).  Its table slices are read from global memory
+// (LF_CANON_K_STAGED=1: staged a block), its registers sized for 2,048
+// threads a SM.  Bound by the bytes (400 in and out a row) at ~2,800
+// multiply-adds a row; what holds it above that is the integer
+// instructions of its ripples (~800 a row on the warp).
+LF_COOP_KERNEL(canon, 1, 1, lfc::CanonBlock)
 #endif
 
 #ifdef LF_KERNEL_lad1

@@ -1,11 +1,13 @@
 // Host build of the kernels' row bodies (field.cuh, field_coop.cuh, tower.cuh, limbs.cuh)
-// with a plain C interface, for the CPU parity test: the same arithmetic
-// the CUDA kernels run, looped over rows on the CPU.  The cooperative
-// bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul and
-// fq2sqr walk their blocks, and in each its rows' warps and lanes, in turn (backwards under
-// -DLC_HOST_REVERSED), over one host copy of their shared-memory layout at
-// the kernels' warp and row counts, filled with -1 before each block so
-// that a read of a value the block did not write shows.  Built with g++ by
+// and of the ring hop's plan and per-thread body (ring_hop.cuh) with a
+// plain C interface, for the CPU parity test: the same arithmetic the CUDA
+// kernels run, looped over rows (the hop: over its grid's threads) on the
+// CPU.  The cooperative bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul,
+// pow16mul, mul, fq2sqr and canon walk their blocks, and in each its rows'
+// warps and lanes, in turn (backwards under -DLC_HOST_REVERSED), over one
+// host copy of their shared-memory layout at the kernels' warp and row
+// counts, filled with -1 before each block so that a read of a value the
+// block did not write shows.  Built with g++ by
 // tests/test_torch_kernel_host.py; not part of the device path.
 
 #include <algorithm>
@@ -13,6 +15,7 @@
 
 #include "field_coop.cuh"
 #include "limbs.cuh"
+#include "ring_hop.cuh"
 #include "tower.cuh"
 
 #define LF_HOST(NAME)                                                        \
@@ -56,7 +59,7 @@ LF_HOST_COOP(fq2sqr, Fq2SqrBlock)
 LF_HOST_COOP(pow16mul, Pow16MulBlock)
 LF_HOST_COOP(fq2pow16mul, Fq2Pow16MulBlock)
 LF_HOST(fold)
-LF_HOST(canon)
+LF_HOST_COOP(canon, CanonBlock)
 LF_HOST_COOP(lad1, Lad1Block)
 LF_HOST_COOP(lad2, Lad2Block)
 LF_HOST_COOP(lad3, Lad3Block)
@@ -65,3 +68,33 @@ LF_HOST(tower_fq2_sqr)
 LF_HOST(tower_fq6_mul)
 LF_HOST(tower_fq12_mul)
 LF_HOST(library_fq2_mul)
+
+// The ring hop: launch_ring_hop's plan for these pointers, every thread of
+// its grid in turn (backwards under -DLC_HOST_REVERSED), the same index
+// width; returns the plan's float4 items.
+template <class I, int N>
+static void host_hop(const float* src, float* dst, const lr::Plan& p) {
+  const long long T = p.blocks * p.threads;
+  for (long long k = 0; k < T; ++k) {
+#ifdef LC_HOST_REVERSED
+    const long long t = T - 1 - k;
+#else
+    const long long t = k;
+#endif
+    lr::hop_thread<I, N>(src, dst, (I)p.nvec, (I)p.items, (I)t, (I)T);
+  }
+}
+
+extern "C" long long host_ring_hop(const void* src, void* dst, long long n) {
+  if (n <= 0) return 0;
+  const lr::Plan p = lr::plan(src, dst, n);
+  const float* s = static_cast<const float*>(src);
+  float* d = static_cast<float*>(dst);
+  if (p.one_block)
+    host_hop<int, 1>(s, d, p);
+  else if (p.narrow)
+    host_hop<int, lr::ITEMS>(s, d, p);
+  else
+    host_hop<long long, lr::ITEMS>(s, d, p);
+  return p.nvec;
+}

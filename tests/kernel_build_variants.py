@@ -12,8 +12,8 @@ build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
 shows which stage of the compiler the fault follows.  The cooperative
-kernels lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul and fq2sqr
-(field_coop.cuh) keep the product and the fold as calls too; the
+kernels lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and
+canon (field_coop.cuh) keep the product and the fold as calls too; the
 ``ptxas-O1`` variant holds them at another ptxas level, the ``*-warps``
 variants at other block sizes (``LF_COOP_WARPS``: the ladder kernels'
 warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
@@ -21,26 +21,34 @@ warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
 ``LF_FQ2SQR_WARPS``: mul's and fq2sqr's, set together with their rows a
 block in the ``mul-fq2sqr-*`` variants), the ``rows-*`` variants at other
 rows a block (``LF_FQ2MUL_ROWS``, ``LF_POW16_ROWS``, ``LF_MUL_ROWS`` and
-``LF_FQ2SQR_ROWS``, set together: the kernels are timed apart), and
+``LF_FQ2SQR_ROWS``, set together: the kernels are timed apart),
 ``k-global*`` with the constant table read from global memory instead of
-staged into each block's shared memory (``LF_COOP_K_GLOBAL``).
+staged into each block's shared memory (``LF_COOP_K_GLOBAL``), the
+``canon-*`` variants at other rows a block (``LF_CANON_ROWS``), with its
+table slices staged (``LF_CANON_K_STAGED=1``) and with its ripples'
+carries by warp ballots (``LF_CANON_BALLOT``), and ``ring-scalar``, the
+ring hop without its float4 path (``LF_RING_VEC=0``).
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 256, 512, 513 and 2,560 rows and three
 seeds, and the first differing row's digits (for the ring hop: the
-chunks, of the ring's two shapes, that differ from a copy); then each
-kernel's ptxas report (registers, stack, spills); the dynamic shared
-memory, rows and threads of a cooperative kernel's block; and each
-cooperative kernel's device time at the rows chip_smoke times it at (20
-launches in a CUDA graph, replayed between CUDA events).  A variant
-builds only the kernels it checks, one nvcc process each, all started
-together; ``--kernels`` names them (the ring hop's check runs when it is
+chunks, of the ring's two shapes, that differ from a copy, whether it
+equals copy_ at every length and pointer offset, and its device time at
+both shapes beside copy_); then each kernel's ptxas report (registers,
+stack, spills); the dynamic shared memory, rows and threads of a
+cooperative kernel's block; and each cooperative kernel's device time at
+the rows chip_smoke times it at (20 launches in a CUDA graph, replayed
+between CUDA events).  A variant builds only the kernels it checks, one
+nvcc process each, all started together, and the variants build side by
+side (as many at once as the host's cores over the kernels a variant
+builds); ``--kernels`` names them (the ring hop's check runs when it is
 named), and by default every kernel is built.  Needs a CUDA card and
 nvcc.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import json
 import os
@@ -93,6 +101,15 @@ VARIANTS = {
     "fq2mul-1-warp-rows-8": ("-DLF_FQ2MUL_WARPS=1", "-DLF_FQ2MUL_ROWS=8"),
     # mul's and fq2sqr's warps a row and rows a block, set together
     **{f"mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": _mul_fq2sqr(w, r) for w in (1, 2) for r in (1, 2, 4, 8)},
+    # canon's rows a block (one warp a row), its table slices read from
+    # global memory (the default) or staged a block, its ripples' carries
+    # by warp ballots instead of the host-checked OR of the pairs' flags
+    **{f"canon-rows-{r}": (f"-DLF_CANON_ROWS={r}",) for r in (1, 2, 4, 8, 16)},
+    **{f"canon-k-staged-rows-{r}": (f"-DLF_CANON_ROWS={r}", "-DLF_CANON_K_STAGED=1")
+       for r in (1, 2, 4, 8, 16)},
+    "canon-ballot": ("-DLF_CANON_BALLOT",),
+    # the ring hop with every float a scalar item
+    "ring-scalar": ("-DLF_RING_VEC=0",),
     "k-global": ("-DLF_COOP_K_GLOBAL",),
     "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", *_rows(1)),
     **{f"k-global-mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": ("-DLF_COOP_K_GLOBAL", *_mul_fq2sqr(w, r))
@@ -143,10 +160,15 @@ def check(lib, k, dev) -> dict:
 
 def check_ring(lib, dev) -> dict:
     """Chunks that the variant's ring hop copies wrong, over the ring's
-    shapes and three seeds (the plain version of a hop is a copy)."""
+    shapes and three seeds (the plain version of a hop is a copy), whether
+    it equals copy_ at every length and pointer offset of
+    chip_smoke.check_hop_offsets, and its device time at each ring shape
+    (the bits at an odd slot of their stack) beside copy_ of the same
+    slots."""
     differ, checked = 0, 0
     stream = torch.cuda.current_stream().cuda_stream
-    for shape in chip_smoke.RING_SHAPES:
+    ms = {}
+    for shape, slot in zip(chip_smoke.RING_SHAPES, (0, 1)):
         for seed in SEEDS:
             src = torch.from_numpy(
                 np.random.default_rng(seed).standard_normal(shape).astype(np.float32)).to(dev)
@@ -157,7 +179,19 @@ def check_ring(lib, dev) -> dict:
             torch.cuda.synchronize()
             differ += int(not torch.equal(src, dst))
             checked += 1
-    return {"chunks_checked": checked, "chunks_differ": differ}
+        stack = torch.zeros((2, 2) + shape, device=dev)
+        a, b = stack[0][slot], stack[1][slot]
+        ms[str(shape)] = {
+            "hop": chip_smoke.graph_ms(lambda: lib.launch_ring_hop(
+                a.data_ptr(), b.data_ptr(), a.numel(), torch.cuda.current_stream().cuda_stream)),
+            "copy_": chip_smoke.graph_ms(lambda: b.copy_(a))}
+    try:
+        chip_smoke.check_hop_offsets(dev, np.random.default_rng(0), "variant", lib)
+        offsets_ok = True
+    except AssertionError:
+        offsets_ok = False
+    return {"chunks_checked": checked, "chunks_differ": differ, "offsets_ok": offsets_ok,
+            "ms": ms}
 
 
 def build(extra, names):
@@ -210,27 +244,38 @@ def main(argv) -> int:
         return 2
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line(), flush=True)
-    for variant in argv or list(VARIANTS):
-        lib, reports = build(VARIANTS[variant], kernels)
-        for name in kernels:
-            result = check_ring(lib, dev) if name == "ring_hop" else check(lib, fc.KERNELS[name], dev)
-            print(json.dumps({"variant": variant, "kernel": name, **result}), flush=True)
-        for name, report in reports.items():
-            print(json.dumps({"variant": variant, f"ptxas_{name}": report}), flush=True)
-        for name in chip_smoke.COOP:
-            if name not in kernels:
-                continue
-            k = fc.KERNELS[name]
-            ms = {}
-            for rows in chip_smoke.SHAPES[name]:
-                ins = chip_smoke.kernel_inputs(k, rows, np.random.default_rng(rows), dev)
-                ms[rows] = chip_smoke.graph_ms(lambda: launch(lib, k, ins, sync=False))
-            print(json.dumps({"variant": variant,
-                              f"smem_bytes_{name}": getattr(lib, f"smem_bytes_{name}")(),
-                              f"rows_per_block_{name}": getattr(lib, f"rows_per_block_{name}")(),
-                              f"threads_per_block_{name}": getattr(lib, f"threads_per_block_{name}")(),
-                              f"ms_{name}": ms}), flush=True)
+    variants = argv or list(VARIANTS)
+    # the variants build side by side, each its kernels' nvcc processes at
+    # once, while the card checks the ones built
+    workers = max(1, (os.cpu_count() or 1) // len(kernels))
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        builds = {v: pool.submit(build, VARIANTS[v], kernels) for v in variants}
+        for variant in variants:
+            check_variant(variant, kernels, *builds[variant].result(), dev)
     return 0
+
+
+def check_variant(variant: str, kernels, lib, reports, dev) -> None:
+    """Print a built variant's lines: each kernel's check, ptxas's reports,
+    each cooperative kernel's layout and device times."""
+    for name in kernels:
+        result = check_ring(lib, dev) if name == "ring_hop" else check(lib, fc.KERNELS[name], dev)
+        print(json.dumps({"variant": variant, "kernel": name, **result}), flush=True)
+    for name, report in reports.items():
+        print(json.dumps({"variant": variant, f"ptxas_{name}": report}), flush=True)
+    for name in chip_smoke.COOP:
+        if name not in kernels:
+            continue
+        k = fc.KERNELS[name]
+        ms = {}
+        for rows in chip_smoke.SHAPES[name]:
+            ins = chip_smoke.kernel_inputs(k, rows, np.random.default_rng(rows), dev)
+            ms[rows] = chip_smoke.graph_ms(lambda: launch(lib, k, ins, sync=False))
+        print(json.dumps({"variant": variant,
+                          f"smem_bytes_{name}": getattr(lib, f"smem_bytes_{name}")(),
+                          f"rows_per_block_{name}": getattr(lib, f"rows_per_block_{name}")(),
+                          f"threads_per_block_{name}": getattr(lib, f"threads_per_block_{name}")(),
+                          f"ms_{name}": ms}), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,15 +3,18 @@
 Run on the H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Each kernel (the fused path's ten, the XLA-graph path's four tower
 kernels and the library kernel) is held bitwise against its plain version
-on the same CUDA inputs (the eight cooperative kernels of chip_smoke.COOP
+on the same CUDA inputs (the nine cooperative kernels of chip_smoke.COOP
 also at 1 to 2,560 rows and at the digit bounds, and their launches do not
-wait for the card), the library kernel also against the JAX vectors
+wait for the card; canon also at its path's 512, 1,280 and 5,120 rows and
+at the edges of its branches), the library kernel also against the JAX vectors
 of pallas_fuse(tower.fq2_mul) and the registry's every entry, and the
 bucket-4 slice of each path on the card against the CPU plain run.  The
 split dispatch (the host C final exponentiation) gives the JAX vectors'
 verdicts on the card for both programs and on 2 logical shards, its
 verdict does not wait for work enqueued after the batch, and one pool
-flush runs through it.  The ring hop kernel is held against its plain version as an
+flush runs through it.  The ring hop kernel is held against ``copy_`` alone
+at chunks of 0-40 floats (and three longer) at every pointer offset and at every slot of the
+ring's stacks (the verdict bits' odd slots 8-byte aligned), and against its plain version as an
 all-gather and as a one-hop permute at 2 and 4 logical shards on card 0
 and across cards when two or more are visible; the sharded tier's
 verdicts at bucket 4 over 2 logical shards.
@@ -78,6 +81,43 @@ def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, 
         assert k.launches == before + 1
         for g, w in zip(got, k.plain(*ins)):
             assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows", chip_smoke.SHAPES["canon"])
+def test_canon_equals_plain_version_at_its_path_shapes_and_branch_edges(rows, card):
+    """canon at the rows its path gives it (the ladder's stacked predicate
+    5,120, 1,280 and 512), seeded, at the digit bounds and, stacked in
+    front, at the edges of its branches: bitwise."""
+    k = fc.K_CANON
+    rng = np.random.default_rng(rows)
+    edges = torch.cat([chip_smoke.canon_edge_rows(c, i) for i, c in enumerate(chip_smoke.CANON_EDGES)])
+    for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):
+        (x,) = make(k, rows, rng, card)
+        x[:edges.shape[0]] = edges.to(card)
+        before = k.launches
+        (got,) = k(x)
+        assert k.launches == before + 1
+        assert got.is_cuda and torch.equal(got, k.plain(x)[0])
+
+
+def test_ring_hop_equals_copy_at_every_length_and_offset(card):
+    chip_smoke.check_hop_offsets(card, np.random.default_rng(3), "card test")
+
+
+@pytest.mark.parametrize("n", chip_smoke.RING_SHARDS)
+@pytest.mark.parametrize("shape", chip_smoke.RING_SHAPES)
+def test_ring_hop_fills_every_slot_of_the_rings_stacks(n, shape, card):
+    """Every slot of an (n, *shape) stack (the verdict bits' odd slots
+    8-byte aligned only) through one hop each, against copy_."""
+    rng = np.random.default_rng(n)
+    chunks = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card)
+              for _ in range(n)]
+    out = torch.full((n,) + shape, -7.0, device=card)
+    before = rg.RING_HOP.launches
+    for slot, chunk in enumerate(chunks):
+        rg.launch_hop(chunk, out[slot], torch.cuda.current_stream(card))
+    assert rg.RING_HOP.launches == before + n
+    assert torch.equal(out, torch.stack(chunks))
 
 
 def test_cooperative_launch_does_not_wait_for_the_card(card):

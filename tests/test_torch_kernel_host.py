@@ -2,16 +2,20 @@
 
 field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
 __host__ __device__ functions, field_coop.cuh the cooperative block bodies
-of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul and fq2sqr (one
-warp per step; one row a block, or several for fq2mul, pow16mul, mul and
-fq2sqr), whose blocks, rows, warps and lanes the host build walks in turn; ops/kernels/host_shim.cpp wraps them
-in a plain C interface.  Here g++ builds that shim (into build/, keyed by
-the sources' hash) and the fifteen bodies are held bitwise against the
-plain PyTorch versions; the cooperative ones also with their lanes and
-warps walked in the reverse order (-DLC_HOST_REVERSED) and on inputs at
-the digit bounds.  This checks the arithmetic the kernels run, not the
-kernels: the launches are checked on the card by chip_smoke.py and the
-cuda-marked tests.
+of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and canon
+(one warp per step; one row a block, or several for fq2mul, pow16mul, mul,
+fq2sqr and canon), whose blocks, rows, warps and lanes the host build walks
+in turn, and ring_hop.cuh the ring hop's plan and per-thread body;
+ops/kernels/host_shim.cpp wraps them in a plain C interface.  Here g++
+builds that shim (into build/, keyed by the sources' hash) and the fifteen
+row bodies are held bitwise against the plain PyTorch versions; the
+cooperative ones also with their lanes and warps walked in the reverse
+order (-DLC_HOST_REVERSED) and on inputs at the digit bounds, canon also
+at the edges of its branches (and two broken copies of its ripple must
+fail those checks); the hop, its grid's threads walked both ways, against
+copy_ at every tested length and pointer offset.  This checks the
+arithmetic the kernels run, not the kernels: the launches are checked on
+the card by chip_smoke.py and the cuda-marked tests.
 
 The same bodies, built with every step inlined (the layout that ptxas -O2
 and -O3 miscompile on the card, tests/kernel_build_variants.py) and
@@ -25,6 +29,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -48,25 +53,44 @@ def _gxx() -> str:
     return gxx
 
 
-def _host_build(flags) -> str:
+HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower.cuh", "limbs.cuh", "ring_hop.cuh",
+                "host_shim.cpp")
+
+
+def _host_build(flags, mutation=None) -> str:
     """host_shim.cpp built with g++ and flags into build/, keyed by the
-    sources and the flags."""
+    sources, the flags and ``mutation``: (file, text, replacement), applied
+    to a copy of the sources in a temporary directory, for a mutant build."""
     gxx = _gxx()
-    h = hashlib.sha256(" ".join(flags).encode())
-    for name in ("field.cuh", "field_coop.cuh", "tower.cuh", "limbs.cuh", "host_shim.cpp"):
+    h = hashlib.sha256(" ".join(flags).encode() + repr(mutation).encode())
+    for name in HOST_SOURCES:
         with open(os.path.join(KDIR, name), "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(REPO, "build", "lodestar_tpu_torch_host")
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"host_shim_{h.hexdigest()[:16]}.so")
+    key = h.hexdigest()[:16]
+    lib = os.path.join(out_dir, f"host_shim_{key}.so")
     if not os.path.exists(lib):
+        src_dir = KDIR
+        if mutation is not None:
+            src_dir = tempfile.mkdtemp(prefix="mutant_")
+            for name in HOST_SOURCES:
+                with open(os.path.join(KDIR, name), encoding="utf-8") as f:
+                    text = f.read()
+                if name == mutation[0]:
+                    assert text.count(mutation[1]) == 1, f"the mutation's text is not in {name} once"
+                    text = text.replace(mutation[1], mutation[2])
+                with open(os.path.join(src_dir, name), "w", encoding="utf-8") as f:
+                    f.write(text)
         tmp = f"{lib}.{os.getpid()}.tmp"
         subprocess.run(
             [gxx, "-std=c++17", *flags, "-shared", "-fPIC", "-o", tmp,
-             os.path.join(KDIR, "host_shim.cpp")],
+             os.path.join(src_dir, "host_shim.cpp")],
             check=True, capture_output=True, timeout=300,
         )
         os.replace(tmp, lib)
+        if src_dir != KDIR:
+            shutil.rmtree(src_dir)
     return lib
 
 
@@ -74,13 +98,12 @@ COOP = chip_smoke.COOP  # the cooperative bodies of field_coop.cuh
 PARTIAL_ROWS = 37  # rows that leave a partial last block for every rows-a-block count
 
 
-def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
-    """Kernel ``name``'s row body from the host library against its plain
-    version on ``rows`` seeded rows (``edge``: rows at the digit bounds);
-    each output has one guard row past the last, which must stay unwritten."""
+def run_host(lib, name: str, ins) -> list:
+    """Kernel ``name``'s row body from the host library on the CPU rows
+    ``ins``; each output has one guard row past the last, which must stay
+    unwritten.  Returns the outputs' rows."""
     k = fc.KERNELS[name]
-    rng = np.random.default_rng(seed)
-    ins = (chip_smoke.edge_inputs if edge else chip_smoke.kernel_inputs)(k, rows, rng, "cpu")
+    rows = ins[0].shape[0]
     outs = [torch.full((rows + 1,) + k.tail, -7.0) for _ in range(k.n_out)]
     ins_arr = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in ins))  # null-terminated
     outs_arr = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in outs))
@@ -88,10 +111,20 @@ def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     assert fn(ins_arr, outs_arr, rows, fc._CONST_TABLE.ctypes.data) == 0
-    for got, want in zip(outs, k.plain(*ins)):
-        assert torch.equal(got[:rows], want), name
-        assert float(got[:rows].max()) <= 256
+    for got in outs:
         assert bool((got[rows] == -7.0).all()), f"{name} wrote past its last row"
+    return [got[:rows] for got in outs]
+
+
+def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
+    """Kernel ``name``'s row body from the host library against its plain
+    version on ``rows`` seeded rows (``edge``: rows at the digit bounds)."""
+    k = fc.KERNELS[name]
+    rng = np.random.default_rng(seed)
+    ins = (chip_smoke.edge_inputs if edge else chip_smoke.kernel_inputs)(k, rows, rng, "cpu")
+    for got, want in zip(run_host(lib, name, ins), k.plain(*ins)):
+        assert torch.equal(got, want), name
+        assert float(got.max()) <= 256
 
 
 @pytest.fixture(scope="module")
@@ -156,7 +189,8 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     # the row layouts (inputs first), each a template over its warp count
     layout = r"^template <int NW>\nstruct (\w+) \{\n  int in\[.*?^\};"
     layouts = re.findall(layout, src, re.M | re.S)
-    assert layouts == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul", "Fq2Sqr"]
+    assert layouts == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul", "Fq2Sqr",
+                       "Canon"]
     rest = re.sub(layout, "", re.sub(block, "", src, flags=re.M | re.S), flags=re.M | re.S)
     code = re.sub(r"//[^\n]*", "", rest)
     assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
@@ -178,7 +212,7 @@ def test_heavy_steps_are_real_calls_in_the_kernels_build():
     the steps that make a kernel big stay out-of-line calls by default."""
     src = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
     assert re.search(r"#else\n#define LF_CALL static __host__ __device__ __noinline__\n", src)
-    for step in ("fold", "mul", "cond_sub", "canon"):
+    for step in ("fold", "mul"):
         assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
     tower = open(os.path.join(KDIR, "tower.cuh"), encoding="utf-8").read()
     for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul", "tw_fq12_mul"):
@@ -220,3 +254,121 @@ def test_host_build_is_clean_under_address_and_undefined_behaviour_sanitizers(la
     proc = subprocess.run([sys.executable, "-c", code, REPO, os.path.dirname(__file__), lib],
                           env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr[-4000:]
+
+
+# -- canon at the edges of its branches ----------------------------------------
+
+CANON_EDGES = chip_smoke.CANON_EDGES
+
+
+def _value(row) -> int:
+    return sum(int(d) << (8 * i) for i, d in enumerate(row))
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("case", CANON_EDGES)
+def test_canon_body_at_its_branch_edges_equals_plain_version_and_the_oracle(case, order, host_lib,
+                                                                            host_lib_reversed):
+    """canon's cooperative body, both walk orders, on inputs at the edges
+    of its branches: bitwise the plain version's digits, and those are the
+    oracle's canonical residue."""
+    from lodestar_tpu_torch.crypto.bls.fields import P
+    from lodestar_tpu_torch.ops import limbs as fl
+
+    lib = host_lib if order == "forward" else host_lib_reversed
+    x = chip_smoke.canon_edge_rows(case, CANON_EDGES.index(case))
+    (got,) = run_host(lib, "canon", [x])
+    (want,) = fc.K_CANON.plain(x)
+    assert torch.equal(got, want), case
+    oracle = np.stack([fl.int_to_limbs(_value(r) % P) for r in x.to(torch.int64).tolist()])
+    np.testing.assert_array_equal(want.numpy(), oracle.astype(np.float32))
+
+
+# a ripple that skips its carry passes, and one that drops the prefix (each
+# pair's carry in only from the generate of the pair below)
+RIPPLE_MUTANTS = {
+    "skips-the-carry-passes": ("field_coop.cuh",
+                               "PASSES = lf::carry_passes(BITS);\n  static_assert(W <= RB - RA",
+                               "PASSES = 0;\n  static_assert(W <= RB - RA"),
+    "drops-the-prefix": ("field_coop.cuh", "const unsigned c = (gp + g) ^ gp ^ g;",
+                         "const unsigned c = g << 1;"),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(RIPPLE_MUTANTS))
+def test_host_test_catches_a_broken_ripple(mutant):
+    """The checks above fail a canon whose exact ripple is broken: built
+    from a copy of the sources with the mutation, its body differs from the
+    plain version on the seeded, digit-bound or branch-edge rows."""
+    lib = ctypes.CDLL(_host_build(["-O2"], RIPPLE_MUTANTS[mutant]))
+    k = fc.K_CANON
+    rng = np.random.default_rng(5)
+    inputs = [chip_smoke.kernel_inputs(k, PARTIAL_ROWS, rng, "cpu")[0],
+              chip_smoke.edge_inputs(k, PARTIAL_ROWS, rng, "cpu")[0],
+              *(chip_smoke.canon_edge_rows(case, 0) for case in CANON_EDGES)]
+    differ = sum(int((run_host(lib, "canon", [x])[0] != k.plain(x)[0]).any(dim=1).sum())
+                 for x in inputs)
+    assert differ > 0, f"the mutant {mutant} passed the host checks"
+
+
+# -- the ring hop ------------------------------------------------------------------
+
+RING_LENGTHS = chip_smoke.HOP_LENGTHS
+RING_OFFSETS = chip_smoke.HOP_OFFSETS  # bytes past a 16-byte boundary
+
+
+def _aligned(buf: torch.Tensor, offset: int, n: int):
+    """n floats of buf starting ``offset`` bytes past a 16-byte boundary,
+    and their address (an empty view has none of its own)."""
+    start = (-buf.data_ptr() % 16 + offset) // 4
+    ptr = buf.data_ptr() + 4 * start
+    assert ptr % 16 == offset
+    return buf[start:start + n], ptr
+
+
+def _host_hop(lib, src: int, dst: int, n: int) -> int:
+    fn = lib.host_ring_hop
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    return fn(src, dst, n)
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("dst_offset", RING_OFFSETS)
+@pytest.mark.parametrize("src_offset", RING_OFFSETS)
+def test_host_built_ring_hop_equals_copy_at_every_length_and_offset(src_offset, dst_offset, order,
+                                                                    host_lib, host_lib_reversed):
+    """ring_hop_k's plan and per-thread body, its grid's threads walked
+    forwards and backwards, against ``copy_``: chunks of 0-40 floats, and
+    of 600, 1,027 and 4,099 (more than one block or one item a thread), at
+    pointers 0, 4, 8 and 12 bytes past a 16-byte boundary; float4 items
+    exactly when both pointers are 16-byte aligned, nothing written
+    outside the chunk."""
+    lib = host_lib if order == "forward" else host_lib_reversed
+    rng = np.random.default_rng(16 * src_offset + dst_offset)
+    for n in RING_LENGTHS:
+        src_buf = torch.from_numpy(rng.standard_normal(n + 8).astype(np.float32))
+        dst_buf, want_buf = torch.full((n + 8,), -7.0), torch.full((n + 8,), -7.0)
+        src, src_ptr = _aligned(src_buf, src_offset, n)
+        nvec = _host_hop(lib, src_ptr, _aligned(dst_buf, dst_offset, n)[1], n)
+        _aligned(want_buf, dst_offset, n)[0].copy_(src)
+        assert torch.equal(dst_buf, want_buf), (n, src_offset, dst_offset)
+        assert nvec == (n // 4 if src_offset == dst_offset == 0 else 0), (n, nvec)
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("shape", chip_smoke.RING_SHAPES)
+@pytest.mark.parametrize("n", chip_smoke.RING_SHARDS)
+def test_host_built_ring_hop_fills_every_slot_of_the_rings_stacks(n, shape, order, host_lib,
+                                                                  host_lib_reversed):
+    """Every slot of an (n, *shape) stack, as the gather fills it (the
+    verdict bits' odd slots 8-byte aligned only), equals ``copy_``."""
+    lib = host_lib if order == "forward" else host_lib_reversed
+    rng = np.random.default_rng(n)
+    chunks = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(n)]
+    out = torch.full((n,) + shape, -7.0)
+    for slot, chunk in enumerate(chunks):
+        nvec = _host_hop(lib, chunk.data_ptr(), out[slot].data_ptr(), chunk.numel())
+        aligned = chunk.data_ptr() % 16 == 0 and out[slot].data_ptr() % 16 == 0
+        assert nvec == (chunk.numel() // 4 if aligned else 0)
+    assert torch.equal(out, torch.stack(chunks))
