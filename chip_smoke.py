@@ -25,9 +25,10 @@ its wall time on a line of its own:
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
    exact integer arithmetic; the redesigned cooperative kernels (lad1,
-   lad2, lad3 and fq2pow16mul one block per row, fq2mul, pow16mul, mul,
-   fq2sqr and canon several rows a block) also at 1, 37 and 513 rows and
-   on inputs at the digit bounds.
+   lad2, lad3, fq2pow16mul and tower_fq12_mul one block per row, fq2mul,
+   pow16mul, mul, fq2sqr, canon and tower_fq2_mul several rows a block)
+   also at 1, 37 and 513 rows and on inputs at the digit bounds, each
+   logged with its block's layout and shared-memory bytes.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
    is outside the window (it is printed beside them as ``issue_ms``, 20
@@ -62,7 +63,9 @@ ported; phases 11-12 the split default.
    ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
    ``ops/batch_verify``) with every launch counter set to 0 just before
    the valid one: True, False, False, True, and each tower kernel
-   launched; the card's bucket-4 Miller product equals the CPU plain
+   launched; one more valid batch whose tower_fq2_mul and tower_fq12_mul
+   launches are logged as a histogram of their row counts; the card's
+   bucket-4 Miller product equals the CPU plain
    run's canonically (the XLA path's digits depend on the order of the
    glue, so the comparison is on the canonical residues);
 7. XLA times and profile: phases 4 and 5 for the XLA-graph program
@@ -108,7 +111,8 @@ ported; phases 11-12 the split default.
     under ``torch.profiler`` (as phase 5), the device's idle share over
     the best device Miller product; the XLA-graph split at bucket 16
     (valid, corrupted; its kernels but the Fq6 product, which only the
-    final exponentiation runs, launched); the sharded split at bucket 256 over 2 logical shards
+    final exponentiation runs, launched; the row counts of the valid
+    batch's tower_fq2_mul and tower_fq12_mul launches); the sharded split at bucket 256 over 2 logical shards
     (valid, corrupted, a signature outside G2 in shard 1, one fresh timed
     batch) and over 4 (150 live sets: shard 3 all padding); with two or
     more cards, the sharded split across cuda:0 and cuda:1;
@@ -269,9 +273,13 @@ SHAPES = {
     # the full-device final exponentiation's 9 (the nine Fq2 squares of a
     # cyclotomic square, 326 launches) and the htc's 256 and 512
     "fq2sqr": (9, 2 * BUCKET, 4 * BUCKET, 2560),
-    "tower_fq2_mul": (1, 12 * (BUCKET + 1)),
+    # the final exponentiation's 1, the most frequent (128 to 387 rows,
+    # 2,392 of a full-device batch's 2,800 launches) and fq12_sqr's 1,548
+    "tower_fq2_mul": (1, BUCKET, 2 * BUCKET, 3 * BUCKET, 12 * (BUCKET + 1)),
     "tower_fq2_sqr": (1, 2 * BUCKET),
     "tower_fq6_mul": (1,),
+    # the final exponentiation's 1 (175 of its 250 launches) and the Miller
+    # loop's 129
     "tower_fq12_mul": (1, BUCKET + 1),
     # the registry's B = 4, and the tower Fq2 product's largest shape
     "library_fq2_mul": (4, 12 * (BUCKET + 1)),
@@ -281,14 +289,18 @@ SHAPES = {
     # 5 values x 512 rows x 2 components, 128 of its 138 launches (last)
     "canon": (4 * BUCKET, 10 * BUCKET, 40 * BUCKET),
 }
-# the redesigned cooperative kernels (one warp per Fq step; one row a block,
-# or several for fq2mul, pow16mul, mul, fq2sqr and canon): also held at these row
-# counts (a single row; a partial last block for every rows-a-block count;
-# one past the ladder's 512) and on inputs at the digit bounds, untimed
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "canon")
+# the redesigned cooperative kernels (one warp per Fq step; one row a
+# block, or several for fq2mul, pow16mul, mul, fq2sqr, canon and
+# tower_fq2_mul): also held at these row counts (a single row; a partial
+# last block for every rows-a-block count; one past the ladder's 512) and
+# on inputs at the digit bounds, untimed
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "canon",
+        "tower_fq2_mul", "tower_fq12_mul")
 COOP_CHECK_ROWS = (1, 37, 513)
 # the kernels whose launches' row counts phases 3 and 11 log as a histogram
 ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr", "fold", "canon")
+# the same on the XLA-graph paths (phase 6 and the split XLA run of 11)
+TOWER_HISTOGRAM = ("tower_fq2_mul", "tower_fq12_mul")
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
@@ -861,6 +873,7 @@ def run_xla(dev, card: str, pool, keys, sets):
         verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 1), fused=False,
                                     host_final_exp=False)
         launches = check_verdicts(verifier, sets, "xla", TOWER)
+        launch_rows(verifier, sets, TOWER_HISTOGRAM, "xla")
 
         small = batch_verify.example_inputs(4)
         f_gpu, ok_gpu = batch_verify.miller_product_kernel(*batch_verify.from_packed(small, dev))
@@ -1328,6 +1341,7 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
 
         xla = TorchBlsVerifier(fused=False, rng=np.random.default_rng(SEED + 30))
         small = sets[:SPLIT_XLA_BUCKET]
+        launch_rows(xla, small, TOWER_HISTOGRAM, "split xla")
         fused_core.reset_launch_counts()
         t0 = time.perf_counter()
         got = xla.verify_signature_sets(small)

@@ -1,5 +1,7 @@
-// Per-row Fq2 / Fq6 / Fq12 products of the XLA-graph path's tower
-// kernels: the integer algorithm of lodestar_tpu/ops/pallas_tower.py.
+// Per-row Fq2 / Fq6 products of the XLA-graph path's one-thread tower
+// kernels, tower_fq2_sqr and tower_fq6_mul: the integer algorithm of
+// lodestar_tpu/ops/pallas_tower.py (tower_fq2_mul and tower_fq12_mul run
+// the same steps cooperatively, tower_coop.cuh).
 //
 // Every value here is semi-strict (digits <= 256) in and out.  The Pallas
 // helpers map onto field.cuh's steps one to one, with the same carry passes
@@ -77,31 +79,9 @@ LF_CALL void tw_fq6_mul(const fq2* A, const fq2* B, fq2* C, const int* K) {
   fq2_add(v, t[1], C[2], K);
 }
 
-// _fq12_mul_kernel: Karatsuba over Fq6 on the flat [c00 c01 c02 c10 c11
-// c12] layout: C0 = T0 + v T1, C1 = (a0 + a1)(b0 + b1) - (T0 + T1).
-LF_CALL void tw_fq12_mul(const fq2* A, const fq2* B, fq2* C, const int* K) {
-  fq2 t0[3], t1[3], t3[3], sa[3], sb[3], u;
-  tw_fq6_mul(A, B, t0, K);
-  tw_fq6_mul(A + 3, B + 3, t1, K);
-  for (int j = 0; j < 3; ++j) {
-    fq2_add(A[j], A[3 + j], sa[j], K);
-    fq2_add(B[j], B[3 + j], sb[j], K);
-  }
-  tw_fq6_mul(sa, sb, t3, K);
-  // v T1 = (xi T1[2], T1[0], T1[1])
-  tw_mul_by_xi(t1[2], u, K);
-  fq2_add(t0[0], u, C[0], K);
-  fq2_add(t0[1], t1[0], C[1], K);
-  fq2_add(t0[2], t1[1], C[2], K);
-  for (int j = 0; j < 3; ++j) {
-    fq2_add(t0[j], t1[j], u, K);
-    fq2_sub(t3[j], u, C[3 + j], K);
-  }
-}
-
-// -- the four row bodies ------------------------------------------------------
+// -- the two one-thread row bodies ---------------------------------------------
 // in[i] / out[0] point at (N, K, 2, 50) float32 arrays of semi-strict
-// digits, K = 1, 3 or 6 Fq2 components; each body computes one row.
+// digits, K = 1 or 3 Fq2 components; each body computes one row.
 
 template <int KC>
 LF_HD void load_fq2s(const float* p, fq2* x) {
@@ -111,15 +91,6 @@ LF_HD void load_fq2s(const float* p, fq2* x) {
 template <int KC>
 LF_HD void store_fq2s(float* p, const fq2* x) {
   for (int k = 0; k < KC; ++k) store2(p + k * 2 * NL, x[k]);
-}
-
-// pallas_tower._fq2_mul_kernel
-LF_HD void row_tower_fq2_mul(const float* const* in, float* const* out, int row, const int* K) {
-  fq2 a, b, o;
-  load2(in[0] + row * 2 * NL, a);
-  load2(in[1] + row * 2 * NL, b);
-  tw_fq2_mul(a, b, o, K);
-  store2(out[0] + row * 2 * NL, o);
 }
 
 // pallas_tower._fq2_sqr_kernel
@@ -137,15 +108,6 @@ LF_HD void row_tower_fq6_mul(const float* const* in, float* const* out, int row,
   load_fq2s<3>(in[1] + row * 6 * NL, b);
   tw_fq6_mul(a, b, c, K);
   store_fq2s<3>(out[0] + row * 6 * NL, c);
-}
-
-// pallas_tower._fq12_mul_kernel
-LF_HD void row_tower_fq12_mul(const float* const* in, float* const* out, int row, const int* K) {
-  fq2 a[6], b[6], c[6];
-  load_fq2s<6>(in[0] + row * 12 * NL, a);
-  load_fq2s<6>(in[1] + row * 12 * NL, b);
-  tw_fq12_mul(a, b, c, K);
-  store_fq2s<6>(out[0] + row * 12 * NL, c);
 }
 
 }  // namespace lf

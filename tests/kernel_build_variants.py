@@ -13,7 +13,8 @@ same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
 shows which stage of the compiler the fault follows.  The cooperative
 kernels lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and
-canon (field_coop.cuh) keep the product and the fold as calls too; the
+canon (field_coop.cuh), tower_fq2_mul and tower_fq12_mul
+(tower_coop.cuh) keep the product and the fold as calls too; the
 ``ptxas-O1`` variant holds them at another ptxas level, the ``*-warps``
 variants at other block sizes (``LF_COOP_WARPS``: the ladder kernels'
 warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
@@ -26,8 +27,14 @@ rows a block (``LF_FQ2MUL_ROWS``, ``LF_POW16_ROWS``, ``LF_MUL_ROWS`` and
 staged into each block's shared memory (``LF_COOP_K_GLOBAL``), the
 ``canon-*`` variants at other rows a block (``LF_CANON_ROWS``), with its
 table slices staged (``LF_CANON_K_STAGED=1``) and with its ripples'
-carries by warp ballots (``LF_CANON_BALLOT``), and ``ring-scalar``, the
-ring hop without its float4 path (``LF_RING_VEC=0``).
+carries by warp ballots (``LF_CANON_BALLOT``), the ``tower-fq12-*``
+variants at other warps a block of tower_fq12_mul
+(``LF_TOWER_FQ12_WARPS``, 16 by default) and with its registers sized
+for two blocks a SM (``LF_TOWER_FQ12_BLOCKS_PER_SM``, 1 by default), the
+``tower-fq2-*`` variants at other warps a row and rows a block of
+tower_fq2_mul (``LF_TOWER_FQ2_WARPS``, ``LF_TOWER_FQ2_ROWS``: 3 and 2), and
+``ring-scalar``, the ring hop without its float4 path
+(``LF_RING_VEC=0``).
 
 For each variant and kernel it prints one JSON line: the rows that differ
 from the plain version over 1, 37, 256, 512, 513 and 2,560 rows and three
@@ -110,6 +117,15 @@ VARIANTS = {
     "canon-ballot": ("-DLF_CANON_BALLOT",),
     # the ring hop with every float a scalar item
     "ring-scalar": ("-DLF_RING_VEC=0",),
+    # tower_fq12_mul's warps (one row a block, registers for one block a
+    # SM; 16 warps by default), its registers sized for two blocks a SM,
+    # and tower_fq2_mul's warps a row and rows a block
+    **{f"tower-fq12-{w}-warps": (f"-DLF_TOWER_FQ12_WARPS={w}",) for w in (8, 12, 24)},
+    **{f"tower-fq12-{w}-warps-2-blocks": (f"-DLF_TOWER_FQ12_WARPS={w}",
+                                          "-DLF_TOWER_FQ12_BLOCKS_PER_SM=2") for w in (12, 16)},
+    **{f"tower-fq2-{w}-warp{'s' * (w > 1)}-rows-{r}": (f"-DLF_TOWER_FQ2_WARPS={w}",
+                                                       f"-DLF_TOWER_FQ2_ROWS={r}")
+       for w in (1, 2, 3) for r in (1, 2, 4, 8) if (w, r) != (3, 2)},
     "k-global": ("-DLF_COOP_K_GLOBAL",),
     "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", *_rows(1)),
     **{f"k-global-mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": ("-DLF_COOP_K_GLOBAL", *_mul_fq2sqr(w, r))

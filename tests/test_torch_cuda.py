@@ -3,7 +3,7 @@
 Run on the H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Each kernel (the fused path's ten, the XLA-graph path's four tower
 kernels and the library kernel) is held bitwise against its plain version
-on the same CUDA inputs (the nine cooperative kernels of chip_smoke.COOP
+on the same CUDA inputs (the eleven cooperative kernels of chip_smoke.COOP
 also at 1 to 2,560 rows and at the digit bounds, and their launches do not
 wait for the card; canon also at its path's 512, 1,280 and 5,120 rows and
 at the edges of its branches), the library kernel also against the JAX vectors
@@ -68,10 +68,11 @@ def test_kernel_equals_plain_version_on_the_card(name, rows, card):
 @pytest.mark.parametrize("rows", [1, 37, 256, 257, 512, 513, 1548, 2560])
 @pytest.mark.parametrize("name", chip_smoke.COOP)
 def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, seed, card):
-    """The cooperative kernels (lad1, lad2, lad3 and fq2pow16mul one row a
-    block, fq2mul, pow16mul, mul and fq2sqr as many as their builds set,
-    with a partial last block at the odd counts): seeded rows and rows at the digit bounds (2^22 - 1 loose,
-    256 semi-strict), bitwise."""
+    """The cooperative kernels (lad1, lad2, lad3, fq2pow16mul and
+    tower_fq12_mul one row a block, fq2mul, pow16mul, mul, fq2sqr, canon
+    and tower_fq2_mul as many as their builds set, with a partial last
+    block at the odd counts): seeded rows and rows at the digit bounds
+    (2^22 - 1 loose, 256 semi-strict), bitwise."""
     k = fc.KERNELS[name]
     rng = np.random.default_rng(100 * rows + seed)
     for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):

@@ -2,18 +2,20 @@
 
 field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
 __host__ __device__ functions, field_coop.cuh the cooperative block bodies
-of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and canon
-(one warp per step; one row a block, or several for fq2mul, pow16mul, mul,
-fq2sqr and canon), whose blocks, rows, warps and lanes the host build walks
-in turn, and ring_hop.cuh the ring hop's plan and per-thread body;
+of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and canon,
+tower_coop.cuh those of tower_fq2_mul and tower_fq12_mul (one warp per
+step; one row a block, or several for fq2mul, pow16mul, mul, fq2sqr, canon
+and tower_fq2_mul), whose blocks, rows, warps and lanes the host build
+walks in turn, and ring_hop.cuh the ring hop's plan and per-thread body;
 ops/kernels/host_shim.cpp wraps them in a plain C interface.  Here g++
 builds that shim (into build/, keyed by the sources' hash) and the fifteen
 row bodies are held bitwise against the plain PyTorch versions; the
 cooperative ones also with their lanes and warps walked in the reverse
 order (-DLC_HOST_REVERSED) and on inputs at the digit bounds, canon also
 at the edges of its branches (and two broken copies of its ripple must
-fail those checks); the hop, its grid's threads walked both ways, against
-copy_ at every tested length and pointer offset.  This checks the
+fail those checks, as must the tower Karatsuba built with the fused
+path's finish or product); the hop, its grid's threads walked both ways,
+against copy_ at every tested length and pointer offset.  This checks the
 arithmetic the kernels run, not the kernels: the launches are checked on
 the card by chip_smoke.py and the cuda-marked tests.
 
@@ -53,8 +55,8 @@ def _gxx() -> str:
     return gxx
 
 
-HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower.cuh", "limbs.cuh", "ring_hop.cuh",
-                "host_shim.cpp")
+HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower.cuh", "tower_coop.cuh", "limbs.cuh",
+                "ring_hop.cuh", "host_shim.cpp")
 
 
 def _host_build(flags, mutation=None) -> str:
@@ -176,9 +178,10 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     """field_coop.cuh keeps its two heavy steps, the digit product and the
     fold, out of line (inlined into every stage they made a body of 128
     registers with spills), inlines the rest, and holds every digit in
-    shared memory: its only arrays are the rows' layouts, each a template
-    over its warp count.  The cooperative kernels run its block bodies and
-    no one-thread body of theirs is left in field.cuh."""
+    shared memory: its only arrays, and tower_coop.cuh's, are the rows'
+    layouts, each a template over its warp count.  The cooperative kernels
+    of fused_kernels.cu and tower_kernels.cu run their block bodies and no
+    one-thread body of theirs is left in field.cuh or tower.cuh."""
     src = open(os.path.join(KDIR, "field_coop.cuh"), encoding="utf-8").read()
     assert re.search(r"^#define LC_STEP static __host__ __device__ __noinline__$", src, re.M)
     for step in ("fold", "mul"):
@@ -188,22 +191,31 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     assert len(re.findall(block, src, re.M | re.S)) == 1
     # the row layouts (inputs first), each a template over its warp count
     layout = r"^template <int NW>\nstruct (\w+) \{\n  int in\[.*?^\};"
-    layouts = re.findall(layout, src, re.M | re.S)
-    assert layouts == ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul", "Fq2Sqr",
-                       "Canon"]
-    rest = re.sub(layout, "", re.sub(block, "", src, flags=re.M | re.S), flags=re.M | re.S)
-    code = re.sub(r"//[^\n]*", "", rest)
-    assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
+    tower = open(os.path.join(KDIR, "tower_coop.cuh"), encoding="utf-8").read()
+    assert '#include "field_coop.cuh"' in tower and "LC_STEP" not in tower
+    for text, want in ((src, ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul",
+                              "Fq2Sqr", "Canon"]),
+                       (tower, ["TowerFq2Mul", "TowerFq12Mul"])):
+        assert re.findall(layout, text, re.M | re.S) == want
+        rest = re.sub(layout, "", re.sub(block, "", text, flags=re.M | re.S), flags=re.M | re.S)
+        code = re.sub(r"//[^\n]*", "", rest)
+        assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
     from lodestar_tpu_torch.ops.kernels import _build
 
-    assert "field_coop.cuh" in _build.SOURCES  # an edit rebuilds the kernels
-    kernels = open(os.path.join(KDIR, "fused_kernels.cu"), encoding="utf-8").read()
-    assert "lfc::block_##NAME(" in kernels and "extern __shared__" in kernels
-    row_bodies = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
+    for name in ("field_coop.cuh", "tower_coop.cuh", "launchers.cuh"):
+        assert name in _build.SOURCES, name  # an edit rebuilds the kernels
+    launchers = open(os.path.join(KDIR, "launchers.cuh"), encoding="utf-8").read()
+    assert "lfc::block_##NAME(" in launchers and "extern __shared__" in launchers
+    row_bodies = "".join(open(os.path.join(KDIR, f), encoding="utf-8").read()
+                         for f in ("field.cuh", "tower.cuh"))
+    header = {"fused_kernels.cu": "field_coop.cuh", "tower_kernels.cu": "tower_coop.cuh"}
     for name in COOP:
+        kernels = open(os.path.join(KDIR, _build.LAUNCHERS[name]), encoding="utf-8").read()
+        assert '#include "launchers.cuh"' in kernels
         body = kernels[kernels.index(f"#ifdef LF_KERNEL_{name}"):]
         body = body[:body.index("#endif")]
-        assert '#include "field_coop.cuh"' in body and f"LF_COOP_KERNEL({name}, " in body
+        assert f'#include "{header[_build.LAUNCHERS[name]]}"' in body
+        assert f"LF_COOP_KERNEL({name}, " in body
         assert f"lf::row_{name}" not in body and f"row_{name}(" not in row_bodies
 
 
@@ -215,7 +227,7 @@ def test_heavy_steps_are_real_calls_in_the_kernels_build():
     for step in ("fold", "mul"):
         assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
     tower = open(os.path.join(KDIR, "tower.cuh"), encoding="utf-8").read()
-    for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul", "tw_fq12_mul"):
+    for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul"):
         assert re.search(rf"^LF_CALL void {step}\(", tower, re.M), step
 
 
@@ -309,6 +321,41 @@ def test_host_test_catches_a_broken_ripple(mutant):
     differ = sum(int((run_host(lib, "canon", [x])[0] != k.plain(x)[0]).any(dim=1).sum())
                  for x in inputs)
     assert differ > 0, f"the mutant {mutant} passed the host checks"
+
+
+# the tower Karatsuba with the fused path's digit algorithm in place of
+# pallas_tower's: out1 = t2 - (t0 + t1) folded once (fq2mul_finish's
+# sub_sum), and t2 the product of the unfolded sums (fq2mul_products)
+TOWER_MUTANTS = {
+    "sub-sum-finish": ("tower_coop.cuh", "t_fold<13>(c, sub(t + 2 * NL, s + 2 * NL), out + NL);",
+                       "t_fold<13>(c, sub_sum(t + 2 * NL, t, t + NL), out + NL);"),
+    "unfolded-sums": ("tower_coop.cuh", "t_mul(c, s, nullptr, s + NL, nullptr, t + 2 * NL);",
+                      "t_mul(c, a, a + NL, b, b + NL, t + 2 * NL);"),
+}
+# The sub_sum finish gives out1 the same value mod p; its digits differ
+# only where the value lands across a multiple of 2^392 - RED[0], rare in
+# the Fq2 product, and in the Fq12 product the folds after each Karatsuba
+# absorb even that: so it is held on 8,192 rows, on the Fq2 product.
+TOWER_MUTANT_CASES = [("sub-sum-finish", "tower_fq2_mul", 8192),
+                      ("unfolded-sums", "tower_fq2_mul", PARTIAL_ROWS),
+                      ("unfolded-sums", "tower_fq12_mul", PARTIAL_ROWS)]
+
+
+@pytest.mark.parametrize("mutant, name, rows", TOWER_MUTANT_CASES)
+def test_host_test_catches_the_fused_paths_karatsuba_in_the_tower_kernels(mutant, name, rows):
+    """The tower kernels' digits are pallas_tower's: a Karatsuba built
+    from a copy of the sources with the fused path's finish or product
+    (the same value mod p in other digits) differs from the plain version
+    on seeded and digit-bound rows."""
+    lib = ctypes.CDLL(_host_build(["-O2"], TOWER_MUTANTS[mutant]))
+    k = fc.KERNELS[name]
+    rng = np.random.default_rng(9)
+    differ = 0
+    for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):
+        ins = make(k, rows, rng, "cpu")
+        differ += sum(int((g != w).reshape(rows, -1).any(1).sum())
+                      for g, w in zip(run_host(lib, name, ins), k.plain(*ins)))
+    assert differ > 0, f"the mutant {mutant} of {name} passed the host checks"
 
 
 # -- the ring hop ------------------------------------------------------------------
