@@ -25,8 +25,9 @@ its wall time on a line of its own:
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
    exact integer arithmetic; the redesigned cooperative kernels (lad1,
-   lad2, lad3, fq2pow16mul and tower_fq12_mul one block per row, fq2mul,
-   pow16mul, mul, fq2sqr, canon and tower_fq2_mul several rows a block)
+   lad2, lad3, fq2pow16mul, tower_fq6_mul and tower_fq12_mul one block
+   per row, fq2mul, pow16mul, mul, fq2sqr, canon, tower_fq2_mul and
+   tower_fq2_sqr several rows a block; all but fold and library_fq2_mul)
    also at 1, 37 and 513 rows and on inputs at the digit bounds, each
    logged with its block's layout and shared-memory bytes.
    Times are device times: 20 calls captured in one CUDA graph, the
@@ -63,11 +64,11 @@ ported; phases 11-12 the split default.
    ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
    ``ops/batch_verify``) with every launch counter set to 0 just before
    the valid one: True, False, False, True, and each tower kernel
-   launched; one more valid batch whose tower_fq2_mul and tower_fq12_mul
-   launches are logged as a histogram of their row counts; the card's
-   bucket-4 Miller product equals the CPU plain
-   run's canonically (the XLA path's digits depend on the order of the
-   glue, so the comparison is on the canonical residues);
+   launched; one more valid batch whose tower_fq2_mul, tower_fq2_sqr and
+   tower_fq12_mul launches are logged as a histogram of their row counts;
+   the card's bucket-4 Miller product equals the CPU plain run's
+   canonically (the XLA path's digits depend on the order of the glue, so
+   the comparison is on the canonical residues);
 7. XLA times and profile: phases 4 and 5 for the XLA-graph program
    (profiled with device activity only: the program makes about a million
    launches);
@@ -112,7 +113,8 @@ ported; phases 11-12 the split default.
     the best device Miller product; the XLA-graph split at bucket 16
     (valid, corrupted; its kernels but the Fq6 product, which only the
     final exponentiation runs, launched; the row counts of the valid
-    batch's tower_fq2_mul and tower_fq12_mul launches); the sharded split at bucket 256 over 2 logical shards
+    batch's tower_fq2_mul, tower_fq2_sqr and tower_fq12_mul launches);
+    the sharded split at bucket 256 over 2 logical shards
     (valid, corrupted, a signature outside G2 in shard 1, one fresh timed
     batch) and over 4 (150 live sets: shard 3 all padding); with two or
     more cards, the sharded split across cuda:0 and cuda:1;
@@ -126,7 +128,7 @@ ported; phases 11-12 the split default.
     jobs, one holding a corrupted set, after which exactly that job is
     False; then a job past its deadline is dropped with
     ``VerificationDroppedError``; then a pool over
-    ``TorchBlsVerifier(devices=[cuda:0] * 2)`` (``sharded_active``: the
+    ``TorchBlsVerifier(devices=[cuda:0] * 2, sharded=True)`` (``sharded_active``: the
     merge cap grows to 2 x 128) given phase 9's 256 sets as gossip jobs,
     whose merged batch rides the sharded tier, every verdict True, and two
     128-set jobs, one holding a corrupted set, which give True, False.
@@ -290,17 +292,17 @@ SHAPES = {
     "canon": (4 * BUCKET, 10 * BUCKET, 40 * BUCKET),
 }
 # the redesigned cooperative kernels (one warp per Fq step; one row a
-# block, or several for fq2mul, pow16mul, mul, fq2sqr, canon and
-# tower_fq2_mul): also held at these row counts (a single row; a partial
-# last block for every rows-a-block count; one past the ladder's 512) and
-# on inputs at the digit bounds, untimed
+# block, or several for fq2mul, pow16mul, mul, fq2sqr, canon, tower_fq2_mul
+# and tower_fq2_sqr): also held at these row counts (a single row; a
+# partial last block for every rows-a-block count; one past the ladder's
+# 512) and on inputs at the digit bounds, untimed
 COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "canon",
-        "tower_fq2_mul", "tower_fq12_mul")
+        "tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
 COOP_CHECK_ROWS = (1, 37, 513)
 # the kernels whose launches' row counts phases 3 and 11 log as a histogram
 ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr", "fold", "canon")
 # the same on the XLA-graph paths (phase 6 and the split XLA run of 11)
-TOWER_HISTOGRAM = ("tower_fq2_mul", "tower_fq12_mul")
+TOWER_HISTOGRAM = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq12_mul")
 FUSED = ("mul", "fq2mul", "fq2sqr", "pow16mul", "fq2pow16mul", "fold", "canon",
          "lad1", "lad2", "lad3")
 TOWER = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
@@ -1107,17 +1109,17 @@ def run_sharded(dev, card: str, sets):
         bad = list(sets)
         bad[130] = dataclasses.replace(bad[130], signature=non_subgroup_signature())
         expect(verifier, bad, False, "a signature outside G2 in shard 1")
-        four = TorchBlsVerifier(devices=[dev] * 4, sharded_min_batch=SHARDED_BUCKET,
+        four = TorchBlsVerifier(devices=[dev] * 4, sharded=True, sharded_min_batch=SHARDED_BUCKET,
                                 rng=np.random.default_rng(SEED + 4), host_final_exp=False)
         expect(four, sets[:150], True,
                "150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
         if four.sharded_batches != 1:
             raise AssertionError("sharded: the 4-shard batch did not ride the mesh")
-        ring = TorchBlsVerifier(devices=logical, sharded_min_batch=SHARDED_BUCKET,
+        ring = TorchBlsVerifier(devices=logical, sharded=True, sharded_min_batch=SHARDED_BUCKET,
                                 sharded_combine="ring", rng=np.random.default_rng(SEED + 5),
                                 host_final_exp=False)
         expect(ring, sets, True, "ring combine, valid batch")
-        xla = TorchBlsVerifier(devices=logical, fused=False, sharded_min_batch=16,
+        xla = TorchBlsVerifier(devices=logical, fused=False, sharded=True, sharded_min_batch=16,
                                rng=np.random.default_rng(SEED + 6), host_final_exp=False)
         fused_core.reset_launch_counts()
         expect(xla, sets[:16], True, "XLA-graph flavour, bucket 16, valid")
@@ -1159,7 +1161,7 @@ def run_sharded(dev, card: str, sets):
         count = torch.cuda.device_count()
         if count >= 2:
             cards = [torch.device("cuda", i) for i in range(2)]
-            two = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 7),
+            two = TorchBlsVerifier(devices=cards, sharded=True, rng=np.random.default_rng(SEED + 7),
                                    host_final_exp=False)
             expect(two, sets, True, "valid batch on cuda:0 and cuda:1")
             bad = list(sets)
@@ -1240,8 +1242,8 @@ def run_sharded_times(dev, card: str, verifier, pool, keys, sets) -> dict:
                 log(f"sharded times: {k} cards did not run, {count} visible")
                 continue
             cards = [torch.device("cuda", i) for i in range(k)]
-            v = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 9 + k),
-                                 host_final_exp=False)
+            v = TorchBlsVerifier(devices=cards, sharded=True,
+                                 rng=np.random.default_rng(SEED + 9 + k), host_final_exp=False)
             v.pack(sets)  # the public keys cached, as on a node
             r_k, d_k = time_batches(v, fresh[:3], f"sharded {k} cards", card,
                                     after=lambda: f"shard enqueue walls {v.shard_enqueue_walls} s")
@@ -1359,7 +1361,7 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
         if got is not False:
             raise AssertionError("split xla: a corrupted batch verified")
 
-        mesh = TorchBlsVerifier(devices=[dev, dev], sharded_min_batch=SHARDED_BUCKET,
+        mesh = TorchBlsVerifier(devices=[dev, dev], sharded=True, sharded_min_batch=SHARDED_BUCKET,
                                 rng=np.random.default_rng(SEED + 31))
         fused_core.reset_launch_counts()
         expect(mesh, sets256, True, "split, 2 logical shards, valid batch of 256")
@@ -1379,7 +1381,7 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
         if mesh.host_final_exps != finished:
             raise AssertionError("split sharded: the host final exponentiation ran although "
                                  "the combined ok bits were False")
-        four = TorchBlsVerifier(devices=[dev] * 4, sharded_min_batch=SHARDED_BUCKET,
+        four = TorchBlsVerifier(devices=[dev] * 4, sharded=True, sharded_min_batch=SHARDED_BUCKET,
                                 rng=np.random.default_rng(SEED + 33))
         expect(four, sets256[:150], True,
                "split, 150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
@@ -1392,7 +1394,8 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
             f"shards, enqueue walls {mesh.shard_enqueue_walls} s [{card}]")
         if torch.cuda.device_count() >= 2:
             cards = [torch.device("cuda", i) for i in range(2)]
-            two = TorchBlsVerifier(devices=cards, rng=np.random.default_rng(SEED + 32))
+            two = TorchBlsVerifier(devices=cards, sharded=True,
+                                   rng=np.random.default_rng(SEED + 32))
             expect(two, sets256, True, "split, valid batch on cuda:0 and cuda:1")
             expect(two, bad, False, "split, corrupted batch on cuda:0 and cuda:1")
         else:
@@ -1459,7 +1462,7 @@ def run_pool_sharded(dev, card: str, sets256) -> dict:
     from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
 
-    mesh = TorchBlsVerifier(devices=[dev, dev], sharded_min_batch=SHARDED_BUCKET,
+    mesh = TorchBlsVerifier(devices=[dev, dev], sharded=True, sharded_min_batch=SHARDED_BUCKET,
                             rng=np.random.default_rng(SEED + 34))
     bls = BlsBatchPool(mesh, pipeline_depth=2, flush_threshold=BUCKET, max_buffer_wait=0.02)
     if not mesh.sharded_active or bls._flush_window()[1] != 2 * BUCKET:
@@ -1632,6 +1635,7 @@ def main(argv) -> int:
         line.append({
             "name": name,
             "route": "cuda",
+            "cooperative": name in COOP,
             "source": "lodestar_tpu_torch/ops/kernels/" + _build.LAUNCHERS[name],
             "replaces": k.replaces,
             "launches": main_path[name][name],

@@ -19,10 +19,12 @@ wait for batches enqueued after it on the same stream.  With ``host_final_exp=Fa
 the final exponentiation runs on the card too, and the device returns the
 verdict.
 
-With ``devices=[...]`` (a card may repeat: logical shards) the verifier
-has two tiers, as the JAX verifier's pool does: a batch whose bucket is at
-least ``sharded_min_batch`` and divisible by the shard count rides the
-sharded tier (``ops/sharded_verify``, one batch split over every shard);
+With ``devices=[...]`` (a card may repeat: logical shards) and
+``sharded=True`` (or ``LODESTAR_TPU_SHARDED`` on: the tier is opt-in, as
+the JAX verifier's is off a TPU pool) the verifier has two tiers, as the
+JAX verifier's pool does: a batch whose bucket is at least
+``sharded_min_batch`` and divisible by the shard count rides the sharded
+tier (``ops/sharded_verify``, one batch split over every shard);
 any other batch runs whole on one card, the least loaded (batches in
 flight), round-robin among equals.  A failed launch or sync raises; there
 is no other path or tier to fall back to, and no batch is requeued.
@@ -36,6 +38,7 @@ libraries stay loaded: every verifier in the process shares them.
 
 from __future__ import annotations
 
+import os
 import secrets
 import threading
 import time
@@ -60,6 +63,23 @@ from .verifier import PointCache, SignatureSet, SingleSignatureSet, get_aggregat
 BUCKETS = (4, 16, 64, 128, 256)
 #: the in-flight key of the sharded tier's batches (one program over the mesh)
 MESH = "mesh"
+
+
+def sharded_default(n_devices: int) -> bool:
+    """The sharded tier when the caller leaves it to the verifier, as the
+    JAX verifier's ``_sharded_default``: ``LODESTAR_TPU_SHARDED``, when
+    set, decides (``0``, ``false`` and ``no`` mean off, any other value
+    on); otherwise the tier is opt-in."""
+    env = os.environ.get("LODESTAR_TPU_SHARDED")
+    if env is not None:
+        return env not in ("0", "false", "no")
+    if n_devices < 2:
+        return False
+    # The JAX verifier turns the tier on by default on a pool of several TPU
+    # chips.  Its CUDA counterpart waits for a ``python3 chip_smoke.py
+    # --sharded-only`` run across distinct cards that beats one card: so far
+    # the tier has run only over logical shards of one card, which share it.
+    return False
 
 
 def fq12_blob(digits) -> bytes:
@@ -163,9 +183,10 @@ class TorchBlsVerifier:
     ``rng``: a ``numpy.random.Generator`` for the RLC coefficients, for
     reproducible runs; None (the default) draws them from ``secrets``.
     ``devices``: the shards of the sharded tier, in mesh order (None: the
-    single ``device``).  ``sharded``: the tier on or off (None: on when
-    ``devices`` has two or more entries).  ``sharded_min_batch``: the
-    smallest bucket the tier takes (None: the largest bucket).
+    single ``device``).  ``sharded``: the tier on or off (None:
+    ``sharded_default``, off unless ``LODESTAR_TPU_SHARDED`` says on).
+    ``sharded_min_batch``: the smallest bucket the tier takes (None: the
+    largest bucket).
     ``sharded_combine``: ``"all_gather"`` or ``"ring"``.
 
     Several host threads may pack and dispatch at once (the pool keeps
@@ -187,7 +208,7 @@ class TorchBlsVerifier:
         else:
             self.devices = [resolve_device(d) for d in devices]
         self.device = self.devices[0]
-        self.sharded = len(self.devices) >= 2 if sharded is None else bool(sharded)
+        self.sharded = sharded_default(len(self.devices)) if sharded is None else bool(sharded)
         self.sharded_min_batch = BUCKETS[-1] if sharded_min_batch is None else sharded_min_batch
         entry = miller_product_sharded if host_final_exp else verify_signature_sets_sharded
         self._mesh_program = entry(self.devices, fused, sharded_combine) if self.sharded else None

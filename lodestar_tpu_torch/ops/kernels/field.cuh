@@ -12,11 +12,13 @@
 // the shift x >> 8.
 //
 // The functions are __host__ __device__: the fold kernel in
-// fused_kernels.cu calls the row body at the bottom (the other nine the
-// cooperative bodies of field_coop.cuh, which mirror these steps: fold,
-// mul, m_fq2_mul and m_fq2_sqr in stages, and canon's Barrett reduction),
-// tower.cuh builds the tower products on them, and host_shim.cpp builds
-// the very same bodies with g++ for the CPU parity test.
+// fused_kernels.cu calls the row body at the bottom, the library kernel's
+// limbs.cuh takes the constant table's layout and the carry counts, and
+// host_shim.cpp builds the very same bodies with g++ for the CPU parity
+// test.  The other thirteen row kernels are the cooperative bodies of
+// field_coop.cuh and tower_coop.cuh, whose steps mirror fold, mul, add,
+// sub and scale here (m_fq2_mul, m_fq2_sqr, the tower products and canon's
+// Barrett reduction in stages).
 
 #pragma once
 
@@ -136,19 +138,6 @@ LF_HD void scale(const int* a, int k, int* out, const int* K) {
   fold<NL, BITS>(t, out, K);
 }
 
-// Fq2 values are int[2][50] component pairs.
-typedef int fq2[2][NL];
-
-LF_HD void fq2_add(const fq2 a, const fq2 b, fq2 out, const int* K) {
-  add(a[0], b[0], out[0], K);
-  add(a[1], b[1], out[1], K);
-}
-
-LF_HD void fq2_sub(const fq2 a, const fq2 b, fq2 out, const int* K) {
-  sub(a[0], b[0], out[0], K);
-  sub(a[1], b[1], out[1], K);
-}
-
 // -- loads and stores of one row ------------------------------------------
 
 LF_HD void load(const float* p, int* x) {
@@ -164,16 +153,6 @@ LF_HD void load_fold(const float* p, int* x, const int* K) {
   int t[NL];
   load(p, t);
   fold<NL, 22>(t, x, K);
-}
-
-LF_HD void load2(const float* p, fq2 x) {
-  load(p, x[0]);
-  load(p + NL, x[1]);
-}
-
-LF_HD void store2(float* p, const fq2 x) {
-  store(p, x[0]);
-  store(p + NL, x[1]);
 }
 
 // -- the one-thread row body ----------------------------------------------------

@@ -1,15 +1,15 @@
 // Host build of the kernels' row bodies (field.cuh, field_coop.cuh,
-// tower.cuh, tower_coop.cuh, limbs.cuh) and of the ring hop's plan and
-// per-thread body (ring_hop.cuh) with a plain C interface, for the CPU
-// parity test: the same arithmetic the CUDA kernels run, looped over rows
-// (the hop: over its grid's threads) on the CPU.  The cooperative bodies
-// of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr, canon,
-// tower_fq2_mul and tower_fq12_mul walk their blocks, and in each its
-// rows' warps and lanes, in turn (backwards under -DLC_HOST_REVERSED),
-// over one host copy of their shared-memory layout at the kernels' warp
-// and row counts, filled with -1 before each block so that a read of a
-// value the block did not write shows.  Built with g++ by
-// tests/test_torch_kernel_host.py; not part of the device path.
+// tower_coop.cuh, limbs.cuh) and of the ring hop's plan and per-thread
+// body (ring_hop.cuh) with a plain C interface, for the CPU parity test:
+// the same arithmetic the CUDA kernels run, looped over rows (the hop:
+// over its grid's threads) on the CPU.  The cooperative bodies of lad1,
+// lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr, canon and the
+// four tower kernels walk their blocks, and in each its rows' warps and
+// lanes, in turn (backwards under -DLC_HOST_REVERSED), over one host copy
+// of their shared-memory layout at the kernels' warp and row counts,
+// filled with -1 before each block so that a read of a value the block
+// did not write shows.  Built with g++ by tests/test_torch_kernel_host.py;
+// not part of the device path.
 
 #include <algorithm>
 #include <memory>
@@ -17,7 +17,6 @@
 #include "field_coop.cuh"
 #include "limbs.cuh"
 #include "ring_hop.cuh"
-#include "tower.cuh"
 #include "tower_coop.cuh"
 
 #define LF_HOST(NAME)                                                        \
@@ -66,8 +65,8 @@ LF_HOST_COOP(lad1, Lad1Block)
 LF_HOST_COOP(lad2, Lad2Block)
 LF_HOST_COOP(lad3, Lad3Block)
 LF_HOST_COOP(tower_fq2_mul, TowerFq2MulBlock)
-LF_HOST(tower_fq2_sqr)
-LF_HOST(tower_fq6_mul)
+LF_HOST_COOP(tower_fq2_sqr, TowerFq2SqrBlock)
+LF_HOST_COOP(tower_fq6_mul, TowerFq6MulBlock)
 LF_HOST_COOP(tower_fq12_mul, TowerFq12MulBlock)
 LF_HOST(library_fq2_mul)
 

@@ -2,23 +2,19 @@
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of
 // lodestar_tpu/ops/pallas_tower.py.
 //
-// tower_fq2_mul and tower_fq12_mul are cooperative (tower_coop.cuh over
-// field_coop.cuh): one warp per Fq step, the digits across the lanes, each
-// row's values and the block's constant table in shared memory, stages
-// separated by block syncs.  The Fq12 product runs one row a block on
-// lfc::TOWER_FQ12_WARPS warps: its 54 products and 224 folds in 9 stages,
-// the three Fq6 products interleaved so that up to 24 products run at
-// once; its path launches it at 129 rows (one wave on 132 SMs) and at 1.
-// The Fq2 product, three stages a row, runs lfc::TOWER_FQ2_ROWS rows of
-// lfc::TOWER_FQ2_WARPS warps a block.  One thread a row had left the
-// Fq12 product's 129 rows 129 threads, each walking its row's chain of 54
-// products one after the other in local memory.
-//
-// tower_fq2_sqr and tower_fq6_mul (first, simple version): one thread per
-// row, 32 threads a block, every index checked against n; a row's digits
-// in per-thread int32 arrays in local memory, the Fq products plain
-// schoolbook loops of int32 multiply-adds, the Fq2 / Fq6 products real
-// calls (tower.cuh).
+// All four are cooperative (tower_coop.cuh over field_coop.cuh): one warp
+// per Fq step, the digits across the lanes, each row's values and the
+// block's constant table in shared memory, stages separated by block
+// syncs.  The Fq12 product runs one row a block on lfc::TOWER_FQ12_WARPS
+// warps: its 54 products and 224 folds in 9 stages, the three Fq6 products
+// interleaved so that up to 24 products run at once; its path launches it
+// at 129 rows (one wave on 132 SMs) and at 1.  The Fq6 product runs the
+// same Fq6 levels for one product, 18 products and 64 folds in 7 stages,
+// one row a block on lfc::TOWER_FQ6_WARPS warps; its path (the final
+// exponentiation's Fq12 inversion) launches it at 1 row.  The Fq2 product
+// (three stages) and the Fq2 square (two) run several rows a block
+// (lfc::TOWER_FQ2_ROWS of lfc::TOWER_FQ2_WARPS warps, and
+// lfc::TOWER_FQ2SQR_ROWS of lfc::TOWER_FQ2SQR_WARPS).
 //
 // What bounds them on this card: integer multiply-add throughput.  One Fq
 // product is 2,500 digit multiply-adds for the schoolbook and 2,600 for the
@@ -30,13 +26,6 @@
 // LF_KERNEL_<name> guard; _build.py compiles this file once per kernel.
 
 #include "launchers.cuh"
-#include "tower.cuh"
-
-#define LF_ROW_KERNEL(NAME)                                                       \
-  __global__ void NAME##_k(Ptrs p, int n, const int* __restrict__ K) {            \
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;                        \
-    if (row < n) lf::row_##NAME(p.in, p.out, row, K);                             \
-  }
 
 #ifdef LF_KERNEL_tower_fq2_mul
 #include "tower_coop.cuh"
@@ -48,16 +37,21 @@ LF_COOP_KERNEL(tower_fq2_mul, 2, 1, lfc::TowerFq2MulBlock)
 #endif
 
 #ifdef LF_KERNEL_tower_fq2_sqr
-// Replaces pallas_tower.py _fq2_sqr_kernel (fq2_sqr): 2 Fq products.
-LF_ROW_KERNEL(tower_fq2_sqr)
-LF_LAUNCHER(tower_fq2_sqr, 1, 1)
+#include "tower_coop.cuh"
+// Replaces pallas_tower.py _fq2_sqr_kernel (fq2_sqr): 2 Fq products and 3
+// folded adds/subtracts a row in two stages (the schedule beside
+// lfc::TowerFq2SqrStages), lfc::TOWER_FQ2SQR_ROWS rows of
+// lfc::TOWER_FQ2SQR_WARPS warps a block.  Operation-bound.
+LF_COOP_KERNEL(tower_fq2_sqr, 1, 1, lfc::TowerFq2SqrBlock)
 #endif
 
 #ifdef LF_KERNEL_tower_fq6_mul
+#include "tower_coop.cuh"
 // Replaces pallas_tower.py _fq6_mul_kernel (fq6_mul): 6 Karatsubas (18 Fq
-// products) and the xi recombination.
-LF_ROW_KERNEL(tower_fq6_mul)
-LF_LAUNCHER(tower_fq6_mul, 2, 1)
+// products) and the xi recombination, 64 folds, a row in 7 stages (the
+// schedule beside lfc::fq6_level), one row a block of lfc::TOWER_FQ6_WARPS
+// warps.  Operation-bound.
+LF_COOP_KERNEL(tower_fq6_mul, 2, 1, lfc::TowerFq6MulBlock)
 #endif
 
 #ifdef LF_KERNEL_tower_fq12_mul

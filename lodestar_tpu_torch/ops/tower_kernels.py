@@ -1,10 +1,11 @@
 """The XLA-graph path's four tower kernels: Fq2, Fq6 and Fq12 products.
 
 The port of ``lodestar_tpu/ops/pallas_tower.py``.  Each product is one
-hand-written CUDA kernel (``kernels/tower_kernels.cu``, row bodies in
-``kernels/tower.cuh``) behind a ``fused_core.Kernel`` wrapper, registered
-in the same ``KERNELS`` dict as the fused path's ten: a CPU tensor takes
-the plain version here, a CUDA tensor the kernel, anything else raises.
+hand-written CUDA kernel (``kernels/tower_kernels.cu``, cooperative block
+bodies in ``kernels/tower_coop.cuh``) behind a ``fused_core.Kernel``
+wrapper, registered in the same ``KERNELS`` dict as the fused path's ten:
+a CPU tensor takes the plain version here, a CUDA tensor the kernel,
+anything else raises.
 
 Inputs and outputs are semi-strict float32 digits (<= 256): (N, 2, 50)
 for Fq2, (N, 3, 2, 50) for Fq6, (N, 6, 2, 50) flat Fq12.  The plain

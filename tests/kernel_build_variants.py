@@ -3,18 +3,17 @@ against the plain versions on the card.
 
     python3 tests/kernel_build_variants.py [--kernels a,b,...] [variant ...]
 
-The port builds field.cuh, tower.cuh and limbs.cuh with their heavy steps
-(fold, the digit product, the Fq2 product and square, the
-canonicalisation, the tower's Fq2 / Fq6 / Fq12 products, the library
-kernel's strict sum, product and subtraction) as real calls.  With
+The port builds field.cuh, field_coop.cuh and limbs.cuh with their heavy
+steps (fold, the digit product, the library kernel's strict sum, product
+and subtraction) as real calls.  With
 every step inlined (``-DLF_INLINE_ALL``, the layout of the kernels' first
 build) some kernels give wrong digits on the card, although g++ builds the
 same source bitwise right.  Each variant here changes one thing about that
 build (block size, ptxas optimisation level, device debug), so the table
 shows which stage of the compiler the fault follows.  The cooperative
 kernels lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and
-canon (field_coop.cuh), tower_fq2_mul and tower_fq12_mul
-(tower_coop.cuh) keep the product and the fold as calls too; the
+canon (field_coop.cuh) and the four tower kernels (tower_coop.cuh) keep
+the product and the fold as calls too; the
 ``ptxas-O1`` variant holds them at another ptxas level, the ``*-warps``
 variants at other block sizes (``LF_COOP_WARPS``: the ladder kernels'
 warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
@@ -32,7 +31,11 @@ variants at other warps a block of tower_fq12_mul
 (``LF_TOWER_FQ12_WARPS``, 16 by default) and with its registers sized
 for two blocks a SM (``LF_TOWER_FQ12_BLOCKS_PER_SM``, 1 by default), the
 ``tower-fq2-*`` variants at other warps a row and rows a block of
-tower_fq2_mul (``LF_TOWER_FQ2_WARPS``, ``LF_TOWER_FQ2_ROWS``: 3 and 2), and
+tower_fq2_mul (``LF_TOWER_FQ2_WARPS``, ``LF_TOWER_FQ2_ROWS``: 3 and 2), the
+``tower-fq2sqr-*`` variants the same of tower_fq2_sqr
+(``LF_TOWER_FQ2SQR_WARPS``, ``LF_TOWER_FQ2SQR_ROWS``: 3 and 2), the
+``tower-fq6-*`` variants at other warps a block of tower_fq6_mul
+(``LF_TOWER_FQ6_WARPS``, 12 by default), and
 ``ring-scalar``, the ring hop without its float4 path
 (``LF_RING_VEC=0``).
 
@@ -119,13 +122,18 @@ VARIANTS = {
     "ring-scalar": ("-DLF_RING_VEC=0",),
     # tower_fq12_mul's warps (one row a block, registers for one block a
     # SM; 16 warps by default), its registers sized for two blocks a SM,
-    # and tower_fq2_mul's warps a row and rows a block
+    # tower_fq2_mul's and tower_fq2_sqr's warps a row and rows a block, and
+    # tower_fq6_mul's warps (one row a block; 12 by default)
     **{f"tower-fq12-{w}-warps": (f"-DLF_TOWER_FQ12_WARPS={w}",) for w in (8, 12, 24)},
     **{f"tower-fq12-{w}-warps-2-blocks": (f"-DLF_TOWER_FQ12_WARPS={w}",
                                           "-DLF_TOWER_FQ12_BLOCKS_PER_SM=2") for w in (12, 16)},
     **{f"tower-fq2-{w}-warp{'s' * (w > 1)}-rows-{r}": (f"-DLF_TOWER_FQ2_WARPS={w}",
                                                        f"-DLF_TOWER_FQ2_ROWS={r}")
        for w in (1, 2, 3) for r in (1, 2, 4, 8) if (w, r) != (3, 2)},
+    **{f"tower-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": (f"-DLF_TOWER_FQ2SQR_WARPS={w}",
+                                                          f"-DLF_TOWER_FQ2SQR_ROWS={r}")
+       for w in (1, 2, 3) for r in (1, 2, 3, 4) if (w, r) != (3, 2)},
+    **{f"tower-fq6-{w}-warps": (f"-DLF_TOWER_FQ6_WARPS={w}",) for w in (6, 8, 9, 16, 18, 24)},
     "k-global": ("-DLF_COOP_K_GLOBAL",),
     "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", *_rows(1)),
     **{f"k-global-mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": ("-DLF_COOP_K_GLOBAL", *_mul_fq2sqr(w, r))

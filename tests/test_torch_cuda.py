@@ -68,11 +68,12 @@ def test_kernel_equals_plain_version_on_the_card(name, rows, card):
 @pytest.mark.parametrize("rows", [1, 37, 256, 257, 512, 513, 1548, 2560])
 @pytest.mark.parametrize("name", chip_smoke.COOP)
 def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, seed, card):
-    """The cooperative kernels (lad1, lad2, lad3, fq2pow16mul and
-    tower_fq12_mul one row a block, fq2mul, pow16mul, mul, fq2sqr, canon
-    and tower_fq2_mul as many as their builds set, with a partial last
-    block at the odd counts): seeded rows and rows at the digit bounds
-    (2^22 - 1 loose, 256 semi-strict), bitwise."""
+    """The cooperative kernels (lad1, lad2, lad3, fq2pow16mul,
+    tower_fq6_mul and tower_fq12_mul one row a block, fq2mul, pow16mul,
+    mul, fq2sqr, canon, tower_fq2_mul and tower_fq2_sqr as many as their
+    builds set, with a partial last block at the odd counts): seeded rows
+    and rows at the digit bounds (2^22 - 1 loose, 256 semi-strict),
+    bitwise."""
     k = fc.KERNELS[name]
     rng = np.random.default_rng(100 * rows + seed)
     for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):
@@ -263,7 +264,7 @@ def test_sharded_split_bucket8_verdicts_on_logical_shards(card):
 
     with np.load(gen.SHARDED_NPZ) as z:
         ins = dict(z)
-    v = TorchBlsVerifier(devices=[card, card], sharded_min_batch=8)
+    v = TorchBlsVerifier(devices=[card, card], sharded=True, sharded_min_batch=8)
     for case, key in (("valid", "verdict_valid2"), ("corrupted", "verdict_corrupted2")):
         assert v.dispatch(gen.bucket8(ins, case)).result() is bool(ins[key])
     assert v.sharded_batches == 2

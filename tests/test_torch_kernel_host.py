@@ -1,12 +1,13 @@
 """The CUDA kernels' row arithmetic, built for the CPU.
 
-field.cuh, tower.cuh and limbs.cuh hold every row kernel's per-row body as
-__host__ __device__ functions, field_coop.cuh the cooperative block bodies
-of lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and canon,
-tower_coop.cuh those of tower_fq2_mul and tower_fq12_mul (one warp per
-step; one row a block, or several for fq2mul, pow16mul, mul, fq2sqr, canon
-and tower_fq2_mul), whose blocks, rows, warps and lanes the host build
-walks in turn, and ring_hop.cuh the ring hop's plan and per-thread body;
+field.cuh and limbs.cuh hold the one-thread row bodies of fold and the
+library kernel as __host__ __device__ functions, field_coop.cuh the
+cooperative block bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul,
+pow16mul, mul, fq2sqr and canon, tower_coop.cuh those of the four tower
+kernels (one warp per step; one row a block, or several for fq2mul,
+pow16mul, mul, fq2sqr, canon, tower_fq2_mul and tower_fq2_sqr), whose
+blocks, rows, warps and lanes the host build walks in turn, and
+ring_hop.cuh the ring hop's plan and per-thread body;
 ops/kernels/host_shim.cpp wraps them in a plain C interface.  Here g++
 builds that shim (into build/, keyed by the sources' hash) and the fifteen
 row bodies are held bitwise against the plain PyTorch versions; the
@@ -14,7 +15,8 @@ cooperative ones also with their lanes and warps walked in the reverse
 order (-DLC_HOST_REVERSED) and on inputs at the digit bounds, canon also
 at the edges of its branches (and two broken copies of its ripple must
 fail those checks, as must the tower Karatsuba built with the fused
-path's finish or product); the hop, its grid's threads walked both ways,
+path's finish or product, and the tower Fq2 square built with the fused
+path's product); the hop, its grid's threads walked both ways,
 against copy_ at every tested length and pointer offset.  This checks the
 arithmetic the kernels run, not the kernels: the launches are checked on
 the card by chip_smoke.py and the cuda-marked tests.
@@ -55,8 +57,8 @@ def _gxx() -> str:
     return gxx
 
 
-HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower.cuh", "tower_coop.cuh", "limbs.cuh",
-                "ring_hop.cuh", "host_shim.cpp")
+HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower_coop.cuh", "limbs.cuh", "ring_hop.cuh",
+                "host_shim.cpp")
 
 
 def _host_build(flags, mutation=None) -> str:
@@ -179,9 +181,10 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     fold, out of line (inlined into every stage they made a body of 128
     registers with spills), inlines the rest, and holds every digit in
     shared memory: its only arrays, and tower_coop.cuh's, are the rows'
-    layouts, each a template over its warp count.  The cooperative kernels
+    layouts, each a template over its warp count, and the Fq6 product's
+    work arrays that two of those layouts hold.  The cooperative kernels
     of fused_kernels.cu and tower_kernels.cu run their block bodies and no
-    one-thread body of theirs is left in field.cuh or tower.cuh."""
+    one-thread body of theirs is left in field.cuh."""
     src = open(os.path.join(KDIR, "field_coop.cuh"), encoding="utf-8").read()
     assert re.search(r"^#define LC_STEP static __host__ __device__ __noinline__$", src, re.M)
     for step in ("fold", "mul"):
@@ -191,13 +194,20 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     assert len(re.findall(block, src, re.M | re.S)) == 1
     # the row layouts (inputs first), each a template over its warp count
     layout = r"^template <int NW>\nstruct (\w+) \{\n  int in\[.*?^\};"
+    # the layouts and the work arrays they share (a struct of arrays)
+    shared = r"^(?:template <int NW>\n)?struct (\w+) \{\n  int \w+\[.*?^\};"
     tower = open(os.path.join(KDIR, "tower_coop.cuh"), encoding="utf-8").read()
     assert '#include "field_coop.cuh"' in tower and "LC_STEP" not in tower
-    for text, want in ((src, ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul",
-                              "Fq2Sqr", "Canon"]),
-                       (tower, ["TowerFq2Mul", "TowerFq12Mul"])):
+    fused_layouts = ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul", "Fq2Sqr",
+                     "Canon"]
+    tower_layouts = ["TowerFq2Mul", "TowerFq2Sqr", "TowerFq6Mul", "TowerFq12Mul"]
+    for text, want, want_shared in (
+            (src, fused_layouts, fused_layouts),
+            (tower, tower_layouts, ["TowerFq2Mul", "TowerFq2Sqr", "TowerFq6", "TowerFq6Mul",
+                                    "TowerFq12Mul"])):
         assert re.findall(layout, text, re.M | re.S) == want
-        rest = re.sub(layout, "", re.sub(block, "", text, flags=re.M | re.S), flags=re.M | re.S)
+        assert re.findall(shared, text, re.M | re.S) == want_shared
+        rest = re.sub(shared, "", re.sub(block, "", text, flags=re.M | re.S), flags=re.M | re.S)
         code = re.sub(r"//[^\n]*", "", rest)
         assert not re.search(r"\bint\s+\w+\s*\[", code), "an array outside the shared layouts"
     from lodestar_tpu_torch.ops.kernels import _build
@@ -206,8 +216,7 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
         assert name in _build.SOURCES, name  # an edit rebuilds the kernels
     launchers = open(os.path.join(KDIR, "launchers.cuh"), encoding="utf-8").read()
     assert "lfc::block_##NAME(" in launchers and "extern __shared__" in launchers
-    row_bodies = "".join(open(os.path.join(KDIR, f), encoding="utf-8").read()
-                         for f in ("field.cuh", "tower.cuh"))
+    row_bodies = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
     header = {"fused_kernels.cu": "field_coop.cuh", "tower_kernels.cu": "tower_coop.cuh"}
     for name in COOP:
         kernels = open(os.path.join(KDIR, _build.LAUNCHERS[name]), encoding="utf-8").read()
@@ -226,9 +235,6 @@ def test_heavy_steps_are_real_calls_in_the_kernels_build():
     assert re.search(r"#else\n#define LF_CALL static __host__ __device__ __noinline__\n", src)
     for step in ("fold", "mul"):
         assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
-    tower = open(os.path.join(KDIR, "tower.cuh"), encoding="utf-8").read()
-    for step in ("tw_fq2_mul", "tw_fq2_sqr", "tw_fq6_mul"):
-        assert re.search(rf"^LF_CALL void {step}\(", tower, re.M), step
 
 
 def test_library_kernel_heavy_steps_are_real_calls():
@@ -325,20 +331,29 @@ def test_host_test_catches_a_broken_ripple(mutant):
 
 # the tower Karatsuba with the fused path's digit algorithm in place of
 # pallas_tower's: out1 = t2 - (t0 + t1) folded once (fq2mul_finish's
-# sub_sum), and t2 the product of the unfolded sums (fq2mul_products)
+# sub_sum), and t2 the product of the unfolded sums (fq2mul_products); the
+# tower Fq2 square with out0 the product of the unfolded sum a0 + a1 and d
+# (fq2sqr_finish's)
 TOWER_MUTANTS = {
     "sub-sum-finish": ("tower_coop.cuh", "t_fold<13>(c, sub(t + 2 * NL, s + 2 * NL), out + NL);",
                        "t_fold<13>(c, sub_sum(t + 2 * NL, t, t + NL), out + NL);"),
     "unfolded-sums": ("tower_coop.cuh", "t_mul(c, s, nullptr, s + NL, nullptr, t + 2 * NL);",
                       "t_mul(c, a, a + NL, b, b + NL, t + 2 * NL);"),
+    "unfolded-square-sum": ("tower_coop.cuh", "t_mul(c, r.sd, nullptr, r.sd + NL, nullptr, r.out);",
+                            "t_mul(c, a, a + NL, r.sd + NL, nullptr, r.out);"),
 }
 # The sub_sum finish gives out1 the same value mod p; its digits differ
 # only where the value lands across a multiple of 2^392 - RED[0], rare in
 # the Fq2 product, and in the Fq12 product the folds after each Karatsuba
-# absorb even that: so it is held on 8,192 rows, on the Fq2 product.
+# absorb even that: so it is held on 8,192 rows, on the Fq2 product.  The
+# unfolded sums differ from the folded ones as integers in almost every
+# row (the fold moves digit 49 of a0 + a1 through the RED rows), so their
+# products are caught on PARTIAL_ROWS, the Fq2 square's too.
 TOWER_MUTANT_CASES = [("sub-sum-finish", "tower_fq2_mul", 8192),
                       ("unfolded-sums", "tower_fq2_mul", PARTIAL_ROWS),
-                      ("unfolded-sums", "tower_fq12_mul", PARTIAL_ROWS)]
+                      ("unfolded-sums", "tower_fq6_mul", PARTIAL_ROWS),
+                      ("unfolded-sums", "tower_fq12_mul", PARTIAL_ROWS),
+                      ("unfolded-square-sum", "tower_fq2_sqr", PARTIAL_ROWS)]
 
 
 @pytest.mark.parametrize("mutant, name, rows", TOWER_MUTANT_CASES)

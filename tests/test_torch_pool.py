@@ -474,8 +474,8 @@ def test_merged_batch_rides_the_sharded_tier_on_the_cpu():
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
 
     async def main():
-        v = TorchBlsVerifier(device="cpu", devices=["cpu"] * 2, sharded_min_batch=4,
-                             rng=np.random.default_rng(10))
+        v = TorchBlsVerifier(device="cpu", devices=["cpu"] * 2, sharded=True,
+                             sharded_min_batch=4, rng=np.random.default_rng(10))
         pool = BlsBatchPool(v, max_buffer_wait=0.01, flush_threshold=2)
         assert v.sharded_active and pool._flush_window() == (2, 4)
         results = await asyncio.gather(*[pool.verify_signature_sets([make_set(i)])
@@ -502,7 +502,8 @@ def test_torch_verifier_close_releases_what_it_holds_and_refuses_verifies():
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.crypto.bls.verifier import IBlsVerifier
 
-    v = TorchBlsVerifier(device="cpu", devices=["cpu"] * 2, sharded_min_batch=4)
+    v = TorchBlsVerifier(device="cpu", devices=["cpu"] * 2, sharded=True,
+                         sharded_min_batch=4)
     members = [n for n, f in vars(IBlsVerifier).items() if callable(f) and not n.startswith("_")]
     assert sorted(members) == ["close", "verify_signature_sets"]
     assert all(callable(getattr(v, n)) for n in members)

@@ -68,25 +68,53 @@ def test_shard_slices_are_contiguous_batch_ranges(npz):
         True, True, True, False]
 
 
-def test_verifier_tier_defaults():
+def test_verifier_tier_defaults(monkeypatch):
+    """The sharded tier is opt-in: two devices leave it off unless the
+    caller passes ``sharded=True`` (or ``LODESTAR_TPU_SHARDED`` turns it
+    on, below)."""
+    monkeypatch.delenv("LODESTAR_TPU_SHARDED", raising=False)
     single = TorchBlsVerifier(device="cpu")
     assert single.devices == [torch.device("cpu")] and not single.sharded
     assert single.mesh_devices == 0 and single.sharded_batches == 0
     assert single.shard_enqueue_walls == []
-    mesh = TorchBlsVerifier(devices=["cpu", "cpu"])
+    two = TorchBlsVerifier(devices=["cpu", "cpu"])
+    assert not two.sharded and two.mesh_devices == 0 and not two.sharded_active
+    assert two.n_devices == 1 and two.shard_enqueue_walls == []
+    mesh = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=True)
     assert mesh.sharded and mesh.mesh_devices == 2
     assert mesh.sharded_min_batch == BUCKETS[-1] == 256
     assert TorchBlsVerifier(devices=["cpu", "cpu"], sharded=False).mesh_devices == 0
     with pytest.raises(ValueError):
         TorchBlsVerifier(devices=[])
     with pytest.raises(ValueError):
-        TorchBlsVerifier(devices=["cpu", "cpu"], sharded_combine="tree")
+        TorchBlsVerifier(devices=["cpu", "cpu"], sharded=True, sharded_combine="tree")
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("env", [None, "0", "1", "no"])
+def test_sharded_default_is_the_jax_verifiers(env, n, monkeypatch):
+    """``sharded=None`` resolves as the JAX verifier's ``_sharded_default``
+    on the CPU backend: off unless ``LODESTAR_TPU_SHARDED`` says on, which
+    it does for any value but 0, false and no."""
+    from lodestar_tpu.crypto.bls.tpu_verifier import _sharded_default
+
+    if env is None:
+        monkeypatch.delenv("LODESTAR_TPU_SHARDED", raising=False)
+    else:
+        monkeypatch.setenv("LODESTAR_TPU_SHARDED", env)
+    want = _sharded_default(n)
+    assert want is (env == "1")
+    v = TorchBlsVerifier(devices=["cpu"] * n)
+    assert v.sharded is want
+    assert v.mesh_devices == (n if want else 0)
 
 
 def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
-    v = TorchBlsVerifier(devices=["cpu"] * 4, sharded_min_batch=16, host_final_exp=False)
+    v = TorchBlsVerifier(devices=["cpu"] * 4, sharded=True, sharded_min_batch=16,
+                         host_final_exp=False)
     assert [b for b in BUCKETS if v.sharded_eligible(b)] == [16, 64, 128, 256]
-    assert not TorchBlsVerifier(devices=["cpu"] * 3, sharded_min_batch=16).sharded_eligible(64)
+    assert not TorchBlsVerifier(devices=["cpu"] * 3, sharded=True,
+                                sharded_min_batch=16).sharded_eligible(64)
     calls = []
     monkeypatch.setattr(v, "_mesh_program", lambda *packed: calls.append("mesh") or torch.tensor(True))
     monkeypatch.setattr(

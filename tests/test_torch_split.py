@@ -218,7 +218,7 @@ def test_fused_split_verdict_equals_full_device_and_jax(name, expected, xla_npz,
                                       ("corrupted", "verdict_corrupted2"),
                                       ("non_subgroup", None)])
 def test_sharded_split_over_two_cpu_shards_equals_jax(case, key, sharded_npz):
-    verifier = TorchBlsVerifier(devices=["cpu", "cpu"], sharded_min_batch=8,
+    verifier = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=True, sharded_min_batch=8,
                                 rng=np.random.default_rng(6))
     if key is None:  # set 5 (shard 1) signed outside G2
         ref, port = _both(_raw_sets(8, outside_g2=(5,)))
