@@ -24,12 +24,12 @@ its wall time on a line of its own:
    kernels at 1 row and at the most rows the XLA-graph path gives them at
    bucket 128, the library kernel at 4 rows and at the tower Fq2 product's
    1,548), three inputs a shape — bitwise, tolerance zero, since both are
-   exact integer arithmetic; the redesigned cooperative kernels (lad1,
-   lad2, lad3, fq2pow16mul, tower_fq6_mul and tower_fq12_mul one block
-   per row, fq2mul, pow16mul, mul, fq2sqr, canon, tower_fq2_mul and
-   tower_fq2_sqr several rows a block; all but fold and library_fq2_mul)
-   also at 1, 37 and 513 rows and on inputs at the digit bounds, each
-   logged with its block's layout and shared-memory bytes.
+   exact integer arithmetic; the cooperative kernels (lad1, lad2, lad3,
+   fq2pow16mul, tower_fq6_mul and tower_fq12_mul one block per row,
+   fq2mul, pow16mul, mul, fq2sqr, fold, canon, tower_fq2_mul,
+   tower_fq2_sqr and library_fq2_mul several rows a block: every row
+   kernel) also at 1, 37 and 513 rows and on inputs at the digit bounds,
+   each logged with its block's layout and shared-memory bytes.
    Times are device times: 20 calls captured in one CUDA graph, the
    replays timed by CUDA events, so the host's cost of issuing a launch
    is outside the window (it is printed beside them as ``issue_ms``, 20
@@ -291,13 +291,14 @@ SHAPES = {
     # 5 values x 512 rows x 2 components, 128 of its 138 launches (last)
     "canon": (4 * BUCKET, 10 * BUCKET, 40 * BUCKET),
 }
-# the redesigned cooperative kernels (one warp per Fq step; one row a
-# block, or several for fq2mul, pow16mul, mul, fq2sqr, canon, tower_fq2_mul
-# and tower_fq2_sqr): also held at these row counts (a single row; a
-# partial last block for every rows-a-block count; one past the ladder's
-# 512) and on inputs at the digit bounds, untimed
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "canon",
-        "tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul")
+# the cooperative kernels, every row kernel (one warp per Fq step; one row
+# a block, or several for fq2mul, pow16mul, mul, fq2sqr, fold, canon,
+# tower_fq2_mul, tower_fq2_sqr and library_fq2_mul): also held at these row
+# counts (a single row; a partial last block for every rows-a-block count;
+# one past the ladder's 512) and on inputs at the digit bounds, untimed
+COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "fold",
+        "canon", "tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul",
+        "library_fq2_mul")
 COOP_CHECK_ROWS = (1, 37, 513)
 # the kernels whose launches' row counts phases 3 and 11 log as a histogram
 ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr", "fold", "canon")

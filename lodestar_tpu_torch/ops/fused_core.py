@@ -148,7 +148,7 @@ _HOT0_51[0] = 1.0
 
 # the int32 table every CUDA kernel receives (layout: lf::K_* in field.cuh,
 # lf::K_LEN = 2955 entries); the last is the width-51 pad of limbs.fp_sub,
-# which the library kernel (limbs.cuh) reads
+# which the library kernel (field_coop.cuh's limbs_sub) reads
 _CONST_TABLE = np.concatenate([RED.reshape(-1), SUBPAD, _MU6, _P48, _PC, _P2C,
                                fl._sub_pad(NL + 1)]).astype(np.int32)
 if _CONST_TABLE.size != 2955:

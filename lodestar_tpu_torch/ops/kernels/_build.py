@@ -31,8 +31,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "lodestar_tpu_torch")
 SOURCES = ("field.cuh", "field_coop.cuh", "launchers.cuh", "fused_kernels.cu", "tower_coop.cuh",
-           "tower_kernels.cu", "ring_hop.cuh", "ring_kernels.cu", "limbs.cuh",
-           "library_kernels.cu")
+           "tower_kernels.cu", "ring_hop.cuh", "ring_kernels.cu", "library_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -1,20 +1,21 @@
-// Cooperative BLS12-381 field arithmetic for nine of the fused kernels:
-// the G2 ladder's round kernels lad1, lad2 and lad3, fq2pow16mul, fq2mul,
-// pow16mul, mul, fq2sqr and canon.  One warp per Fq step, the digits of a
+// Cooperative BLS12-381 field arithmetic for eleven row kernels: the
+// fused path's ten (the G2 ladder's round kernels lad1, lad2 and lad3,
+// fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr, fold and canon) and the
+// library kernel library_fq2_mul.  One warp per Fq step, the digits of a
 // step across the warp's 32 lanes, every value of a row in shared memory;
 // a row has NW warps and a block R rows.
 //
 // Layout.  A block (Block below) holds the constant table, staged once for
 // its R rows, and R row layouts (Lad1, Lad2, Lad3, Fq2Pow16Mul, Fq2Mul,
-// Pow16Mul, Mul, Fq2Sqr, Canon): each row's inputs, outputs and
-// intermediates as int32 digits, with a scratch area of 462 ints per warp
-// of the row.  No step keeps a digit array in local memory.  The warp and
-// row counts are template parameters of the layouts, of Ctx and of
-// run_stages: each kernel has its own (the *Block aliases at the bottom),
-// and the host build, which holds every body in one translation unit,
-// walks the same counts.  The last block's missing rows (row >= n) load
-// zeros, run every stage and reach every sync, and are not stored (canon,
-// whose warps share no stage, runs nothing for them).
+// Pow16Mul, Mul, Fq2Sqr, Fold, Canon, LibFq2Mul): each row's inputs,
+// outputs and intermediates as int32 digits, with a scratch area of 462
+// ints per warp of the row.  No step keeps a digit array in local memory.
+// The warp and row counts are template parameters of the layouts, of Ctx
+// and of run_stages: each kernel has its own (the *Block aliases at the
+// bottom), and the host build, which holds every body in one translation
+// unit, walks the same counts.  The last block's missing rows (row >= n)
+// load zeros, run every stage and reach every sync, and are not stored
+// (canon, whose warps share no stage, runs nothing for them).
 //
 // One step on one warp (lane = threadIdx.x & 31):
 //   - the 50x50 digit product: lane k sums the anti-diagonal columns k and
@@ -33,17 +34,19 @@
 // beside each kernel body) by __syncthreads(), which every row of the
 // block reaches at the same stage.
 //
-// Why this equals field.cuh digit for digit.  carry_pass reads only the old
-// x_(i-1) (it walks i downwards), so a pass that reads one buffer and writes
-// another is that loop.  Every column sum, fold sum and carry is an integer
-// below 2^24 (the bounds of field.cuh's header: products of semi-strict
-// digits summed 50 at a time, <= 50 * 512^2 < 2^24), so int32 sums taken
-// in any order are the same integers.  Each step here takes the same
-// input, carry-pass count, fold width and truncation as its field.cuh twin
-// (fold<W, BITS>, mul, add, sub, scale), and every stage runs the steps of
-// the serial body on values that the earlier stages have finished.  An
-// exact ripple's output is the value mod 256^W in strict digits, which are
-// unique, so any exact ripple equals the serial one of fused_core._canon_k.
+// Why this equals the plain versions digit for digit.  Their carry pass
+// takes every digit's low byte and its lower neighbour's high part at
+// once, so a pass that reads one buffer and writes another is that pass.
+// Every column sum, fold sum and carry is an integer below 2^24 (the
+// bounds of field.cuh's header: products of semi-strict digits summed 50
+// at a time, <= 50 * 512^2 < 2^24), so int32 sums taken in any order are
+// the same integers.  Each step takes the same input, carry-pass count,
+// fold width and truncation as its plain twin (fused_core's m_fold at a
+// bound, m_mul, m_add, m_sub, a small multiple; limbs' fp_strict, fp_mul,
+// fp_sub), and every stage runs the steps of the plain version on values
+// that the earlier stages have finished.  An exact ripple's output is the
+// value mod 256^W in strict digits, which are unique, so any exact ripple
+// equals the serial one of fused_core._canon_k.
 //
 // The same source runs on the CPU (host_shim.cpp, built with g++ for the
 // parity test): there LC_LANE_FOR walks every lane's index in turn, the
@@ -57,14 +60,17 @@
 // difference.
 //
 // Calls and registers.  The two heavy steps, mul and fold (one instance a
-// carry bound), are real calls (LC_STEP): inlined into the twelve stages
-// of lad3 they made a body that ptxas held at 128 registers with spills,
-// two blocks a SM.  The rest is inlined (LC_HD); no step keeps an array of
-// its own.  ptxas sizes the registers at 64 a thread (Warps::MIN_BLOCKS:
-// 1,024 threads a SM, for a block of 32 x NW x R threads; the shared
-// memory admits at least that many blocks of every layout here, at its
-// default counts), which ran faster on the H100 than the uncapped build at
-// two or three blocks a SM.
+// carry bound and input width), are real calls (LC_STEP): inlined into the
+// twelve stages of lad3 they made a body that ptxas held at 128 registers
+// with spills, two blocks a SM, and ptxas -O2/-O3 of CUDA 12.8 miscompiled
+// the first, one-thread kernels when every step was inlined
+// (-DLF_INLINE_ALL inlines them for the variant builds of
+// tests/kernel_build_variants.py).  The rest is inlined (LC_HD); no step
+// keeps an array of its own.  ptxas sizes the registers at 64 a thread
+// (Warps::MIN_BLOCKS: 1,024 threads a SM, for a block of 32 x NW x R
+// threads; the shared memory admits at least that many blocks of every
+// layout here, at its default counts), which ran faster on the H100 than
+// the uncapped build at two or three blocks a SM.
 //
 // The constant table.  A block stages it (11.8 KB) into shared memory
 // before its first stage; -DLF_COOP_K_GLOBAL (a variant for the card
@@ -73,8 +79,8 @@
 // pow16mul at 256 rows, one wave), which the rows of a block share; read
 // from global memory the table made the ladder kernels and fq2pow16mul
 // 1-11 % slower, and mul and fq2sqr at one row of two warps a block no
-// faster than staged at two rows (PERF.md).  canon reads 304 of its 2,955
-// words (StagedK below).
+// faster than staged at two rows (PERF.md).  fold reads 150 of its 2,955
+// words and canon 304, both from global memory by default (StagedK below).
 
 #pragma once
 
@@ -115,10 +121,26 @@
 #ifndef LF_CANON_K_STAGED
 #define LF_CANON_K_STAGED 0  // canon: 1 stages its table slices, 0 reads them from global memory
 #endif
+#ifndef LF_FOLD_ROWS
+#define LF_FOLD_ROWS 2  // fold: rows a block, one warp a row
+#endif
+#ifndef LF_FOLD_K_STAGED
+#define LF_FOLD_K_STAGED 0  // fold: 1 stages the RED rows it reads, 0 reads them from global memory
+#endif
+#ifndef LF_LIB_FQ2MUL_WARPS
+#define LF_LIB_FQ2MUL_WARPS 2  // library_fq2_mul: warps a row
+#endif
+#ifndef LF_LIB_FQ2MUL_ROWS
+#define LF_LIB_FQ2MUL_ROWS 2  // library_fq2_mul: rows a block
+#endif
 
 #define LC_HD static __host__ __device__ __forceinline__
 #define LC_MHD __host__ __device__ __forceinline__
+#ifdef LF_INLINE_ALL  // every step inlined: the layout ptxas miscompiled
+#define LC_STEP LC_HD
+#else
 #define LC_STEP static __host__ __device__ __noinline__
+#endif
 
 #ifdef __CUDA_ARCH__
 #define LC_UNROLL _Pragma("unroll 10")  // the product's and the fold's walks
@@ -153,6 +175,9 @@ constexpr int MUL_ROWS = LF_MUL_ROWS;
 constexpr int FQ2SQR_WARPS = LF_FQ2SQR_WARPS;
 constexpr int FQ2SQR_ROWS = LF_FQ2SQR_ROWS;
 constexpr int CANON_ROWS = LF_CANON_ROWS;
+constexpr int FOLD_ROWS = LF_FOLD_ROWS;
+constexpr int LIB_FQ2MUL_WARPS = LF_LIB_FQ2MUL_WARPS;
+constexpr int LIB_FQ2MUL_ROWS = LF_LIB_FQ2MUL_ROWS;
 constexpr int F2 = 2 * NL;   // one Fq2 value: component 0, then component 1
 #ifdef LF_COOP_K_GLOBAL
 constexpr int K_STAGED = 1;  // the table is read from global memory
@@ -222,35 +247,44 @@ LC_HD void reduce(const int* x, int* out, int* S, const int* K) {
   LC_SYNC_WARP();
 }
 
-// The input of a fold of 50 digits: digit j is ka a_j + kb b_j + kc c_j,
-// plus digit j of the bias-2^12 subtraction pad when pad is set (a null
-// pointer adds nothing).  A subtraction a + (pad - b) is ka = 1, kb = -1:
-// the same integer, every partial sum far inside int32.
+// The input of a fold: digit j < 50 is ka a_j + kb b_j + kc c_j, plus
+// digit j of a subtraction pad when pad (its offset in the table: lf::K_PAD,
+// fused_core's bias-2^12 pad, or lf::K_PAD51, limbs.fp_sub's width-51 pad)
+// is set (a null pointer adds nothing); digit 50 of a 51-digit input is
+// the pad's alone.  A subtraction a + (pad - b) is ka = 1, kb = -1: the
+// same integer, every partial sum far inside int32.
 struct Lin {
   const int *a, *b, *c;
   int ka, kb, kc;
-  bool pad;
+  int pad;  // 0: no pad (the table's first words are RED rows)
   LC_MHD int operator()(int j, const int* K) const {
     int v = ka * a[j];
     if (b) v += kb * b[j];
     if (c) v += kc * c[j];
-    return pad ? v + K[lf::K_PAD + j] : v;
+    return pad ? v + K[pad + j] : v;
+  }
+  // digit j of a W-digit input, zero above it
+  template <int W>
+  LC_MHD int digit(int j, const int* K) const {
+    return j < NL ? (*this)(j, K) : j < W && pad ? K[pad + j] : 0;
   }
 };
+static_assert(lf::K_PAD > 0 && lf::K_PAD51 > 0, "a pad at offset 0 would read as none");
 
-// lf::fold<50, BITS> of the digits in(0..49); the first carry pass is taken
-// as the digits are formed.
-template <int BITS>
+// m_fold at the bound 2^BITS - 1 of the W digits in(0..W-1) (W = 50, or
+// 51 for the limbs subtraction); the first carry pass is taken as the
+// digits are formed.
+template <int BITS, int W = NL>
 LC_STEP void fold(Lin in, int* out, int* S, const int* K) {
-  constexpr int W = NL;
   constexpr int W2 = W + lf::carry_extra(BITS);
   constexpr int PASSES = lf::carry_passes(BITS);
+  static_assert(W == NL || W == NL + 1, "a fold input is 50 digits or the limbs subtraction's 51");
   static_assert(PASSES >= 1 && W2 <= X1 - X0, "fold outside the scratch layout");
   int* a = S + X0;
   int* b = S + X1;
   LC_LANE_FOR(i, W2) {
-    const int v = i < W ? in(i, K) : 0;
-    a[i] = i == 0 ? (v & 255) : (v & 255) + ((i - 1 < W ? in(i - 1, K) : 0) >> 8);
+    const int v = in.digit<W>(i, K);
+    a[i] = i == 0 ? (v & 255) : (v & 255) + (in.digit<W>(i - 1, K) >> 8);
   }
   LC_SYNC_WARP();
   for (int p = 1; p < PASSES; ++p) {
@@ -262,9 +296,10 @@ LC_STEP void fold(Lin in, int* out, int* S, const int* K) {
   reduce<W2>(a, out, S, K);
 }
 
-// lf::mul of (a + a2) and (b + b2) (a2, b2 may be null): the digit product,
-// then lf::fold<99, BITS + 6>, which is 101 columns and 3 passes for every
-// BITS the kernels use (16, 17, 18).
+// m_mul of (a + a2) and (b + b2) (a2, b2 may be null): the digit product,
+// then m_fold of its 99 columns at the bound 2^(BITS + 6) - 1, which is 101
+// columns and 3 passes for every BITS the kernels use (16, 17, 18), and
+// limbs.fp_mul's finalisation at bound 22 too.
 LC_STEP void mul(const int* a, const int* a2, const int* b, const int* b2, int* out, int* S,
                  const int* K) {
   constexpr int W2 = 2 * NL - 1 + lf::carry_extra(22);
@@ -318,14 +353,18 @@ LC_STEP void mul(const int* a, const int* a2, const int* b, const int* b2, int* 
 }
 
 // the inputs of the folds
-LC_HD Lin raw(const int* a) { return Lin{a, nullptr, nullptr, 1, 0, 0, false}; }
-LC_HD Lin add(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 1, 0, false}; }
-LC_HD Lin sub(const int* a, const int* b) { return Lin{a, b, nullptr, 1, -1, 0, true}; }
+LC_HD Lin raw(const int* a) { return Lin{a, nullptr, nullptr, 1, 0, 0, 0}; }
+LC_HD Lin add(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 1, 0, 0}; }
+LC_HD Lin sub(const int* a, const int* b) { return Lin{a, b, nullptr, 1, -1, 0, lf::K_PAD}; }
 LC_HD Lin sub_sum(const int* a, const int* b, const int* c) {  // a + (pad - (b + c))
-  return Lin{a, b, c, 1, -1, -1, true};
+  return Lin{a, b, c, 1, -1, -1, lf::K_PAD};
 }
-LC_HD Lin scale(const int* a, int k) { return Lin{a, nullptr, nullptr, k, 0, 0, false}; }
-LC_HD Lin add_twice(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 2, 0, false}; }
+LC_HD Lin scale(const int* a, int k) { return Lin{a, nullptr, nullptr, k, 0, 0, 0}; }
+LC_HD Lin add_twice(const int* a, const int* b) { return Lin{a, b, nullptr, 1, 2, 0, 0}; }
+// limbs.fp_sub(a, b + c) (c may be null): a + (pad51 - (b + c)), 51 digits
+LC_HD Lin limbs_sub(const int* a, const int* b, const int* c) {
+  return Lin{a, b, c, 1, -1, -1, lf::K_PAD51};
+}
 
 // -- the block: which warp runs which step ------------------------------------
 
@@ -353,10 +392,10 @@ LC_HD void t_mul(Ctx<NW>& c, const int* a, const int* a2, const int* b, const in
   if (c.take(0, S)) mul(a, a2, b, b2, out, S, c.K);
 }
 
-template <int BITS, int NW>
+template <int BITS, int W = NL, int NW>
 LC_HD void t_fold(Ctx<NW>& c, Lin in, int* out) {
   int* S;
-  if (c.take(1, S)) fold<BITS>(in, out, S, c.K);
+  if (c.take(1, S)) fold<BITS, W>(in, out, S, c.K);
 }
 
 // Fq2 values, one step a component.
@@ -377,7 +416,7 @@ LC_HD void scale2(Ctx<NW>& c, const int* a, int k, int* out) {
   for (int h = 0; h < F2; h += NL) t_fold<BITS>(c, scale(a + h, k), out + h);
 }
 
-// lf::fq2_mul in two stages through t (3 x 50): the three Karatsuba
+// m_fq2_mul in two stages through t (3 x 50): the three Karatsuba
 // products, then out0 = t0 - t1 and out1 = t2 - (t0 + t1).
 template <int NW>
 LC_HD void fq2mul_products(Ctx<NW>& c, const int* a, const int* b, int* t) {
@@ -391,7 +430,7 @@ LC_HD void fq2mul_finish(Ctx<NW>& c, const int* t, int* out) {
   t_fold<13>(c, sub_sum(t + 2 * NL, t, t + NL), out + NL);
 }
 
-// lf::fq2_sqr in two stages through t (d, then m): m = a0 a1 and
+// m_fq2_sqr in two stages through t (d, then m): m = a0 a1 and
 // d = a0 - a1, then out0 = (a0 + a1) d and out1 = 2m.
 template <int NW>
 LC_HD void fq2sqr_products(Ctx<NW>& c, const int* a, int* t) {
@@ -407,7 +446,8 @@ LC_HD void fq2sqr_finish(Ctx<NW>& c, const int* a, const int* t, int* out) {
 // -- the block: loads, stores, and the run of its rows' stages ----------------
 
 // The words of the constant table a block of Row stages: all of it, or
-// one under LF_COOP_K_GLOBAL (canon's own count is beside its layout).
+// one, which stages nothing, under LF_COOP_K_GLOBAL (fold's and canon's
+// own counts are beside their layouts).
 template <template <int> class Row>
 struct StagedK {
   static constexpr int WORDS = K_STAGED;
@@ -423,8 +463,9 @@ struct Block : Warps<NW, R> {
 
 // Rows block * R .. block * R + R - 1 of the nin inputs, W digits a row
 // (F2 for Fq2 values, NL for Fq), into each row's in; zeros for a row past
-// n.  Returns the table the steps read: the block's copy of K, staged
-// here, or K itself under LF_COOP_K_GLOBAL.
+// n.  Returns the table the steps read: the block's copy of the table's
+// first StagedK<Row>::WORDS words, staged here, or K itself when that is
+// one word.
 //
 // A loop a row, here and in store_rows, and row 0 written out in
 // run_stages for one row a block: ptxas's allocation of the ladder kernels
@@ -434,10 +475,10 @@ struct Block : Warps<NW, R> {
 template <int W, template <int> class Row, int NW, int R>
 LC_HD const int* load_rows(const float* const* in, int nin, int n, int block, const int* K,
                            Block<Row, NW, R>& s) {
-#ifndef LF_COOP_K_GLOBAL
-  LC_BLOCK_FOR(i, lf::K_LEN) s.K[i] = K[i];
-  K = s.K;
-#endif
+  if constexpr (StagedK<Row>::WORDS > 1) {
+    LC_BLOCK_FOR(i, StagedK<Row>::WORDS) s.K[i] = K[i];
+    K = s.K;
+  }
   for (int r = 0; r < R; ++r) {
     const int row = block * R + r;
     int* dst = reinterpret_cast<int*>(s.row[r].in);
@@ -954,6 +995,45 @@ LC_HD void block_fq2sqr(const float* const* in, float* const* out, int n, int bl
   store_rows<F2>(s, 2, out, n, block);
 }
 
+// -- fused_core._fold_k --------------------------------------------------------
+
+// in: x (loose, Fq); out: x folded (semi-strict)
+template <int NW>
+struct Fold {
+  int in[1][NL];
+  int out[NL];
+  int scr[NW * SCR];
+};
+
+// The schedule: 0: the entry fold                                   1 S
+template <int NW>
+struct FoldStages {
+  Fold<NW>* s;
+  LC_MHD void operator()(int, Ctx<NW>& c) const { t_fold<22>(c, raw(s->in[0]), s->out); }
+};
+
+// The table's words fold reads: the three RED rows of m_fold at the bound
+// 22, the table's first 150 (LF_FOLD_K_STAGED=1 stages them, 0 reads them
+// from global memory)
+#if LF_FOLD_K_STAGED && !defined(LF_COOP_K_GLOBAL)
+constexpr int FOLD_K_WORDS = (NL + lf::carry_extra(22) - (NL - 1)) * NL;
+#else
+constexpr int FOLD_K_WORDS = 1;
+#endif
+static_assert(lf::K_RED == 0, "fold stages the table's first words");
+template <>
+struct StagedK<Fold> {
+  static constexpr int WORDS = FOLD_K_WORDS;
+};
+
+template <int NW, int R>
+LC_HD void block_fold(const float* const* in, float* const* out, int n, int block,
+                      const int* K, Block<Fold, NW, R>& s) {
+  const int* k = load_rows<NL>(in, 1, n, block, K, s);
+  run_stages<FoldStages>(s, k, 1);
+  store_rows<NL>(s, 1, out, n, block);
+}
+
 // -- fused_core._canon_k -------------------------------------------------------
 
 // The inputs of an exact ripple: digit i of a buffer of WIN digits (zero
@@ -1193,6 +1273,61 @@ LC_HD void block_canon(const float* const* in, float* const* out, int n, int blo
 #endif
 }
 
+// -- pallas_fuse(tower.fq2_mul): the JAX limbs library's Fq2 product ------------
+
+// in: a b (semi-strict); out: a b in Fq2, in the digits of the JAX limbs
+// library's tower.fq2_mul
+template <int NW>
+struct LibFq2Mul {
+  int in[2][F2];
+  int out[F2];
+  int t[3 * NL];  // the products t0 t1 t2
+  int s[F2];      // the strict sums sa = strict(a0 + a1), sb = strict(b0 + b1)
+  int scr[NW * SCR];
+};
+
+// The limbs steps, each with the limbs library's carry counts: fp_strict of
+// a sum is fold<24> of 50 digits; fp_mul is mul; fp_sub is fold<24> of
+// limbs_sub's 51 digits, 53 columns with the headroom, whose 3 output
+// passes (reduce's, at bound 22) are limbs._finalize's carry at bound 23.
+// The Karatsuba follows the limbs algorithm, not the fused path's
+// (fq2mul_products multiplies the unfolded sums): t2 is the product of the
+// strict sums, and out1 = fp_sub(t2, t0 + t1).
+// The schedule (S = Fq step; a fold reads no product of its own stage):
+//   0: t0 = a0 b0, t1 = a1 b1 (products); sa, sb                   2 mul + 2 S
+//   1: t2 = sa sb (product); out0 = fp_sub(t0, t1)                 1 mul + 1 S
+//   2: out1 = fp_sub(t2, t0 + t1)                                  1 S
+static_assert(lf::carry_passes(22) == lf::carry_passes(23),
+              "reduce's output passes stand for limbs' carry at bound 23");
+template <int NW>
+struct LibFq2MulStages {
+  LibFq2Mul<NW>* s;
+  LC_MHD void operator()(int st, Ctx<NW>& c) const {
+    LibFq2Mul<NW>& r = *s;
+    const int* a = r.in[0];
+    const int* b = r.in[1];
+    if (st == 0) {
+      t_mul(c, a, nullptr, b, nullptr, r.t);
+      t_mul(c, a + NL, nullptr, b + NL, nullptr, r.t + NL);
+      t_fold<24>(c, add(a, a + NL), r.s);
+      t_fold<24>(c, add(b, b + NL), r.s + NL);
+    } else if (st == 1) {
+      t_mul(c, r.s, nullptr, r.s + NL, nullptr, r.t + 2 * NL);
+      t_fold<24, NL + 1>(c, limbs_sub(r.t, r.t + NL, nullptr), r.out);
+    } else {
+      t_fold<24, NL + 1>(c, limbs_sub(r.t + 2 * NL, r.t, r.t + NL), r.out + NL);
+    }
+  }
+};
+
+template <int NW, int R>
+LC_HD void block_library_fq2_mul(const float* const* in, float* const* out, int n, int block,
+                                 const int* K, Block<LibFq2Mul, NW, R>& s) {
+  const int* k = load_rows<F2>(in, 2, n, block, K, s);
+  run_stages<LibFq2MulStages>(s, k, 3);
+  store_rows<F2>(s, 1, out, n, block);
+}
+
 // -- the kernels' blocks (warps a row, rows a block) ----------------------------
 
 using Lad1Block = Block<Lad1, LAD_WARPS, 1>;
@@ -1203,6 +1338,8 @@ using Fq2MulBlock = Block<Fq2Mul, FQ2MUL_WARPS, FQ2MUL_ROWS>;
 using Pow16MulBlock = Block<Pow16Mul, 1, POW16_ROWS>;
 using MulBlock = Block<Mul, MUL_WARPS, MUL_ROWS>;
 using Fq2SqrBlock = Block<Fq2Sqr, FQ2SQR_WARPS, FQ2SQR_ROWS>;
+using FoldBlock = Block<Fold, 1, FOLD_ROWS>;
+using LibFq2MulBlock = Block<LibFq2Mul, LIB_FQ2MUL_WARPS, LIB_FQ2MUL_ROWS>;
 // canon's registers sized for 2,048 threads a SM (32 a thread), so that
 // the 5,120 one-warp rows of its largest launch fit one wave
 struct CanonBlock : Block<Canon, 1, CANON_ROWS> {

@@ -2,24 +2,18 @@
 // (sm_90a).  Each __global__ replaces one Pallas TPU kernel of the JAX
 // package.
 //
-// Design of fold (first, simple version): one thread per row of the flat
-// row axis, 32 threads a block (its path has 1,024 rows, so small blocks
-// spread them over more SMs), every index checked against n; it runs
-// field.cuh's row_fold.  A row's digits live in per-thread int32 arrays in
-// local memory, and the heavy steps are real calls rather than inlined
-// copies.  There is no shared memory and no tensor-core use.
-//
-// The other nine (redesigned: the G2 ladder's round kernels lad1, lad2
-// and lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and canon) are
+// All ten (the G2 ladder's round kernels lad1, lad2 and lad3,
+// fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr, fold and canon) are
 // cooperative: one warp per Fq step, the digits across the lanes, each
 // row's values (and the block's constant table, or the slices of it that
-// canon reads) in shared memory (field_coop.cuh).  The ladder kernels and
-// fq2pow16mul run one row a block on 8 or 4 warps; fq2mul, pow16mul, mul,
-// fq2sqr and canon, whose rows are short chains (1 to 6 stages), several
-// rows a block where that pays for the table's staging (the *Block
-// aliases of field_coop.cuh).  One thread per row left 1 to 160 of the
-// 132 SMs with one warp each at the paths' shapes, walking a serial chain
-// of 1 to 33 Fq products, or canon's 260 dependent carry steps.
+// fold and canon read) in shared memory (field_coop.cuh).  The ladder
+// kernels and fq2pow16mul run one row a block on 8 or 4 warps; fq2mul,
+// pow16mul, mul, fq2sqr, fold and canon, whose rows are short chains (1 to
+// 6 stages), several rows a block where that pays for the table's staging
+// (the *Block aliases of field_coop.cuh).  Their first versions ran one
+// thread per row, which left 1 to 160 of the 132 SMs with one warp each at
+// the paths' shapes, walking a serial chain of 1 to 33 Fq products, or
+// canon's 260 dependent carry steps.
 //
 // What bounds them on this card: integer multiply-add throughput.  An Fq
 // product is 2,500 digit multiply-adds for the schoolbook plus 2,600 for
@@ -37,18 +31,18 @@
 // compiles this file once per kernel, all ten nvcc processes at once, and
 // links the objects into one library.
 
-#include "field.cuh"
 #include "launchers.cuh"
 
 #ifdef LF_KERNEL_fold
-// Replaces fused_core.py _fold_k (f_fold): loose -> semi-strict, two carry
-// passes around a three-row fold.  About 150 multiply-adds against 400
-// bytes a row: close to the memory side of the roofline.
-__global__ void fold_k(Ptrs p, int n, const int* __restrict__ K) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row < n) lf::row_fold(p.in, p.out, row, K);
-}
-LF_LAUNCHER(fold, 1, 1)
+#include "field_coop.cuh"
+// Replaces fused_core.py _fold_k (f_fold): loose -> semi-strict, carry
+// passes around a three-row fold, one step on one warp a row,
+// lfc::FOLD_ROWS rows a block, the three RED rows read from global memory
+// (LF_FOLD_K_STAGED=1: staged a block).  About 150 multiply-adds against
+// 400 bytes a row: the memory side of the roofline, where at its path's
+// 1,024 rows the launch itself (an empty kernel takes ~1.2 us) is most of
+// the time.
+LF_COOP_KERNEL(fold, 1, 1, lfc::FoldBlock)
 #endif
 
 #ifdef LF_KERNEL_mul

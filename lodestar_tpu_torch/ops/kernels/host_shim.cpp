@@ -1,35 +1,20 @@
-// Host build of the kernels' row bodies (field.cuh, field_coop.cuh,
-// tower_coop.cuh, limbs.cuh) and of the ring hop's plan and per-thread
-// body (ring_hop.cuh) with a plain C interface, for the CPU parity test:
-// the same arithmetic the CUDA kernels run, looped over rows (the hop:
-// over its grid's threads) on the CPU.  The cooperative bodies of lad1,
-// lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr, canon and the
-// four tower kernels walk their blocks, and in each its rows' warps and
-// lanes, in turn (backwards under -DLC_HOST_REVERSED), over one host copy
-// of their shared-memory layout at the kernels' warp and row counts,
-// filled with -1 before each block so that a read of a value the block
-// did not write shows.  Built with g++ by tests/test_torch_kernel_host.py;
-// not part of the device path.
+// Host build of the row kernels' block bodies (field_coop.cuh,
+// tower_coop.cuh) and of the ring hop's plan and per-thread body
+// (ring_hop.cuh) with a plain C interface, for the CPU parity test: the
+// same arithmetic the CUDA kernels run, on the CPU.  The cooperative
+// bodies of the fifteen row kernels walk their blocks, and in each its
+// rows' warps and lanes, in turn (backwards under -DLC_HOST_REVERSED), over
+// one host copy of their shared-memory layout at the kernels' warp and row
+// counts, filled with -1 before each block so that a read of a value the
+// block did not write shows; the hop walks its grid's threads.  Built with
+// g++ by tests/test_torch_kernel_host.py; not part of the device path.
 
 #include <algorithm>
 #include <memory>
 
 #include "field_coop.cuh"
-#include "limbs.cuh"
 #include "ring_hop.cuh"
 #include "tower_coop.cuh"
-
-#define LF_HOST(NAME)                                                        \
-  extern "C" int host_##NAME(void* const* ins, void* const* outs, int n,     \
-                             const void* consts) {                           \
-    const float* in[16] = {};                                                \
-    float* out[12] = {};                                                     \
-    for (int i = 0; i < 16 && ins[i]; ++i) in[i] = (const float*)ins[i];     \
-    for (int i = 0; i < 12 && outs[i]; ++i) out[i] = (float*)outs[i];        \
-    for (int row = 0; row < n; ++row)                                        \
-      lf::row_##NAME(in, out, row, (const int*)consts);                      \
-    return 0;                                                                \
-  }
 
 #ifdef LC_HOST_REVERSED
 #define LF_HOST_BLOCK(i, blocks) ((blocks) - 1 - (i))
@@ -59,7 +44,7 @@ LF_HOST_COOP(fq2mul, Fq2MulBlock)
 LF_HOST_COOP(fq2sqr, Fq2SqrBlock)
 LF_HOST_COOP(pow16mul, Pow16MulBlock)
 LF_HOST_COOP(fq2pow16mul, Fq2Pow16MulBlock)
-LF_HOST(fold)
+LF_HOST_COOP(fold, FoldBlock)
 LF_HOST_COOP(canon, CanonBlock)
 LF_HOST_COOP(lad1, Lad1Block)
 LF_HOST_COOP(lad2, Lad2Block)
@@ -68,7 +53,7 @@ LF_HOST_COOP(tower_fq2_mul, TowerFq2MulBlock)
 LF_HOST_COOP(tower_fq2_sqr, TowerFq2SqrBlock)
 LF_HOST_COOP(tower_fq6_mul, TowerFq6MulBlock)
 LF_HOST_COOP(tower_fq12_mul, TowerFq12MulBlock)
-LF_HOST(library_fq2_mul)
+LF_HOST_COOP(library_fq2_mul, LibFq2MulBlock)
 
 // The ring hop: launch_ring_hop's plan for these pointers, every thread of
 // its grid in turn (backwards under -DLC_HOST_REVERSED), the same index

@@ -1,7 +1,6 @@
-// The launchers of the row kernels (fused_kernels.cu, tower_kernels.cu):
-// the kernels' parameter block and the two launcher macros, one for a
-// kernel of one thread a row, one for a cooperative kernel (field_coop.cuh,
-// tower_coop.cuh).
+// The launchers of the row kernels (fused_kernels.cu, tower_kernels.cu,
+// library_kernels.cu): the kernels' parameter block and the launcher macro
+// of a cooperative kernel (field_coop.cuh, tower_coop.cuh).
 //
 // Every launcher is extern "C" with a plain interface for ctypes: input
 // and output pointer arrays, the row count, the int32 constant table, the
@@ -11,13 +10,7 @@
 
 #include <cuda_runtime.h>
 
-#ifndef LF_THREADS
-#define LF_THREADS 32  // another block size only for the card tests' variants
-#endif
-
 namespace {
-
-constexpr int kThreads = LF_THREADS;
 
 struct Ptrs {
   const float* in[16];
@@ -33,19 +26,6 @@ static Ptrs make_ptrs(void* const* ins, int nin, void* const* outs, int nout) {
 }
 
 }  // namespace
-
-// One thread a row, kThreads threads a block, every index checked against
-// n by the kernel NAME_k.
-#define LF_LAUNCHER(NAME, NIN, NOUT)                                              \
-  extern "C" int launch_##NAME(void* const* ins, void* const* outs, int n,        \
-                               const void* consts, void* stream) {                \
-    if (n <= 0) return 0;                                                         \
-    const Ptrs p = make_ptrs(ins, NIN, outs, NOUT);                               \
-    const int blocks = (n + kThreads - 1) / kThreads;                             \
-    NAME##_k<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(         \
-        p, n, static_cast<const int*>(consts));                                   \
-    return static_cast<int>(cudaGetLastError());                                  \
-  }
 
 // One block of LAYOUT::THREADS per LAYOUT::ROWS rows; the rows' values, the
 // constant table and every warp's scratch in dynamic shared memory (the

@@ -6,9 +6,9 @@ op's jaxpr inside one Pallas kernel, bit-identical to the op.  PyTorch has
 no jaxpr to replay, so the factory does not port; its one instance in the
 JAX package, ``pallas_fuse(tower.fq2_mul)`` (the kernel-library registry
 ``analysis/pallas_audit.pallas_entry_points``), does: ``fq2_mul`` is one
-hand-written CUDA kernel (``kernels/library_kernels.cu``, row body in
-``kernels/limbs.cuh``) that gives the JAX library ``tower.fq2_mul``'s
-digits bitwise.  Its plain version, ``fq2_mul_many``, is
+hand-written CUDA kernel (``kernels/library_kernels.cu``, block body
+``block_library_fq2_mul`` in ``kernels/field_coop.cuh``) that gives the
+JAX library ``tower.fq2_mul``'s digits bitwise.  Its plain version, ``fq2_mul_many``, is
 ``tower.fq2_mul_many`` written over the port's ``limbs`` ops, which equal
 the JAX ``limbs`` ops bitwise.
 

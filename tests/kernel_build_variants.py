@@ -3,18 +3,17 @@ against the plain versions on the card.
 
     python3 tests/kernel_build_variants.py [--kernels a,b,...] [variant ...]
 
-The port builds field.cuh, field_coop.cuh and limbs.cuh with their heavy
-steps (fold, the digit product, the library kernel's strict sum, product
-and subtraction) as real calls.  With
-every step inlined (``-DLF_INLINE_ALL``, the layout of the kernels' first
-build) some kernels give wrong digits on the card, although g++ builds the
-same source bitwise right.  Each variant here changes one thing about that
-build (block size, ptxas optimisation level, device debug), so the table
-shows which stage of the compiler the fault follows.  The cooperative
-kernels lad1, lad2, lad3, fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr and
-canon (field_coop.cuh) and the four tower kernels (tower_coop.cuh) keep
-the product and the fold as calls too; the
-``ptxas-O1`` variant holds them at another ptxas level, the ``*-warps``
+The port builds field_coop.cuh and tower_coop.cuh with their heavy steps
+(the fold and the digit product) as real calls.  With every step inlined
+(``-DLF_INLINE_ALL``, the layout of the first, one-thread kernels) some of
+those kernels gave wrong digits on the card, although g++ built the same
+source bitwise right; the ``inlined*`` variants build the cooperative
+kernels that way, each changing one more thing (ptxas optimisation level,
+device debug), so the table shows which stage of the compiler a fault
+follows.  The cooperative kernels lad1, lad2, lad3, fq2pow16mul, fq2mul,
+pow16mul, mul, fq2sqr, fold, canon and library_fq2_mul (field_coop.cuh)
+and the four tower kernels (tower_coop.cuh): the ``ptxas-O1`` variant
+holds them at another ptxas level, the ``*-warps``
 variants at other block sizes (``LF_COOP_WARPS``: the ladder kernels'
 warps a block, 8 by default; ``LF_POW_WARPS``: fq2pow16mul's, 4;
 ``LF_FQ2MUL_WARPS``: fq2mul's warps a row, 3; ``LF_MUL_WARPS`` and
@@ -35,7 +34,12 @@ tower_fq2_mul (``LF_TOWER_FQ2_WARPS``, ``LF_TOWER_FQ2_ROWS``: 3 and 2), the
 ``tower-fq2sqr-*`` variants the same of tower_fq2_sqr
 (``LF_TOWER_FQ2SQR_WARPS``, ``LF_TOWER_FQ2SQR_ROWS``: 3 and 2), the
 ``tower-fq6-*`` variants at other warps a block of tower_fq6_mul
-(``LF_TOWER_FQ6_WARPS``, 12 by default), and
+(``LF_TOWER_FQ6_WARPS``, 12 by default), the ``fold-*`` variants at other
+rows a block of fold (``LF_FOLD_ROWS``, 2 by default) with the RED rows
+it reads from global memory (the default) or staged a block
+(``LF_FOLD_K_STAGED=1``, ``fold-k-staged-*``), the ``lib-fq2mul-*``
+variants at other warps a row and rows a block of library_fq2_mul
+(``LF_LIB_FQ2MUL_WARPS``, ``LF_LIB_FQ2MUL_ROWS``: 2 and 2), and
 ``ring-scalar``, the ring hop without its float4 path
 (``LF_RING_VEC=0``).
 
@@ -92,7 +96,6 @@ def _mul_fq2sqr(warps: int, rows: int):
 VARIANTS = {
     "calls": (),
     "inlined": (INLINE,),
-    "inlined-128-threads": (INLINE, "-DLF_THREADS=128"),
     "inlined-ptxas-O0": (INLINE, "-Xptxas", "-O0"),
     "inlined-ptxas-O1": (INLINE, "-Xptxas", "-O1"),
     "inlined-ptxas-O2": (INLINE, "-Xptxas", "-O2"),
@@ -134,6 +137,15 @@ VARIANTS = {
                                                           f"-DLF_TOWER_FQ2SQR_ROWS={r}")
        for w in (1, 2, 3) for r in (1, 2, 3, 4) if (w, r) != (3, 2)},
     **{f"tower-fq6-{w}-warps": (f"-DLF_TOWER_FQ6_WARPS={w}",) for w in (6, 8, 9, 16, 18, 24)},
+    # fold's rows a block, its three RED rows read from global memory (the
+    # default) or staged a block; library_fq2_mul's warps a row and rows a
+    # block
+    **{f"fold-rows-{r}": (f"-DLF_FOLD_ROWS={r}",) for r in (1, 4, 8)},
+    **{f"fold-k-staged-rows-{r}": (f"-DLF_FOLD_ROWS={r}", "-DLF_FOLD_K_STAGED=1")
+       for r in (1, 2, 4, 8)},
+    **{f"lib-fq2mul-{w}-warp{'s' * (w > 1)}-rows-{r}": (f"-DLF_LIB_FQ2MUL_WARPS={w}",
+                                                        f"-DLF_LIB_FQ2MUL_ROWS={r}")
+       for w in (1, 2, 3, 4) for r in (1, 2, 4) if (w, r) != (2, 2)},
     "k-global": ("-DLF_COOP_K_GLOBAL",),
     "k-global-rows-1": ("-DLF_COOP_K_GLOBAL", *_rows(1)),
     **{f"k-global-mul-fq2sqr-{w}-warp{'s' * (w > 1)}-rows-{r}": ("-DLF_COOP_K_GLOBAL", *_mul_fq2sqr(w, r))

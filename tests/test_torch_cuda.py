@@ -3,8 +3,8 @@
 Run on the H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Each kernel (the fused path's ten, the XLA-graph path's four tower
 kernels and the library kernel) is held bitwise against its plain version
-on the same CUDA inputs (the eleven cooperative kernels of chip_smoke.COOP
-also at 1 to 2,560 rows and at the digit bounds, and their launches do not
+on the same CUDA inputs (the cooperative kernels of chip_smoke.COOP, every
+row kernel, also at 1 to 2,560 rows and at the digit bounds, and their launches do not
 wait for the card; canon also at its path's 512, 1,280 and 5,120 rows and
 at the edges of its branches), the library kernel also against the JAX vectors
 of pallas_fuse(tower.fq2_mul) and the registry's every entry, and the
@@ -70,8 +70,9 @@ def test_kernel_equals_plain_version_on_the_card(name, rows, card):
 def test_cooperative_ladder_kernel_equals_plain_version_on_the_card(name, rows, seed, card):
     """The cooperative kernels (lad1, lad2, lad3, fq2pow16mul,
     tower_fq6_mul and tower_fq12_mul one row a block, fq2mul, pow16mul,
-    mul, fq2sqr, canon, tower_fq2_mul and tower_fq2_sqr as many as their
-    builds set, with a partial last block at the odd counts): seeded rows
+    mul, fq2sqr, fold, canon, tower_fq2_mul, tower_fq2_sqr and
+    library_fq2_mul as many as their builds set, with a partial last block
+    at the odd counts): seeded rows
     and rows at the digit bounds (2^22 - 1 loose, 256 semi-strict),
     bitwise."""
     k = fc.KERNELS[name]

@@ -1,30 +1,31 @@
 """The CUDA kernels' row arithmetic, built for the CPU.
 
-field.cuh and limbs.cuh hold the one-thread row bodies of fold and the
-library kernel as __host__ __device__ functions, field_coop.cuh the
-cooperative block bodies of lad1, lad2, lad3, fq2pow16mul, fq2mul,
-pow16mul, mul, fq2sqr and canon, tower_coop.cuh those of the four tower
-kernels (one warp per step; one row a block, or several for fq2mul,
-pow16mul, mul, fq2sqr, canon, tower_fq2_mul and tower_fq2_sqr), whose
-blocks, rows, warps and lanes the host build walks in turn, and
-ring_hop.cuh the ring hop's plan and per-thread body;
-ops/kernels/host_shim.cpp wraps them in a plain C interface.  Here g++
-builds that shim (into build/, keyed by the sources' hash) and the fifteen
-row bodies are held bitwise against the plain PyTorch versions; the
-cooperative ones also with their lanes and warps walked in the reverse
+field_coop.cuh holds the cooperative block bodies of lad1, lad2, lad3,
+fq2pow16mul, fq2mul, pow16mul, mul, fq2sqr, fold, canon and the library
+kernel library_fq2_mul as __host__ __device__ functions, tower_coop.cuh
+those of the four tower kernels (one warp per step; one row a block, or
+several for fq2mul, pow16mul, mul, fq2sqr, fold, canon, tower_fq2_mul,
+tower_fq2_sqr and library_fq2_mul), whose blocks, rows, warps and lanes
+the host build walks in turn, and ring_hop.cuh the ring hop's plan and
+per-thread body; ops/kernels/host_shim.cpp wraps them in a plain C
+interface.  Here g++ builds that shim (into build/, keyed by the sources'
+hash) and the fifteen row bodies are held bitwise against the plain
+PyTorch versions, also with their lanes and warps walked in the reverse
 order (-DLC_HOST_REVERSED) and on inputs at the digit bounds, canon also
 at the edges of its branches (and two broken copies of its ripple must
 fail those checks, as must the tower Karatsuba built with the fused
-path's finish or product, and the tower Fq2 square built with the fused
-path's product); the hop, its grid's threads walked both ways,
+path's finish or product, the tower Fq2 square built with the fused
+path's product, and the library kernel built with the fused path's
+subtraction or product); the hop, its grid's threads walked both ways,
 against copy_ at every tested length and pointer offset.  This checks the
 arithmetic the kernels run, not the kernels: the launches are checked on
 the card by chip_smoke.py and the cuda-marked tests.
 
-The same bodies, built with every step inlined (the layout that ptxas -O2
-and -O3 miscompile on the card, tests/kernel_build_variants.py) and
-without, run here under AddressSanitizer and UndefinedBehaviorSanitizer:
-the source reads no memory out of bounds and overflows no int."""
+The same bodies, built with every heavy step inlined (the layout of the
+first, one-thread kernels that ptxas -O2 and -O3 miscompiled on the card,
+tests/kernel_build_variants.py) and without, run here under
+AddressSanitizer and UndefinedBehaviorSanitizer: the source reads no
+memory out of bounds and overflows no int."""
 
 import ctypes
 import hashlib
@@ -57,8 +58,7 @@ def _gxx() -> str:
     return gxx
 
 
-HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower_coop.cuh", "limbs.cuh", "ring_hop.cuh",
-                "host_shim.cpp")
+HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower_coop.cuh", "ring_hop.cuh", "host_shim.cpp")
 
 
 def _host_build(flags, mutation=None) -> str:
@@ -98,7 +98,7 @@ def _host_build(flags, mutation=None) -> str:
     return lib
 
 
-COOP = chip_smoke.COOP  # the cooperative bodies of field_coop.cuh
+COOP = chip_smoke.COOP  # the cooperative bodies of field_coop.cuh and tower_coop.cuh
 PARTIAL_ROWS = 37  # rows that leave a partial last block for every rows-a-block count
 
 
@@ -182,14 +182,14 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     registers with spills), inlines the rest, and holds every digit in
     shared memory: its only arrays, and tower_coop.cuh's, are the rows'
     layouts, each a template over its warp count, and the Fq6 product's
-    work arrays that two of those layouts hold.  The cooperative kernels
-    of fused_kernels.cu and tower_kernels.cu run their block bodies and no
-    one-thread body of theirs is left in field.cuh."""
+    work arrays that two of those layouts hold.  The kernels of
+    fused_kernels.cu, tower_kernels.cu and library_kernels.cu run their
+    block bodies, field.cuh holds no row body, and no kernel is launched
+    one thread a row."""
     src = open(os.path.join(KDIR, "field_coop.cuh"), encoding="utf-8").read()
     assert re.search(r"^#define LC_STEP static __host__ __device__ __noinline__$", src, re.M)
     for step in ("fold", "mul"):
         assert re.search(rf"^LC_STEP void {step}\(", src, re.M), step
-    assert "LF_INLINE_ALL" not in src
     block = r"^template <template <int> class Row, int NW, int R>\nstruct Block : Warps<NW, R> \{\n.*?^\};"
     assert len(re.findall(block, src, re.M | re.S)) == 1
     # the row layouts (inputs first), each a template over its warp count
@@ -199,7 +199,7 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
     tower = open(os.path.join(KDIR, "tower_coop.cuh"), encoding="utf-8").read()
     assert '#include "field_coop.cuh"' in tower and "LC_STEP" not in tower
     fused_layouts = ["Lad1", "Lad2", "Lad3", "Fq2Pow16Mul", "Fq2Mul", "Pow16Mul", "Mul", "Fq2Sqr",
-                     "Canon"]
+                     "Fold", "Canon", "LibFq2Mul"]
     tower_layouts = ["TowerFq2Mul", "TowerFq2Sqr", "TowerFq6Mul", "TowerFq12Mul"]
     for text, want, want_shared in (
             (src, fused_layouts, fused_layouts),
@@ -216,8 +216,12 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
         assert name in _build.SOURCES, name  # an edit rebuilds the kernels
     launchers = open(os.path.join(KDIR, "launchers.cuh"), encoding="utf-8").read()
     assert "lfc::block_##NAME(" in launchers and "extern __shared__" in launchers
+    assert "LF_LAUNCHER" not in launchers and launchers.count("<<<") == 1
     row_bodies = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
-    header = {"fused_kernels.cu": "field_coop.cuh", "tower_kernels.cu": "tower_coop.cuh"}
+    assert "row_" not in row_bodies and "__global__" not in row_bodies
+    header = {"fused_kernels.cu": "field_coop.cuh", "tower_kernels.cu": "tower_coop.cuh",
+              "library_kernels.cu": "field_coop.cuh"}
+    assert sorted(COOP) == sorted(fc.KERNELS)
     for name in COOP:
         kernels = open(os.path.join(KDIR, _build.LAUNCHERS[name]), encoding="utf-8").read()
         assert '#include "launchers.cuh"' in kernels
@@ -229,21 +233,14 @@ def test_cooperative_steps_are_calls_and_keep_no_local_arrays():
 
 
 def test_heavy_steps_are_real_calls_in_the_kernels_build():
-    """ptxas -O2/-O3 miscompile the kernels when every step is inlined, so
-    the steps that make a kernel big stay out-of-line calls by default."""
-    src = open(os.path.join(KDIR, "field.cuh"), encoding="utf-8").read()
-    assert re.search(r"#else\n#define LF_CALL static __host__ __device__ __noinline__\n", src)
+    """ptxas -O2/-O3 miscompiled the kernels when every step was inlined,
+    so the steps that make a kernel big stay out-of-line calls by default;
+    only -DLF_INLINE_ALL (a variant build) inlines them."""
+    src = open(os.path.join(KDIR, "field_coop.cuh"), encoding="utf-8").read()
+    assert re.search(r"#ifdef LF_INLINE_ALL[^\n]*\n#define LC_STEP LC_HD\n#else\n"
+                     r"#define LC_STEP static __host__ __device__ __noinline__\n#endif\n", src)
     for step in ("fold", "mul"):
-        assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
-
-
-def test_library_kernel_heavy_steps_are_real_calls():
-    """limbs.cuh keeps its heavy steps out of line too (the same ptxas
-    fault would reach a fully inlined library kernel)."""
-    src = open(os.path.join(KDIR, "limbs.cuh"), encoding="utf-8").read()
-    for step in ("fold_tail", "finalize", "fp_strict", "fp_mul", "fp_sub"):
-        assert re.search(rf"^LF_CALL void {step}\(", src, re.M), step
-    assert "library_fq2_mul" in fc.KERNELS
+        assert re.search(rf"^LC_STEP void {step}\(", src, re.M), step
 
 
 @pytest.mark.parametrize("layout", ["calls", "inlined", "reversed"])
@@ -355,14 +352,30 @@ TOWER_MUTANT_CASES = [("sub-sum-finish", "tower_fq2_mul", 8192),
                       ("unfolded-sums", "tower_fq12_mul", PARTIAL_ROWS),
                       ("unfolded-square-sum", "tower_fq2_sqr", PARTIAL_ROWS)]
 
+# the library kernel with the fused path's steps in place of the limbs
+# library's: out0 through m_sub (the 50-digit bias-2^12 pad, 51 columns
+# and 2 passes at bound 13) in place of limbs.fp_sub (the width-51 pad, 53
+# columns and 3 passes at bound 24), and t2 the product of the unfolded
+# sums a0 + a1 and b0 + b1 (fq2mul_products') in place of the strict ones
+LIBRARY_MUTANTS = {
+    "fused-sub": ("field_coop.cuh",
+                  "t_fold<24, NL + 1>(c, limbs_sub(r.t, r.t + NL, nullptr), r.out);",
+                  "t_fold<13>(c, sub(r.t, r.t + NL), r.out);"),
+    "unfolded-sums": ("field_coop.cuh",
+                      "t_mul(c, r.s, nullptr, r.s + NL, nullptr, r.t + 2 * NL);",
+                      "t_mul(c, a, a + NL, b, b + NL, r.t + 2 * NL);"),
+}
+# The fused subtraction gives out0 the same value mod p in other digits on
+# seeded rows, and the unfolded sums differ as integers from the strict
+# ones in almost every row: both are caught on PARTIAL_ROWS.
+LIBRARY_MUTANT_CASES = [("fused-sub", PARTIAL_ROWS), ("unfolded-sums", PARTIAL_ROWS)]
 
-@pytest.mark.parametrize("mutant, name, rows", TOWER_MUTANT_CASES)
-def test_host_test_catches_the_fused_paths_karatsuba_in_the_tower_kernels(mutant, name, rows):
-    """The tower kernels' digits are pallas_tower's: a Karatsuba built
-    from a copy of the sources with the fused path's finish or product
-    (the same value mod p in other digits) differs from the plain version
-    on seeded and digit-bound rows."""
-    lib = ctypes.CDLL(_host_build(["-O2"], TOWER_MUTANTS[mutant]))
+
+def _mutant_rows_differ(mutation, name: str, rows: int) -> int:
+    """Rows of kernel ``name``, built from a copy of the sources with the
+    mutation, that differ from the plain version on ``rows`` seeded and
+    ``rows`` digit-bound rows."""
+    lib = ctypes.CDLL(_host_build(["-O2"], mutation))
     k = fc.KERNELS[name]
     rng = np.random.default_rng(9)
     differ = 0
@@ -370,7 +383,27 @@ def test_host_test_catches_the_fused_paths_karatsuba_in_the_tower_kernels(mutant
         ins = make(k, rows, rng, "cpu")
         differ += sum(int((g != w).reshape(rows, -1).any(1).sum())
                       for g, w in zip(run_host(lib, name, ins), k.plain(*ins)))
+    return differ
+
+
+@pytest.mark.parametrize("mutant, name, rows", TOWER_MUTANT_CASES)
+def test_host_test_catches_the_fused_paths_karatsuba_in_the_tower_kernels(mutant, name, rows):
+    """The tower kernels' digits are pallas_tower's: a Karatsuba built
+    from a copy of the sources with the fused path's finish or product
+    (the same value mod p in other digits) differs from the plain version
+    on seeded and digit-bound rows."""
+    differ = _mutant_rows_differ(TOWER_MUTANTS[mutant], name, rows)
     assert differ > 0, f"the mutant {mutant} of {name} passed the host checks"
+
+
+@pytest.mark.parametrize("mutant, rows", LIBRARY_MUTANT_CASES)
+def test_host_test_catches_the_fused_paths_steps_in_the_library_kernel(mutant, rows):
+    """The library kernel's digits are the JAX limbs library's: built from
+    a copy of the sources with the fused path's subtraction or Karatsuba
+    product (the same value mod p in other digits), it differs from the
+    plain version on seeded and digit-bound rows."""
+    differ = _mutant_rows_differ(LIBRARY_MUTANTS[mutant], "library_fq2_mul", rows)
+    assert differ > 0, f"the mutant {mutant} of library_fq2_mul passed the host checks"
 
 
 # -- the ring hop ------------------------------------------------------------------

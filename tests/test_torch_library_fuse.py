@@ -111,7 +111,7 @@ def test_the_library_kernel_is_built_with_the_others():
     from lodestar_tpu_torch.ops.kernels import _build
 
     assert _build.LAUNCHERS["library_fq2_mul"] == "library_kernels.cu"
-    assert {"limbs.cuh", "library_kernels.cu"} <= set(_build.SOURCES)
+    assert {"field_coop.cuh", "library_kernels.cu"} <= set(_build.SOURCES)
     assert len(_build.LAUNCHERS) == 16
     # the width-51 pad of limbs.fp_sub sits at the end of the kernels' table
     np.testing.assert_array_equal(fc._CONST_TABLE[-(fl.NLIMBS + 1):],
