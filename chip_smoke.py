@@ -35,9 +35,26 @@ its wall time on a line of its own:
    is outside the window (it is printed beside them as ``issue_ms``, 20
    eager calls between events).
 
+2b. graphs: the verifier's per-bucket CUDA graphs
+   (``crypto/bls/bucket_program.py``) for both programs and both modes
+   (``--split-only`` and ``--fused-only``: the fused program's two) at
+   buckets 4 and 128: each bucket's ``warmup`` (the eager run, the
+   capture and the instantiation seconds, the device memory it reserved,
+   the port kernels' launches a replay); then, both buckets' graphs made
+   in the card's one pool, at each bucket a valid batch of the phase's
+   sets through the eager ops entry and through the graph, every launch
+   counter 0 before each: the outputs (f's digits and ok, or the verdict)
+   and the verdicts bitwise equal, every kernel launched as often; and a
+   valid and a corrupted batch in flight at once, read in reverse order:
+   False, then True.  Its verifiers, their graphs made, carry phases 3-7
+   and 11; phases 10 and 12 warm theirs up first: every per-card batch of
+   those phases is a replay.
+
 Phases 3-10 measure the full-device mode (``host_final_exp=False``: the
 final exponentiation on the card), as before the split dispatch was
-ported; phases 11-12 the split default.
+ported; phases 11-12 the split default.  The launch counts of a replayed
+batch are its graph's capture record, added by each replay; the row
+histograms of phases 3, 6 and 11 are read from that record.
 
 3. fused slice: 128 real signature sets (interop keys, the port's own
    oracle) through ``TorchBlsVerifier.verify_signature_sets`` at bucket
@@ -51,15 +68,16 @@ ported; phases 11-12 the split default.
    equals the CPU plain run's canonically, digit for digit;
 4. fused times: three batches of 128 fresh signatures (new messages, so
    no signature is in the verifier's point cache; the public keys are, as
-   on a node), each timed as pack then device dispatch to the verdict on
-   the host clock; the best batch gives sets/s;
-5. fused profile: one more fresh batch's dispatch under
+   on a node), each timed as pack then device dispatch (a replay) to the
+   verdict on the host clock; the best batch gives sets/s;
+5. fused profile: one more fresh batch's replay under
    ``torch.profiler``: the device time of the port's kernels and of
    PyTorch's glue kernels, and the device's idle share over that dispatch;
-   then the ladder stretch of that batch (the 128 iterations of
-   ``point_mul_bits_ladder`` between two marker kernels): the host's wall
-   across it, the device's span and busy time in it, its idle share; then
-   the host's cost of one eager launch with the card idle and busy;
+   then the ladder stretch of an eager run of that batch through the ops
+   entry (the 128 iterations of ``point_mul_bits_ladder`` between two
+   marker kernels): the host's wall across it, the device's span and busy
+   time in it, its idle share; then the host's cost of one eager launch
+   with the card idle and busy;
 6. XLA slice: the same four batches through
    ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
    ``ops/batch_verify``) with every launch counter set to 0 just before
@@ -70,7 +88,7 @@ ported; phases 11-12 the split default.
    canonically (the XLA path's digits depend on the order of the glue, so
    the comparison is on the canonical residues);
 7. XLA times and profile: phases 4 and 5 for the XLA-graph program
-   (profiled with device activity only: the program makes about a million
+   (profiled with device activity only: a replay makes about 630,000
    launches);
 8. ring: the ring hop kernel alone against ``copy_`` at chunks of 0-40,
    600, 1,027 and 4,099 floats, pointers 0, 4, 8 and 12 bytes past a
@@ -108,18 +126,23 @@ ported; phases 11-12 the split default.
     plus the sync on the event after the copies of ok and f to the host),
     read of f's host copy and host final exponentiation, and sets/s beside
     phase 4's; one more batch of 128 whose fq2mul, pow16mul, mul, fq2sqr,
-    fold and canon launches are logged as a histogram of their row counts; one batch's dispatch
+    fold and canon launches are logged as a histogram of their row counts
+    (its graph's record); one batch's dispatch
     under ``torch.profiler`` (as phase 5), the device's idle share over
     the best device Miller product; the XLA-graph split at bucket 16
     (valid, corrupted; its kernels but the Fq6 product, which only the
     final exponentiation runs, launched; the row counts of the valid
-    batch's tower_fq2_mul, tower_fq2_sqr and tower_fq12_mul launches);
-    the sharded split at bucket 256 over 2 logical shards
+    batch's tower_fq2_mul, tower_fq2_sqr and tower_fq12_mul launches; its
+    graph made at bucket 16 first); the sharded split at bucket 256
+    over 2 logical shards
     (valid, corrupted, a signature outside G2 in shard 1, one fresh timed
     batch) and over 4 (150 live sets: shard 3 all padding); with two or
     more cards, the sharded split across cuda:0 and cuda:1;
 12. pool: ``BlsBatchPool(TorchBlsVerifier(), pipeline_depth=2,
-    flush_threshold=128, max_buffer_wait=0.02)`` given 512 fresh sets at
+    flush_threshold=128, max_buffer_wait=0.02)``, the verifier's
+    ``warmup()`` of every bucket first (its seconds, the device memory it
+    reserved, each graph's eager run, capture and instantiation seconds),
+    given 512 fresh sets at
     once as 256 gossip jobs of 1-3 sets and one 64-set job at
     block-proposal priority, every launch counter set to 0 just before:
     every verdict True, each fused kernel launched, sets/s, batches
@@ -136,15 +159,16 @@ ported; phases 11-12 the split default.
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
 
-The last lines: the paths side by side, the ``kernels`` JSON object, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines: the paths side by side, the whole run's wall, the
+``kernels`` JSON object, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --split-only
     python3 chip_smoke.py --fused-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
-cross-card legs), phases 1, 2, 11 and 12, or phases 1-5, 11 and 12 (every
+cross-card legs), phases 1, 2, 2b, 11 and 12, or phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), and end with the card line and ``{"ok": true, ...}`` without
 the ``kernels`` object.
@@ -312,6 +336,9 @@ LIBRARY = ("library_fq2_mul",)
 # final exponentiation, which the split dispatch leaves to the host
 XLA_SPLIT = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq12_mul")
 SPLIT_XLA_BUCKET = 16  # the XLA-graph split's verdicts, at a bucket that keeps the run short
+GRAPH_BUCKETS = (4, BUCKET)  # the buckets phase 2b holds each program's graph at
+# (fused, host_final_exp) of the four per-card programs
+PROGRAMS = ((True, False), (False, False), (True, True), (False, True))
 POOL_SETS = 512  # gossip sets phase 12 submits at once
 POOL_BLOCK_SETS = 64  # the block-proposal job's sets
 
@@ -698,8 +725,11 @@ def profile_dispatch(packed, verifier, dispatch_s: float, card: str, kernels, pa
         dev_us = ev.device_time_total
         if dev_us <= 0 or ev.key.startswith(("cuda", "aten::")):
             continue
-        if ev.key.split("(")[0] in ours:
-            per_kernel[ev.key.split("(")[0]] = {"device_ms": dev_us / 1e3, "launches": ev.count}
+        name = ev.key.split("(")[0]
+        if name in ours:  # summed over every entry under the name
+            entry = per_kernel.setdefault(name, {"device_ms": 0.0, "launches": 0})
+            entry["device_ms"] += dev_us / 1e3
+            entry["launches"] += ev.count
         else:
             glue_ms += dev_us / 1e3
             glue_launches += ev.count
@@ -719,20 +749,26 @@ def profile_dispatch(packed, verifier, dispatch_s: float, card: str, kernels, pa
     return idle
 
 
-def ladder_stretch(verifier, packed, card: str) -> dict:
-    """The merged G2 ladder's stretch of one fused dispatch (the 128
-    iterations of ``point_mul_bits_ladder``), bracketed by two marker
+def ladder_stretch(packed, dev, card: str) -> dict:
+    """The merged G2 ladder's stretch of one eager run of the full-device
+    fused program (``verify_signature_sets_fused``, the ops entry: the
+    verifier replays a graph, whose host side this cannot bracket): the 128
+    iterations of ``point_mul_bits_ladder``, bracketed by two marker
     kernels (``torch.cuda._sleep``, which nothing else launches): the host's
     wall across the call (its enqueue), the device's span from the end of
     the first marker to the start of the second and the device busy time
-    of the kernels and copies between them, from one profiled dispatch;
-    the host wall and the span by CUDA events of one unprofiled dispatch.
-    The stretch is device-bound when the device is busy through its span
-    while the host finishes issuing well before the span ends."""
+    of the kernels and copies between them, from one profiled run; the
+    host wall and the span by CUDA events of one unprofiled run.  The
+    stretch is device-bound when the device is busy through its span while
+    the host finishes issuing well before the span ends."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lodestar_tpu_torch.ops import fused_verify
+
+    def dispatch():
+        args = fused_verify.from_packed(packed, dev)
+        return bool(fused_verify.verify_signature_sets_fused(*args))
 
     inner = fused_verify.point_mul_bits_ladder
     seen = {}
@@ -756,10 +792,10 @@ def ladder_stretch(verifier, packed, card: str) -> dict:
             torch.cuda.synchronize()
             if profiled:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    ok = verifier.dispatch(packed).result()
+                    ok = dispatch()
                     torch.cuda.synchronize()
             else:
-                ok = verifier.dispatch(packed).result()
+                ok = dispatch()
                 torch.cuda.synchronize()
             if not ok:
                 raise AssertionError("ladder stretch: the batch did not verify")
@@ -819,18 +855,125 @@ def launch_cost(dev, card: str, n: int = 500) -> dict:
     return out
 
 
+# -- phase 2b: the verifier's per-bucket graphs -------------------------------
+
+
+def program_name(fused: bool, host_final_exp: bool) -> str:
+    return f"{'fused' if fused else 'xla'} {'split' if host_final_exp else 'full-device'}"
+
+
+def verdict_of(outs, host_final_exp: bool) -> bool:
+    """A program's verdict from its outputs on the host: (f's digits, ok)
+    through the C final exponentiation, or the device's verdict."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import fq12_blob
+    from lodestar_tpu_torch.native import fastbls
+
+    if not host_final_exp:
+        return bool(outs[0])
+    return bool(outs[1]) and fastbls.final_exp_is_one(fq12_blob(outs[0].cpu().numpy()))
+
+
+def replay_against_eager(verifier, packed, dev, what: str) -> bool:
+    """One packed batch through the eager ops entry (every counter 0 just
+    before) and through the verifier's graph at its bucket (the same):
+    fails unless the outputs (f's digits and ok, or the verdict) are
+    bitwise equal and every kernel was launched as often; returns the
+    verdict."""
+    from lodestar_tpu_torch.crypto.bls.bucket_program import _tensors
+    from lodestar_tpu_torch.ops import fused_core
+    from lodestar_tpu_torch.ops.fused_verify import from_packed
+
+    program = verifier.programs[(dev, packed[0].shape[0], verifier.fused,
+                                 verifier.host_final_exp)]
+    sync_all()
+    fused_core.reset_launch_counts()
+    want = [t.cpu() for t in _tensors(verifier._entry()(*from_packed(packed, dev)))]
+    sync_all()
+    eager = {name: k.launches for name, k in fused_core.COUNTED.items()}
+    fused_core.reset_launch_counts()
+    got, ready = program.run(packed)
+    ready.synchronize()
+    replayed = {name: k.launches for name, k in fused_core.COUNTED.items()}
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    verdicts = tuple(verdict_of(outs, verifier.host_final_exp) for outs in (got, want))
+    log(f"graphs: {what}: replay against eager, outputs bitwise equal {same}, verdicts "
+        f"{verdicts}, launches equal {replayed == eager} ({sum(eager.values())} launches)")
+    if not same or replayed != eager or verdicts[0] != verdicts[1]:
+        raise AssertionError(f"graphs: {what}: the replay differs from the eager run "
+                             f"(launches {replayed} against {eager})")
+    return verdicts[0]
+
+
+def run_graphs(dev, card: str, sets, programs) -> dict:
+    """Phase 2b: for each (fused, host_final_exp) of ``programs``, the
+    verifier's graphs at GRAPH_BUCKETS: the warmup of each (its eager run,
+    capture and instantiation seconds, the device memory it reserved);
+    then, the graphs of both buckets made (they share the card's pool),
+    at each bucket a valid batch replayed against the eager ops entry
+    (bitwise, every launch count equal) and two batches in flight, valid
+    and corrupted, read in reverse order.  Returns the warmed verifiers by
+    (fused, host_final_exp), for the later phases."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    packer = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 40))
+    batches = {}
+    for b in GRAPH_BUCKETS:
+        bad = list(sets[:b])
+        bad[1] = dataclasses.replace(bad[1], signature=sets[2].signature)
+        batches[b] = (packer.pack(sets[:b]), packer.pack(bad))
+    verifiers, summary = {}, {}
+    with Phase("2b graphs"):
+        for fused, host_final_exp in programs:
+            name = program_name(fused, host_final_exp)
+            # the later phases' verifiers (phase 11's is the default one)
+            if fused and host_final_exp:
+                v = TorchBlsVerifier()
+            else:
+                seed = {(True, False): SEED, (False, False): SEED + 1, (False, True): SEED + 30}
+                v = TorchBlsVerifier(device=dev, fused=fused, host_final_exp=host_final_exp,
+                                     rng=np.random.default_rng(seed[(fused, host_final_exp)]))
+            for b in GRAPH_BUCKETS:
+                sync_all()
+                before = torch.cuda.memory_reserved(dev)
+                seconds = v.warmup((b,))
+                sync_all()
+                held = torch.cuda.memory_reserved(dev) - before
+                program = v.programs[(dev, b, fused, host_final_exp)]
+                nodes = sum(n for h in program.launch_rows.values() for n in h.values())
+                summary[f"{name} b{b}"] = dict(warmup_s=seconds, **program.seconds,
+                                               reserved_bytes=held, kernel_launches=nodes)
+                log(f"graphs: {name} bucket {b}: warmup {seconds:.3f} s (eager run "
+                    f"{program.seconds['eager']:.3f} s, capture {program.seconds['capture']:.3f} "
+                    f"s, instantiation {program.seconds['instantiate']:.3f} s), device memory "
+                    f"reserved +{held} B, {nodes} port kernel launches a replay [{card}]")
+            for b in GRAPH_BUCKETS:
+                valid, bad = batches[b]
+                if replay_against_eager(v, valid, dev, f"{name} bucket {b}") is not True:
+                    raise AssertionError(f"graphs: {name} bucket {b}: a valid batch failed")
+                first, second = v.dispatch(valid), v.dispatch(bad)
+                got = (second.result(), first.result())
+                log(f"graphs: {name} bucket {b}: two batches in flight, valid then corrupted, "
+                    f"read in reverse order -> {got}")
+                if got != (False, True):
+                    raise AssertionError(f"graphs: {name} bucket {b}: the batches in flight "
+                                         f"gave {got}")
+            verifiers[(fused, host_final_exp)] = v
+        log("graphs: " + json.dumps({"card": card, "memory_reserved_bytes":
+                                     torch.cuda.memory_reserved(dev), "programs": summary}))
+    return verifiers
+
+
 # -- phases 3-5: the fused path ----------------------------------------------
 
 
-def run_fused(dev, card: str, pool, keys, sets):
+def run_fused(dev, card: str, pool, keys, sets, verifier):
+    """Phases 3-5 through ``verifier``, phase 2b's full-device fused one
+    (its graph at bucket 128 made)."""
     from torch.profiler import ProfilerActivity
 
-    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import fused_core, fused_verify
 
     with Phase("3 fused slice"):
-        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED),
-                                    host_final_exp=False)
         launches = check_verdicts(verifier, sets, "fused", FUSED)
         launch_rows(verifier, sets, ROW_HISTOGRAM, "fused")
 
@@ -858,7 +1001,7 @@ def run_fused(dev, card: str, pool, keys, sets):
         packed = verifier.pack(fresh[3])
         idle = profile_dispatch(packed, verifier, dispatch_s, card, FUSED,
                                 "fused", [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        ladder_stretch(verifier, packed, card)
+        ladder_stretch(packed, dev, card)
         launch_cost(dev, card)
     return launches, rate, idle
 
@@ -866,15 +1009,14 @@ def run_fused(dev, card: str, pool, keys, sets):
 # -- phases 6-7: the XLA-graph path -------------------------------------------
 
 
-def run_xla(dev, card: str, pool, keys, sets):
+def run_xla(dev, card: str, pool, keys, sets, verifier):
+    """Phases 6-7 through ``verifier``, phase 2b's full-device XLA-graph one
+    (its graph at bucket 128 made)."""
     from torch.profiler import ProfilerActivity
 
-    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import batch_verify, limbs
 
     with Phase("6 XLA slice"):
-        verifier = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 1), fused=False,
-                                    host_final_exp=False)
         launches = check_verdicts(verifier, sets, "xla", TOWER)
         launch_rows(verifier, sets, TOWER_HISTOGRAM, "xla")
 
@@ -1206,6 +1348,7 @@ def time_single_card(dev, fresh, warm, card: str) -> float:
 
     single = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 8),
                               host_final_exp=False)
+    single.warmup((BUCKET,))
     for half in (warm[:BUCKET], warm[BUCKET:]):
         single.pack(half)
     walls = []
@@ -1294,34 +1437,24 @@ def time_split(verifier, fresh, card: str):
 
 
 def launch_rows(verifier, sets, names, path: str) -> dict:
-    """One batch through ``verifier`` with the launches of kernels ``names``
-    wrapped (as ``ladder_stretch`` marks its stretch) to record each
-    launch's row count; logs and returns {name: {rows: launches}}."""
-    from lodestar_tpu_torch.ops.fused_core import KERNELS
-
-    seen = {name: {} for name in names}
-    for name in names:
-        k = KERNELS[name]
-
-        def recorded(*rows, _launch=k.launch, _seen=seen[name]):
-            n = int(rows[0].shape[0])
-            _seen[n] = _seen.get(n, 0) + 1
-            return _launch(*rows)
-
-        k.launch = recorded
-    try:
-        ok = verifier.verify_signature_sets(sets)
-    finally:
-        for name in names:
-            del KERNELS[name].launch
-    if ok is not True:
+    """One batch through ``verifier`` (a replay of its program at the
+    batch's bucket), and the row count of each launch of kernels ``names``
+    in it, from the record its capture made (a replay calls no wrapper);
+    logs and returns {name: {rows: launches}}."""
+    if verifier.verify_signature_sets(sets) is not True:
         raise AssertionError(f"{path} launch rows: the batch did not verify")
-    hist = {name: dict(sorted(h.items())) for name, h in seen.items()}
-    log(f"{path} launch rows (rows: launches) of a batch of {len(sets)}: " + json.dumps(hist))
+    program = verifier.programs[(verifier.device, verifier._bucket(len(sets)), verifier.fused,
+                                 verifier.host_final_exp)]
+    hist = {name: dict(sorted(program.launch_rows.get(name, {}).items())) for name in names}
+    log(f"{path} launch rows (rows: launches) of a batch of {len(sets)}, from its graph's "
+        "capture: " + json.dumps(hist))
     return hist
 
 
-def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
+def run_split(dev, card: str, pool, keys, sets, sets256, verifiers) -> dict:
+    """Phase 11 through phase 2b's split verifiers: the default one (the
+    fused program, its graph at bucket 128 made) and the XLA-graph one when
+    2b made it (warmed here at bucket SPLIT_XLA_BUCKET)."""
     from torch.profiler import ProfilerActivity
 
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
@@ -1329,7 +1462,7 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
 
     out = {}
     with Phase("11 split"):
-        verifier = TorchBlsVerifier()
+        verifier = verifiers[(True, True)]
         if verifier.device != dev or not verifier.host_final_exp:
             raise AssertionError(f"split: the default verifier is {verifier.device}, "
                                  f"host_final_exp={verifier.host_final_exp}")
@@ -1342,7 +1475,10 @@ def run_split(dev, card: str, pool, keys, sets, sets256) -> dict:
                                        out["stages"]["device_miller"], card, FUSED, "split",
                                        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-        xla = TorchBlsVerifier(fused=False, rng=np.random.default_rng(SEED + 30))
+        xla = verifiers.get((False, True)) or TorchBlsVerifier(
+            fused=False, rng=np.random.default_rng(SEED + 30))
+        log(f"split xla: warmup at bucket {SPLIT_XLA_BUCKET} "
+            f"{xla.warmup((SPLIT_XLA_BUCKET,)):.1f} s")
         small = sets[:SPLIT_XLA_BUCKET]
         launch_rows(xla, small, TOWER_HISTOGRAM, "split xla")
         fused_core.reset_launch_counts()
@@ -1465,6 +1601,7 @@ def run_pool_sharded(dev, card: str, sets256) -> dict:
 
     mesh = TorchBlsVerifier(devices=[dev, dev], sharded=True, sharded_min_batch=SHARDED_BUCKET,
                             rng=np.random.default_rng(SEED + 34))
+    mesh.warmup((BUCKET,))  # the retried 128-set jobs ride the card's graph
     bls = BlsBatchPool(mesh, pipeline_depth=2, flush_threshold=BUCKET, max_buffer_wait=0.02)
     if not mesh.sharded_active or bls._flush_window()[1] != 2 * BUCKET:
         raise AssertionError(f"pool sharded: tier active {mesh.sharded_active}, merge cap "
@@ -1499,6 +1636,12 @@ def run_pool(dev, card: str, pool, keys, sets256) -> dict:
 
     with Phase("12 pool"):
         verifier = TorchBlsVerifier()
+        sync_all()
+        before = torch.cuda.memory_reserved(dev)
+        seconds = verifier.warmup()
+        log(f"pool: warmup of buckets {verifier.buckets} {seconds:.3f} s, device memory "
+            f"reserved +{torch.cuda.memory_reserved(dev) - before} B "
+            + json.dumps({b: p.seconds for (_, b, _, _), p in verifier.programs.items()}))
         fresh = (make_sets(pool, keys, b"pool 0") + make_sets(pool, keys, b"pool 1"))[:POOL_SETS]
         block = make_sets(pool, keys[:POOL_BLOCK_SETS], b"pool block")
         verifier.pack(fresh[:BUCKET])  # the public keys cached, as on a node
@@ -1578,10 +1721,14 @@ def main(argv) -> int:
             sets = make_sets(pool, keys[:BUCKET], b"slice")
             log(f"slice: built {BUCKET} signature sets in {procs} host processes in "
                 f"{time.perf_counter() - t0:.1f} s")
+            programs = PROGRAMS if mode == "all" else tuple(p for p in PROGRAMS if p[0])
+            verifiers = run_graphs(dev, card, sets, programs)
         if mode in ("all", "fused"):
-            fused_launches, fused_rate, fused_idle = run_fused(dev, card, pool, keys[:BUCKET], sets)
+            fused_launches, fused_rate, fused_idle = run_fused(dev, card, pool, keys[:BUCKET], sets,
+                                                               verifiers[(True, False)])
         if mode == "all":
-            xla_launches, xla_rate, xla_idle = run_xla(dev, card, pool, keys[:BUCKET], sets)
+            xla_launches, xla_rate, xla_idle = run_xla(dev, card, pool, keys[:BUCKET], sets,
+                                                       verifiers[(False, False)])
             log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} "
                 f"of the dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the "
                 f"dispatch [{card}]")
@@ -1599,7 +1746,7 @@ def main(argv) -> int:
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
         if mode != "sharded":
-            split = run_split(dev, card, pool, keys, sets, sets256)
+            split = run_split(dev, card, pool, keys, sets, sets256, verifiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
             log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s, device idle "
@@ -1611,7 +1758,8 @@ def main(argv) -> int:
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
-        phases = {"sharded": "1, 8-10", "split": "1, 2, 11, 12", "fused": "1-5, 11, 12"}[mode]
+        phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11, 12",
+                  "fused": "1-5, 2b, 11, 12"}[mode]
         print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))

@@ -2,8 +2,10 @@
 
 The port's verifier boundary (``verify_signature_sets(sets) -> bool``, and
 ``verify_signature_sets_async(sets) -> PendingVerdict`` for the scheduling
-layer, ``chain/bls_pool``).  The host packs a batch into padded digit
-arrays (``pack``), and the device runs one of two programs:
+layer, ``chain/bls_pool``).  The host packs a batch into digit arrays
+padded to the smallest bucket of ``buckets`` that fits it (``pack``; a
+batch above the largest is verified in chunks of that size), and the
+device runs one of two programs:
 
 - ``fused=True`` (the default): the fused program (``ops/fused_verify``);
 - ``fused=False``: the XLA-graph program (``ops/batch_verify``), which the
@@ -12,12 +14,17 @@ arrays (``pack``), and the device runs one of two programs:
 With ``host_final_exp=True`` (the default, as in the JAX package) the
 split dispatch: the device returns the Miller product f and the verdict
 bits ok, and the host finishes with the C final exponentiation
-(``native/fastbls``).  On a card, ok and f are copied to pinned host
-memory behind the batch's work and an event is recorded after the
-copies; waiting on that event is the sync, so that a verdict does not
-wait for batches enqueued after it on the same stream.  With ``host_final_exp=False``
-the final exponentiation runs on the card too, and the device returns the
-verdict.
+(``native/fastbls``).  With ``host_final_exp=False`` the final
+exponentiation runs on the card too, and the device returns the verdict.
+
+On a card each (card, bucket, program, mode) is one CUDA graph
+(``bucket_program.BucketProgram``, the counterpart of the JAX verifier's
+per-bucket executables): captured at its first batch, or ahead of time by
+``warmup(buckets)`` / ``warmup_async``, and replayed for every batch.  The
+outputs are copied to pinned host memory behind the replay and an event
+is recorded after the copies; waiting on that event is the sync, so that
+a verdict does not wait for batches enqueued after it on the same stream.
+The card's graphs share one memory pool and one lock.
 
 With ``devices=[...]`` (a card may repeat: logical shards) and
 ``sharded=True`` (or ``LODESTAR_TPU_SHARDED`` on: the tier is opt-in, as
@@ -31,8 +38,9 @@ is no other path or tier to fall back to, and no batch is requeued.
 ``sharded_active`` tells the pool that the tier can take a batch, so that
 it merges batches up to the mesh's bucket.
 
-``close()`` releases what the verifier holds (the sharded tier's program
-and its streams, the point cache); a verify after it raises.  The kernel
+``close()`` releases what the verifier holds (the per-bucket graphs and
+their pools, the sharded tier's program and its streams, the point
+cache); a verify after it raises.  The kernel
 libraries stay loaded: every verifier in the process shares them.
 """
 
@@ -52,15 +60,16 @@ from ...native import fastbls
 from ...ops import limbs as fl
 from ...ops.batch_verify import miller_product_kernel, verify_signature_sets_kernel
 from ...ops.fused_core import LV
-from ...ops.fused_verify import from_packed, miller_product_fused, verify_signature_sets_fused
+from ...ops.fused_verify import miller_product_fused, verify_signature_sets_fused
 from ...ops.htc import hash_to_field_limbs
 from ...ops.sharded_verify import miller_product_sharded, verify_signature_sets_sharded
+from .bucket_program import BucketProgram
 from .curve import g2_from_bytes, to_affine_batch
 from .verifier import PointCache, SignatureSet, SingleSignatureSet, get_aggregated_pubkey
 
 # Padding buckets: the smallest that fits the batch is used.  128 is the
 # node's MAX_SIGNATURE_SETS_PER_JOB; larger buckets amortize sync batches.
-BUCKETS = (4, 16, 64, 128, 256)
+DEFAULT_BUCKETS = (4, 16, 64, 128, 256)
 #: the in-flight key of the sharded tier's batches (one program over the mesh)
 MESH = "mesh"
 
@@ -91,10 +100,11 @@ def fq12_blob(digits) -> bytes:
 
 
 def _stage_readback(f, ok):
-    """(f's digits, ok, event): on a card, ok and f's digits (an LV's
-    loose digits on the fused program) are copied to pinned host memory on
-    the stream that made them, and the event is recorded after the copies;
-    on the CPU they are returned as they are, with no event."""
+    """The sharded tier's (f's digits, ok, event): on a card, ok and f's
+    digits (an LV's loose digits on the fused program) are copied to
+    pinned host memory on the stream that made them, and the event is
+    recorded after the copies; on the CPU they are returned as they are,
+    with no event."""
     digits = f.a if isinstance(f, LV) else f
     if digits.device.type != "cuda":
         return digits, ok, None
@@ -155,6 +165,8 @@ class PendingVerdict:
             return all(results)
         if self._f is not None:
             return self._verifier._host_final_exp_verdict(self._f, self._ok, self._ready)
+        if self._ready is not None:
+            self._ready.synchronize()
         return bool(self._out)
 
     def result(self) -> bool:
@@ -188,16 +200,23 @@ class TorchBlsVerifier:
     ``sharded_min_batch``: the smallest bucket the tier takes (None: the
     largest bucket).
     ``sharded_combine``: ``"all_gather"`` or ``"ring"``.
+    ``buckets``: the padding buckets (the smallest that fits a batch is
+    used; a batch above the largest is chunked at it).
+    ``point_cache_size``: the entries of the pack's point cache.
 
     Several host threads may pack and dispatch at once (the pool keeps
     batches in flight from worker threads): the coefficient draws, the
-    placement and the counters take locks."""
+    placement, the programs and the counters take locks."""
 
     def __init__(self, device="cuda", rng: Optional[np.random.Generator] = None,
                  fused: bool = True, devices: Optional[Sequence] = None,
                  sharded: Optional[bool] = None, sharded_min_batch: Optional[int] = None,
-                 sharded_combine: str = "all_gather", host_final_exp: bool = True):
-        self.point_cache = PointCache()
+                 sharded_combine: str = "all_gather", host_final_exp: bool = True,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, point_cache_size: int = 8192):
+        if not buckets:
+            raise ValueError("buckets: at least one bucket")
+        self.buckets = tuple(sorted(buckets))
+        self.point_cache = PointCache(point_cache_size)
         self.rng = rng
         self.fused = fused
         self.host_final_exp = host_final_exp
@@ -209,7 +228,8 @@ class TorchBlsVerifier:
             self.devices = [resolve_device(d) for d in devices]
         self.device = self.devices[0]
         self.sharded = sharded_default(len(self.devices)) if sharded is None else bool(sharded)
-        self.sharded_min_batch = BUCKETS[-1] if sharded_min_batch is None else sharded_min_batch
+        self.sharded_min_batch = (self.buckets[-1] if sharded_min_batch is None
+                                  else sharded_min_batch)
         entry = miller_product_sharded if host_final_exp else verify_signature_sets_sharded
         self._mesh_program = entry(self.devices, fused, sharded_combine) if self.sharded else None
         #: the shard count of the sharded tier (0 when it is off)
@@ -218,27 +238,50 @@ class TorchBlsVerifier:
         self.sharded_batches = 0
         #: split dispatches finished on the host
         self.host_final_exps = 0
+        # the counters of the JAX verifier: batches dispatched and their
+        # live sets; per pack, the padding lanes, a rejected batch, and the
+        # point cache's hits and misses
+        self.dispatches = 0
+        self.sets_verified = 0
+        self.padding_wasted = 0
+        self.pack_rejected = 0
+        self.pack_cache_hits = 0
+        self.pack_cache_misses = 0
         #: host seconds, summed over batches: packing, enqueueing the device
         #: program (and, split, the copies of ok and f to the host), the
         #: sync (on the event after those copies, or on the verdict), the
-        #: read of f's host copy and the C final exponentiation
+        #: read of f's host copy and the C final exponentiation; and
+        #: ``warmup``'s
         self.stage_seconds: Dict[str, float] = dict.fromkeys(
-            ("pack", "dispatch", "sync", "readback", "final_exp"), 0.0)
+            ("pack", "dispatch", "sync", "readback", "final_exp", "warmup"), 0.0)
         # the per-card tier: the distinct cards of ``devices``, in order
         self._cards = list(dict.fromkeys(self.devices))
         self._next_card = 0  # the round-robin tie-break cursor
         self._inflight: Dict[object, int] = {}
+        #: the per-card programs by (card, bucket, fused, host_final_exp)
+        self.programs: Dict[tuple, BucketProgram] = {}
+        # one lock and one graph pool per card, shared by its programs
+        self._card_locks: Dict[torch.device, threading.Lock] = {}
+        self._graph_pools: Dict[torch.device, tuple] = {}
         self._sched_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._rng_lock = threading.Lock()
         self._closed = False
 
     def close(self) -> None:
-        """Release the sharded tier's program (its streams) and the point
-        cache; a verify or dispatch after this raises.  Verdicts already
-        dispatched can still be read.  The kernel libraries stay loaded:
-        every verifier in the process shares them."""
+        """Release the per-bucket graphs and their pools (after the cards
+        have finished the batches in flight), the sharded tier's program
+        (its streams) and the point cache; a verify or dispatch after this
+        raises.  Verdicts already dispatched can still be read.  The kernel
+        libraries stay loaded: every verifier in the process shares them."""
         self._closed = True
+        for card, lock in list(self._card_locks.items()):
+            with lock:
+                if card.type == "cuda" and card in self._graph_pools:
+                    torch.cuda.synchronize(card)
+                for key in [k for k in self.programs if k[0] == card]:
+                    del self.programs[key]
+                self._graph_pools.pop(card, None)
         self._mesh_program = None
         self.point_cache.clear()
 
@@ -273,7 +316,7 @@ class TorchBlsVerifier:
         if not sets:
             raise ValueError("verify_signature_sets: empty batch of signature sets")
         self._check_open()
-        largest = BUCKETS[-1]
+        largest = self.buckets[-1]
         if len(sets) > largest:
             parts = []
             try:
@@ -305,7 +348,7 @@ class TorchBlsVerifier:
         """The sharded tier can take a batch: the verifier is open and some
         bucket is eligible.  The pool reads it, on every fill, to grow its
         merge cap to the mesh's bucket."""
-        return self._mesh_program is not None and any(map(self.sharded_eligible, BUCKETS))
+        return self._mesh_program is not None and any(map(self.sharded_eligible, self.buckets))
 
     @property
     def shard_enqueue_walls(self) -> List[float]:
@@ -330,35 +373,93 @@ class TorchBlsVerifier:
         with self._sched_lock:
             self._inflight[key] -= 1
 
-    def dispatch(self, packed) -> PendingVerdict:
-        """Enqueue one packed batch on the mesh or on the least loaded card;
-        returns at once with its ``PendingVerdict``.  The batch holds its
-        in-flight slot until the verdict's first ``result()`` ends."""
+    def _entry(self) -> Callable:
+        """The per-card device program of this verifier's program and mode."""
+        if self.host_final_exp:
+            return miller_product_fused if self.fused else miller_product_kernel
+        return verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
+
+    def _program(self, card, bucket: int) -> BucketProgram:
+        """The card's program at ``bucket``, made (on a card: run once and
+        captured) at first use, under the card's lock."""
+        key = (card, bucket, self.fused, self.host_final_exp)
+        program = self.programs.get(key)
+        if program is None:
+            lock = self._card_locks.setdefault(card, threading.Lock())
+            with lock:
+                program = self.programs.get(key)
+                if program is None:
+                    self._check_open()
+                    pool = None
+                    if card.type == "cuda":
+                        pool = self._graph_pools.get(card)
+                        if pool is None:
+                            pool = self._graph_pools[card] = torch.cuda.graph_pool_handle()
+                    program = BucketProgram(card, bucket, self._entry(), lock, pool)
+                    self.programs[key] = program
+        return program
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> float:
+        """Make the active program's graph for every bucket of ``buckets``
+        (None: the verifier's) on every card: the kernel library is built,
+        each program runs once and is captured.  Adds its wall seconds to
+        ``stage_seconds["warmup"]`` and returns them.  On the CPU there is
+        nothing to capture."""
         self._check_open()
         t0 = time.perf_counter()
-        mesh = self.sharded_eligible(packed[0].shape[0])
+        for bucket in (self.buckets if buckets is None else buckets):
+            for card in self._cards:
+                self._program(card, bucket)
+        dt = time.perf_counter() - t0
+        self._add_stage("warmup", dt)
+        return dt
+
+    def warmup_async(self, buckets: Optional[Sequence[int]] = None) -> threading.Thread:
+        """``warmup(buckets)`` on a daemon thread, which it returns: a node
+        serves batches while the graphs are made (a batch whose graph is
+        not made yet makes it first)."""
+        t = threading.Thread(target=self.warmup, args=(buckets,), daemon=True,
+                             name="torch-bls-warmup")
+        t.start()
+        return t
+
+    def dispatch(self, packed) -> PendingVerdict:
+        """Enqueue one packed batch on the mesh or on the least loaded card
+        (one replay of the card's program at the batch's bucket); returns
+        at once with its ``PendingVerdict``.  The batch holds its in-flight
+        slot until the verdict's first ``result()`` ends."""
+        self._check_open()
+        t0 = time.perf_counter()
+        bucket = packed[0].shape[0]
+        mesh = self.sharded_eligible(bucket)
+        live = int(np.count_nonzero(packed[6]))
+        with self._stats_lock:
+            self.dispatches += 1
+            self.sets_verified += live
         key = self._acquire(MESH if mesh else None)
         try:
             if mesh:
                 with self._stats_lock:
                     self.sharded_batches += 1
                 out = self._mesh_program(*packed)
-            else:
-                args = from_packed(packed, key)
                 if self.host_final_exp:
-                    program = miller_product_fused if self.fused else miller_product_kernel
+                    f, ok, ready = _stage_readback(*out)
                 else:
-                    program = verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
-                out = program(*args)
-            if self.host_final_exp:
-                f, ok, ready = _stage_readback(*out)
+                    ready = None
+            else:
+                outs, ready = self._program(key, bucket).run(packed)
+                if self.host_final_exp:
+                    f, ok = outs
+                else:
+                    (out,) = outs
         except BaseException:
             self._release(key)
             raise
         self._add_stage("dispatch", time.perf_counter() - t0)
-        common = dict(verifier=self, release=lambda: self._release(key), device=str(key))
+        common = dict(verifier=self, ready=ready, release=lambda: self._release(key),
+                      device=str(key))
         if self.host_final_exp:
-            return PendingVerdict(f=f, ok=ok, ready=ready, **common)
+            return PendingVerdict(f=f, ok=ok, **common)
         return PendingVerdict(out=out, **common)
 
     def _host_final_exp_verdict(self, f, ok, ready=None) -> bool:
@@ -395,6 +496,10 @@ class TorchBlsVerifier:
                                            dtype=np.uint64, endpoint=True)
         return coeffs | np.uint64(1)
 
+    def _bucket(self, n: int) -> int:
+        """The smallest bucket that fits n sets (the largest above it)."""
+        return next((b for b in self.buckets if n <= b), self.buckets[-1])
+
     def pack(self, sets: Sequence[SignatureSet]):
         """Host packing: the 7-tuple (pk_x, pk_y, sig_x, sig_y, msg_u, bits,
         mask) of numpy arrays padded to the bucket, or None when a set is
@@ -402,11 +507,30 @@ class TorchBlsVerifier:
 
         Affine coordinates come from ``point_cache`` or, on a miss, from one
         batch inversion per coordinate family.  Signatures are decompressed
-        without a subgroup check: the device does that check, batched."""
+        without a subgroup check: the device does that check, batched.
+
+        Counts, as the JAX verifier does: the point cache's hits and misses
+        (each key and signature looked up, also in a batch that is then
+        rejected), a rejected batch, and a packed batch's padding lanes."""
+        cache_counts = [0, 0]  # hits, misses
+        try:
+            packed = self._pack(sets, cache_counts)
+        finally:
+            with self._stats_lock:
+                self.pack_cache_hits += cache_counts[0]
+                self.pack_cache_misses += cache_counts[1]
+        with self._stats_lock:
+            if packed is None:
+                self.pack_rejected += 1
+            else:
+                self.padding_wasted += packed[0].shape[0] - len(sets)
+        return packed
+
+    def _pack(self, sets: Sequence[SignatureSet], cache_counts: List[int]):
         n = len(sets)
-        if n > BUCKETS[-1]:
-            raise ValueError(f"pack: {n} sets exceed the largest bucket {BUCKETS[-1]}")
-        b = next(b for b in BUCKETS if n <= b)
+        if n > self.buckets[-1]:
+            raise ValueError(f"pack: {n} sets exceed the largest bucket {self.buckets[-1]}")
+        b = self._bucket(n)
         cache = self.point_cache
         pk_vals: List[Optional[tuple]] = [None] * n
         sig_vals: List[Optional[tuple]] = [None] * n
@@ -421,6 +545,7 @@ class TorchBlsVerifier:
             else:
                 pk_key = b"A" + b"".join(m.to_bytes() for m in s.pubkeys)
             hit = cache.get(pk_key) if pk_key is not None else None
+            cache_counts[hit is None] += 1
             if hit is not None:
                 pk_vals[i] = hit
             else:
@@ -430,6 +555,7 @@ class TorchBlsVerifier:
                 pk_miss.append((i, pk.point, pk_key))
             raw = s.signature
             hit = cache.get(b"S" + raw)
+            cache_counts[hit is None] += 1
             if hit is not None:
                 sig_vals[i] = hit
             else:

@@ -23,6 +23,7 @@ use no matmul at all.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -316,9 +317,18 @@ KERNELS: Dict[str, "Kernel"] = {}
 COUNTED: Dict[str, "LaunchCounter"] = {}
 
 
+#: the launch record of the capture this thread is making, if any
+_CAPTURING = threading.local()
+
+
 class LaunchCounter:
     """A kernel wrapper's count of launches, exact also when several host
-    threads launch (a caller may drive verifiers from threads)."""
+    threads launch (a caller may drive verifiers from threads).
+
+    Inside ``recording_launches()`` (a CUDA-graph capture, in which a
+    launch enqueues nothing) the calling thread's launches go to the
+    capture's record, by row count, and the counts stay as they were;
+    each replay of the graph adds the record (``add_launches``)."""
 
     def __init__(self, name: str, replaces: str):
         self.name = name
@@ -327,13 +337,41 @@ class LaunchCounter:
         self._lock = threading.Lock()
         COUNTED[name] = self
 
-    def count_launch(self) -> None:
+    def count_launch(self, rows: int = 0) -> None:
+        record = getattr(_CAPTURING, "record", None)
+        if record is not None:
+            by_rows = record.setdefault(self.name, {})
+            by_rows[rows] = by_rows.get(rows, 0) + 1
+            return
+        self.add(1)
+
+    def add(self, n: int) -> None:
         with self._lock:
-            self.launches += 1
+            self.launches += n
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record, instead of count, the launches this thread makes inside:
+    yields {kernel name: {rows: launches}}.  Other threads count as ever."""
+    if getattr(_CAPTURING, "record", None) is not None:
+        raise RuntimeError("recording_launches: already recording on this thread")
+    _CAPTURING.record = record = {}
+    try:
+        yield record
+    finally:
+        _CAPTURING.record = None
+
+
+def add_launches(record: Dict[str, Dict[int, int]]) -> None:
+    """Count the launches of one replay of a graph whose capture made
+    ``record``."""
+    for name, by_rows in record.items():
+        COUNTED[name].add(sum(by_rows.values()))
 
 
 class Kernel(LaunchCounter):
@@ -403,7 +441,7 @@ class Kernel(LaunchCounter):
             rc = getattr(lib, f"launch_{self.name}")(ins_arr, outs_arr, n, table.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"kernel {self.name} launch failed: cudaError {rc}")
-        self.count_launch()
+        self.count_launch(n)
         return outs
 
 

@@ -17,13 +17,20 @@ at chunks of 0-40 floats (and three longer) at every pointer offset and at every
 ring's stacks (the verdict bits' odd slots 8-byte aligned), and against its plain version as an
 all-gather and as a one-hop permute at 2 and 4 logical shards on card 0
 and across cards when two or more are visible; the sharded tier's
-verdicts at bucket 4 over 2 logical shards.
+verdicts at bucket 4 over 2 logical shards.  The verifier's per-bucket
+graphs: a replay gives the eager program's outputs bitwise and its launch
+counts, for both programs and both modes; two batches in flight read their
+own verdicts; a dispatch after ``warmup`` calls no kernel wrapper; a
+failed capture raises, and nothing runs in its place.
 ``tests/kernel_build_variants.py`` holds builds of the same sources that
 the port does not run to the same check."""
 
 import asyncio
 import importlib.util
 import os
+import subprocess
+import sys
+import textwrap
 import time
 
 import numpy as np
@@ -293,3 +300,99 @@ def test_one_pool_flush_on_the_card(card):
 
     results, pool = asyncio.run(main())
     assert results == [True, True, False] and pool.batch_retries == 1
+
+
+# -- the verifier's per-bucket graphs -------------------------------------------
+
+
+def _warmed(card, fused=True, host_final_exp=True):
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    v = TorchBlsVerifier(device=card, fused=fused, host_final_exp=host_final_exp,
+                         rng=np.random.default_rng(3))
+    v.warmup((4,))
+    return v
+
+
+@pytest.mark.parametrize("host_final_exp", [True, False])
+@pytest.mark.parametrize("fused", [True, False])
+def test_replay_equals_the_eager_program_bitwise(fused, host_final_exp, card):
+    """A bucket-4 batch through the verifier's graph gives the eager ops
+    entry's outputs on the same packed arrays (f's digits and ok, or the
+    verdict) bitwise, and every kernel's launches of the eager run."""
+    from lodestar_tpu_torch.crypto.bls.bucket_program import _tensors
+
+    with np.load(gen.XLA_NPZ) as z:
+        ins = dict(z)
+    v = _warmed(card, fused, host_final_exp)
+    program = v.programs[(card, 4, fused, host_final_exp)]
+    assert program.graph is not None
+    for corrupted in (False, True):
+        packed = gen.bucket4(ins, corrupted=corrupted)
+        torch.cuda.synchronize(card)
+        fc.reset_launch_counts()
+        want = _tensors(v._entry()(*fv.from_packed(packed, card)))
+        torch.cuda.synchronize(card)
+        eager = {name: k.launches for name, k in fc.COUNTED.items()}
+        fc.reset_launch_counts()
+        got, ready = program.run(packed)
+        ready.synchronize()
+        assert {name: k.launches for name, k in fc.COUNTED.items()} == eager
+        assert len(got) == len(want) == (2 if host_final_exp else 1)
+        for g, w in zip(got, want):
+            assert g.is_pinned() and torch.equal(g, w.cpu())
+
+
+@pytest.mark.parametrize("host_final_exp", [True, False])
+def test_two_batches_in_flight_on_the_card_read_their_own_verdicts(host_final_exp, card):
+    with np.load(gen.XLA_NPZ) as z:
+        ins = dict(z)
+    v = _warmed(card, host_final_exp=host_final_exp)
+    valid = v.dispatch(gen.bucket4(ins))
+    bad = v.dispatch(gen.bucket4(ins, corrupted=True))
+    assert bad.result() is False and valid.result() is True
+    assert v.device_inflight() == {str(card): 0}
+
+
+def test_a_dispatch_after_warmup_makes_no_eager_launch(card, monkeypatch):
+    with np.load(gen.XLA_NPZ) as z:
+        ins = dict(z)
+    v = _warmed(card)
+    calls = []
+    for k in fc.KERNELS.values():
+        monkeypatch.setattr(k, "launch", lambda *rows, _k=k: calls.append(_k.name))
+    assert v.dispatch(gen.bucket4(ins)).result() is True
+    assert calls == []
+    v.close()
+    assert v.programs == {}
+
+
+def test_a_failed_capture_raises_and_no_batch_runs_eagerly(card):
+    """A program that copies to the host, which a capture refuses: making
+    its graph raises, the verifier keeps no program and returns the
+    batch's slot, and the batch does not run eagerly in its place.  In a
+    process of its own: a failed capture leaves the caching allocator's
+    capture state behind."""
+    code = textwrap.dedent("""
+        import numpy as np, torch
+        from lodestar_tpu_torch.crypto.bls.bucket_program import input_specs
+        from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+        runs = []
+
+        def entry(*args):
+            runs.append(torch.cuda.is_current_stream_capturing())
+            return args[6].any().cpu()
+
+        v = TorchBlsVerifier(device="cuda:0", host_final_exp=False)
+        v._entry = lambda: entry
+        packed = [np.zeros(shape, np.float32) for shape, _ in input_specs(4)[:6]]
+        try:
+            v.dispatch(packed + [np.ones(4, bool)])
+        except RuntimeError:
+            print("raised", runs, v.programs, v.device_inflight())
+    """)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.stdout.strip() == "raised [False, True] {} {'cuda:0': 0}", proc.stderr

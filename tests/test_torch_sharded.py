@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from lodestar_tpu_torch.crypto.bls.torch_verifier import BUCKETS, TorchBlsVerifier
-from lodestar_tpu_torch.ops import fused_verify as fv
+from lodestar_tpu_torch.crypto.bls.bucket_program import input_specs
+from lodestar_tpu_torch.crypto.bls.torch_verifier import DEFAULT_BUCKETS, TorchBlsVerifier
 from lodestar_tpu_torch.ops import sharded_verify as sv
 
 _GEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_vectors", "generate.py")
@@ -82,7 +82,7 @@ def test_verifier_tier_defaults(monkeypatch):
     assert two.n_devices == 1 and two.shard_enqueue_walls == []
     mesh = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=True)
     assert mesh.sharded and mesh.mesh_devices == 2
-    assert mesh.sharded_min_batch == BUCKETS[-1] == 256
+    assert mesh.sharded_min_batch == DEFAULT_BUCKETS[-1] == 256
     assert TorchBlsVerifier(devices=["cpu", "cpu"], sharded=False).mesh_devices == 0
     with pytest.raises(ValueError):
         TorchBlsVerifier(devices=[])
@@ -109,10 +109,16 @@ def test_sharded_default_is_the_jax_verifiers(env, n, monkeypatch):
     assert v.mesh_devices == (n if want else 0)
 
 
+def _zero_packed(b):
+    """Zero digit arrays of ``pack()``'s shapes at bucket b, every lane live."""
+    digits = tuple(np.zeros(shape, np.float32) for shape, _ in input_specs(b)[:6])
+    return digits + (np.ones(b, bool),)
+
+
 def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
     v = TorchBlsVerifier(devices=["cpu"] * 4, sharded=True, sharded_min_batch=16,
                          host_final_exp=False)
-    assert [b for b in BUCKETS if v.sharded_eligible(b)] == [16, 64, 128, 256]
+    assert [b for b in DEFAULT_BUCKETS if v.sharded_eligible(b)] == [16, 64, 128, 256]
     assert not TorchBlsVerifier(devices=["cpu"] * 3, sharded=True,
                                 sharded_min_batch=16).sharded_eligible(64)
     calls = []
@@ -121,7 +127,7 @@ def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
         "lodestar_tpu_torch.crypto.bls.torch_verifier.verify_signature_sets_fused",
         lambda *args: calls.append(("card", args[0].device)) or torch.tensor(True))
     for b in (4, 16, 256):
-        packed = (np.zeros((b, 50), np.float32),) * 6 + (np.ones(b, bool),)
+        packed = _zero_packed(b)
         assert v.dispatch(packed).result() is True
     assert calls == [("card", torch.device("cpu")), "mesh", "mesh"]
     assert v.sharded_batches == 2
@@ -131,13 +137,10 @@ def test_per_card_tier_round_robins_over_distinct_cards(monkeypatch):
     v = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=False, host_final_exp=False)
     seen = []
     monkeypatch.setattr(
-        "lodestar_tpu_torch.crypto.bls.torch_verifier.from_packed",
-        lambda packed, dev: seen.append(dev) or fv.from_packed(packed, "cpu"))
-    monkeypatch.setattr(
         "lodestar_tpu_torch.crypto.bls.torch_verifier.verify_signature_sets_fused",
-        lambda *args: torch.tensor(True))
+        lambda *args: seen.append(args[0].device) or torch.tensor(True))
     v._cards = [torch.device("cpu"), torch.device("meta")]  # two distinct "cards"
-    packed = (np.zeros((4, 50), np.float32),) * 6 + (np.ones(4, bool),)
+    packed = _zero_packed(4)
     for _ in range(3):
         v.dispatch(packed)
     assert seen == [torch.device("cpu"), torch.device("meta"), torch.device("cpu")]

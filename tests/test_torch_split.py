@@ -41,8 +41,13 @@ from lodestar_tpu.native import fastbls as jax_fastbls
 from lodestar_tpu_torch.crypto.bls import PublicKey, SingleSignatureSet
 from lodestar_tpu_torch.crypto.bls import fields as F
 from lodestar_tpu_torch.crypto.bls import torch_verifier as tv
+from lodestar_tpu_torch.crypto.bls.bucket_program import input_specs
 from lodestar_tpu_torch.crypto.bls.pairing import final_exponentiation
-from lodestar_tpu_torch.crypto.bls.torch_verifier import BUCKETS, PendingVerdict, TorchBlsVerifier
+from lodestar_tpu_torch.crypto.bls.torch_verifier import (
+    DEFAULT_BUCKETS,
+    PendingVerdict,
+    TorchBlsVerifier,
+)
 from lodestar_tpu_torch.native import fastbls
 from lodestar_tpu_torch.ops.fused_field import f12_is_one
 from lodestar_tpu_torch.ops.fused_pairing import final_exponentiation as device_final_exp
@@ -263,8 +268,9 @@ def test_pending_verdict_is_idempotent_and_releases_once():
 
 
 def _fake_packed(n):
-    b = next(b for b in BUCKETS if n <= b)
-    return (np.zeros((b, 50), np.float32),) * 6 + (np.arange(b) < n,)
+    b = next(b for b in DEFAULT_BUCKETS if n <= b)
+    digits = tuple(np.zeros(shape, np.float32) for shape, _ in input_specs(b)[:6])
+    return digits + (np.arange(b) < n,)
 
 
 def test_chunks_above_the_largest_bucket_enqueue_before_any_read(xla_npz, monkeypatch):
@@ -278,7 +284,7 @@ def test_chunks_above_the_largest_bucket_enqueue_before_any_read(xla_npz, monkey
     real = fastbls.final_exp_is_one
     monkeypatch.setattr(tv.fastbls, "final_exp_is_one",
                         lambda blob: events.append("final") or real(blob))
-    sets = [object()] * (2 * BUCKETS[-1] + 10)
+    sets = [object()] * (2 * DEFAULT_BUCKETS[-1] + 10)
     pending = verifier.verify_signature_sets_async(sets)
     assert pending.device is None
     assert events == [("pack", 256), "enqueue", ("pack", 256), "enqueue", ("pack", 10),
@@ -295,7 +301,7 @@ def test_a_malformed_chunk_is_false_and_every_chunk_releases(monkeypatch):
     monkeypatch.setattr(verifier, "pack", lambda sets: None if calls else _fake_packed(len(sets)))
     monkeypatch.setattr(tv, "miller_product_fused",
                         lambda *a: calls.append(1) or (torch.zeros(6, 2, 50), torch.tensor(False)))
-    pending = verifier.verify_signature_sets_async([object()] * (BUCKETS[-1] + 1))
+    pending = verifier.verify_signature_sets_async([object()] * (DEFAULT_BUCKETS[-1] + 1))
     assert verifier.device_inflight() == {"cpu": 1}
     assert pending.result() is False
     assert verifier.device_inflight() == {"cpu": 0} and verifier.host_final_exps == 0
@@ -304,9 +310,8 @@ def test_a_malformed_chunk_is_false_and_every_chunk_releases(monkeypatch):
 def test_placement_is_least_loaded_with_a_round_robin_tie_break(monkeypatch):
     verifier = TorchBlsVerifier(device="cpu")
     verifier._cards = [torch.device("cpu"), torch.device("meta")]
-    monkeypatch.setattr(tv, "from_packed", lambda packed, dev: (dev,))
     monkeypatch.setattr(tv, "miller_product_fused",
-                        lambda dev: (torch.zeros(6, 2, 50), torch.tensor(False)))
+                        lambda *a: (torch.zeros(6, 2, 50), torch.tensor(False)))
     assert verifier.n_devices == 2
     a = verifier.dispatch(_fake_packed(4))
     b = verifier.dispatch(_fake_packed(4))
@@ -336,7 +341,7 @@ def test_a_chunk_whose_pack_raises_leaves_no_slot_taken(monkeypatch):
     monkeypatch.setattr(tv, "miller_product_fused",
                         lambda *a: (torch.zeros(6, 2, 50), torch.tensor(False)))
     with pytest.raises(RuntimeError, match="pack failed"):
-        verifier.verify_signature_sets_async([object()] * (2 * BUCKETS[-1] + 1))
+        verifier.verify_signature_sets_async([object()] * (2 * DEFAULT_BUCKETS[-1] + 1))
     assert packs == [256, 256]
     assert verifier.device_inflight() == {"cpu": 0}
 
@@ -362,9 +367,8 @@ def test_concurrent_dispatch_and_results_keep_exact_in_flight_counts(monkeypatch
 
     verifier = TorchBlsVerifier(device="cpu", rng=np.random.default_rng(8))
     verifier._cards = [torch.device("cpu"), torch.device("meta")]
-    monkeypatch.setattr(tv, "from_packed", lambda packed, dev: (dev,))
     monkeypatch.setattr(tv, "miller_product_fused",
-                        lambda dev: (torch.zeros(6, 2, 50), torch.tensor(False)))
+                        lambda *a: (torch.zeros(6, 2, 50), torch.tensor(False)))
     threads, per_thread, errors = 32, 50, []
     placed = {"cpu": 0, "meta": 0}
     lock = threading.Lock()
