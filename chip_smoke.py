@@ -37,8 +37,10 @@ its wall time on a line of its own:
 
 2b. graphs: the verifier's per-bucket CUDA graphs
    (``crypto/bls/bucket_program.py``) for both programs and both modes
-   (``--split-only`` and ``--fused-only``: the fused program's two) at
-   buckets 4 and 128: each bucket's ``warmup`` (the eager run, the
+   (``--split-only`` and ``--fused-only``: the fused program's two), the
+   fused program's at buckets 4 and 128, the XLA-graph program's at
+   bucket 4 (phase 6 makes and holds its full-device graph at 128 the
+   same way): each bucket's ``warmup`` (the eager run, the
    capture and the instantiation seconds, the device memory it reserved,
    the port kernels' launches a replay); then, both buckets' graphs made
    in the card's one pool, at each bucket a valid batch of the phase's
@@ -78,7 +80,9 @@ histograms of phases 3, 6 and 11 are read from that record.
    marker kernels): the host's wall across it, the device's span and busy
    time in it, its idle share; then the host's cost of one eager launch
    with the card idle and busy;
-6. XLA slice: the same four batches through
+6. XLA slice: the full-device graph at bucket 128 made and held as in
+   phase 2b (its warmup, the replay against the eager run, two batches
+   in flight); then the same four batches through
    ``TorchBlsVerifier(fused=False)`` (the XLA-graph program,
    ``ops/batch_verify``) with every launch counter set to 0 just before
    the valid one: True, False, False, True, and each tower kernel
@@ -155,6 +159,32 @@ histograms of phases 3, 6 and 11 are read from that record.
     merge cap grows to 2 x 128) given phase 9's 256 sets as gossip jobs,
     whose merged batch rides the sharded tier, every verdict True, and two
     128-set jobs, one holding a corrupted set, which give True, False.
+13. health: the verifier's health, quarantine and requeue, faults
+    injected through the port's fault plane (``chaos.CHAOS``; a real
+    CUDA error would poison the context every executor of the card
+    shares, so none is provoked), bundles in a temporary directory.  On
+    ``TorchBlsVerifier(devices=[cuda:0] * 2, quarantine_threshold=1,
+    quarantine_backoff_s=0.5)``, its fused split graph at bucket 128 made
+    first: two plain batches, one on each executor (a batch's launches
+    and wall); a ``device.loss`` on executor ``cuda:0`` (armed from the plan's
+    JSON, as ``LODESTAR_TPU_CHAOS_PLAN`` carries it) with every launch
+    counter at 0: phase 3's valid batch is requeued to ``cuda:0#1`` and
+    gives True, ``batches_requeued`` 1, ``bls.requeue`` from ``cuda:0`` in
+    the journal, ``cuda:0`` quarantined with its ``quarantine-cuda:0``
+    bundle, every fused kernel launched twice one batch's count; three
+    batches dispatched at once during the quarantine all land on
+    ``cuda:0#1``; after the
+    backoff a probe batch re-admits ``cuda:0`` (``probing`` and
+    ``readmitted`` in the journal); one batch in flight on each executor
+    at once, their outputs bitwise equal; a corrupted batch lost and
+    requeued gives False.  On one executor a loss raises
+    ``DeviceLostError`` with every slot and in-flight entry freed, and the
+    next batch verifies; a 0.5 s ``device.wedge`` under a 0.2 s watchdog
+    (``RECORDER.start_watchdog``) leaves one stall bundle whose manifest
+    lists the stalled batch and the health section.  A pool over two
+    executors with a loss armed once gives every job True with no per-job
+    retry.  Logged: a requeued batch's wall against a plain one's, the
+    probe batch's wall, the time to re-admission and the phase's wall.
 
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
@@ -168,7 +198,7 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --fused-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
-cross-card legs), phases 1, 2, 2b, 11 and 12, or phases 1-5, 2b, 11 and 12 (every
+cross-card legs), phases 1, 2, 2b and 11-13, or phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), and end with the card line and ``{"ok": true, ...}`` without
 the ``kernels`` object.
@@ -336,7 +366,10 @@ LIBRARY = ("library_fq2_mul",)
 # final exponentiation, which the split dispatch leaves to the host
 XLA_SPLIT = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq12_mul")
 SPLIT_XLA_BUCKET = 16  # the XLA-graph split's verdicts, at a bucket that keeps the run short
-GRAPH_BUCKETS = (4, BUCKET)  # the buckets phase 2b holds each program's graph at
+GRAPH_BUCKETS = (4, BUCKET)  # the buckets phase 2b holds the fused program's graphs at
+# and the XLA-graph program's: its capture at 128 costs ~15-25 s a mode; phase
+# 6 makes and holds the full-device one, phase 11 the split one at 16
+XLA_GRAPH_BUCKETS = (4,)
 # (fused, host_final_exp) of the four per-card programs
 PROGRAMS = ((True, False), (False, False), (True, True), (False, True))
 POOL_SETS = 512  # gossip sets phase 12 submits at once
@@ -904,9 +937,43 @@ def replay_against_eager(verifier, packed, dev, what: str) -> bool:
     return verdicts[0]
 
 
+def warm_graph(verifier, dev, b: int, name: str, card: str) -> dict:
+    """Makes ``verifier``'s graph at bucket ``b`` and logs its warmup (its
+    eager run, capture and instantiation seconds, the device memory it
+    reserved); returns those numbers."""
+    sync_all()
+    before = torch.cuda.memory_reserved(dev)
+    seconds = verifier.warmup((b,))
+    sync_all()
+    held = torch.cuda.memory_reserved(dev) - before
+    program = verifier.programs[(dev, b, verifier.fused, verifier.host_final_exp)]
+    nodes = sum(n for h in program.launch_rows.values() for n in h.values())
+    log(f"graphs: {name} bucket {b}: warmup {seconds:.3f} s (eager run "
+        f"{program.seconds['eager']:.3f} s, capture {program.seconds['capture']:.3f} "
+        f"s, instantiation {program.seconds['instantiate']:.3f} s), device memory "
+        f"reserved +{held} B, {nodes} port kernel launches a replay [{card}]")
+    return dict(warmup_s=seconds, **program.seconds, reserved_bytes=held,
+                kernel_launches=nodes)
+
+
+def hold_graph(verifier, dev, valid, bad, what: str) -> None:
+    """A valid packed batch replayed against the eager ops entry (bitwise,
+    every launch count equal), then two batches in flight, valid and
+    corrupted, read in reverse order."""
+    if replay_against_eager(verifier, valid, dev, what) is not True:
+        raise AssertionError(f"graphs: {what}: a valid batch failed")
+    first, second = verifier.dispatch(valid), verifier.dispatch(bad)
+    got = (second.result(), first.result())
+    log(f"graphs: {what}: two batches in flight, valid then corrupted, "
+        f"read in reverse order -> {got}")
+    if got != (False, True):
+        raise AssertionError(f"graphs: {what}: the batches in flight gave {got}")
+
+
 def run_graphs(dev, card: str, sets, programs) -> dict:
     """Phase 2b: for each (fused, host_final_exp) of ``programs``, the
-    verifier's graphs at GRAPH_BUCKETS: the warmup of each (its eager run,
+    verifier's graphs at GRAPH_BUCKETS (the XLA-graph program's at
+    XLA_GRAPH_BUCKETS): the warmup of each (its eager run,
     capture and instantiation seconds, the device memory it reserved);
     then, the graphs of both buckets made (they share the card's pool),
     at each bucket a valid batch replayed against the eager ops entry
@@ -932,31 +999,11 @@ def run_graphs(dev, card: str, sets, programs) -> dict:
                 seed = {(True, False): SEED, (False, False): SEED + 1, (False, True): SEED + 30}
                 v = TorchBlsVerifier(device=dev, fused=fused, host_final_exp=host_final_exp,
                                      rng=np.random.default_rng(seed[(fused, host_final_exp)]))
-            for b in GRAPH_BUCKETS:
-                sync_all()
-                before = torch.cuda.memory_reserved(dev)
-                seconds = v.warmup((b,))
-                sync_all()
-                held = torch.cuda.memory_reserved(dev) - before
-                program = v.programs[(dev, b, fused, host_final_exp)]
-                nodes = sum(n for h in program.launch_rows.values() for n in h.values())
-                summary[f"{name} b{b}"] = dict(warmup_s=seconds, **program.seconds,
-                                               reserved_bytes=held, kernel_launches=nodes)
-                log(f"graphs: {name} bucket {b}: warmup {seconds:.3f} s (eager run "
-                    f"{program.seconds['eager']:.3f} s, capture {program.seconds['capture']:.3f} "
-                    f"s, instantiation {program.seconds['instantiate']:.3f} s), device memory "
-                    f"reserved +{held} B, {nodes} port kernel launches a replay [{card}]")
-            for b in GRAPH_BUCKETS:
-                valid, bad = batches[b]
-                if replay_against_eager(v, valid, dev, f"{name} bucket {b}") is not True:
-                    raise AssertionError(f"graphs: {name} bucket {b}: a valid batch failed")
-                first, second = v.dispatch(valid), v.dispatch(bad)
-                got = (second.result(), first.result())
-                log(f"graphs: {name} bucket {b}: two batches in flight, valid then corrupted, "
-                    f"read in reverse order -> {got}")
-                if got != (False, True):
-                    raise AssertionError(f"graphs: {name} bucket {b}: the batches in flight "
-                                         f"gave {got}")
+            buckets = GRAPH_BUCKETS if fused else XLA_GRAPH_BUCKETS
+            for b in buckets:
+                summary[f"{name} b{b}"] = warm_graph(v, dev, b, name, card)
+            for b in buckets:
+                hold_graph(v, dev, *batches[b], f"{name} bucket {b}")
             verifiers[(fused, host_final_exp)] = v
         log("graphs: " + json.dumps({"card": card, "memory_reserved_bytes":
                                      torch.cuda.memory_reserved(dev), "programs": summary}))
@@ -1010,13 +1057,20 @@ def run_fused(dev, card: str, pool, keys, sets, verifier):
 
 
 def run_xla(dev, card: str, pool, keys, sets, verifier):
-    """Phases 6-7 through ``verifier``, phase 2b's full-device XLA-graph one
-    (its graph at bucket 128 made)."""
+    """Phases 6-7 through ``verifier``, phase 2b's full-device XLA-graph one.
+    Phase 6 first makes its graph at bucket 128 and holds it as phase 2b
+    holds the others, so that the counted batch is a replay."""
     from torch.profiler import ProfilerActivity
 
     from lodestar_tpu_torch.ops import batch_verify, limbs
 
     with Phase("6 XLA slice"):
+        name = program_name(False, False)
+        warm_graph(verifier, dev, BUCKET, name, card)
+        bad = list(sets)
+        bad[1] = dataclasses.replace(bad[1], signature=sets[2].signature)
+        hold_graph(verifier, dev, verifier.pack(sets), verifier.pack(bad),
+                   f"{name} bucket {BUCKET}")
         launches = check_verdicts(verifier, sets, "xla", TOWER)
         launch_rows(verifier, sets, TOWER_HISTOGRAM, "xla")
 
@@ -1685,6 +1739,275 @@ def run_pool(dev, card: str, pool, keys, sets256) -> dict:
 
 
 
+# -- phase 13: health, quarantine and requeue ----------------------------------
+
+HEALTH_BACKOFF_S = 0.5  # phase 13's quarantine backoff
+WEDGE_S = 0.5  # the injected wedge
+WATCHDOG_S = 0.2  # the watchdog's deadline, inside the wedge
+
+
+def _journal_since(seq0: int, kind: str):
+    from lodestar_tpu_torch.forensics import JOURNAL
+
+    return [e for e in JOURNAL.events() if e["seq"] >= seq0 and e["kind"] == kind]
+
+
+def _timed_batch(verifier, packed):
+    """One packed batch, dispatch to verdict on the host clock: (verdict,
+    the executor it landed on, seconds)."""
+    sync_all()
+    t0 = time.perf_counter()
+    pending = verifier.dispatch(packed)
+    ok = pending.result()
+    return ok, pending.device, time.perf_counter() - t0
+
+
+def _bundles(base: str, prefix: str):
+    """(directory, manifest) of each complete bundle under ``base`` whose
+    name starts with ``bundle-<prefix>``."""
+    out = []
+    for name in sorted(os.listdir(base)):
+        path = os.path.join(base, name)
+        if name.startswith("bundle-" + prefix) and os.path.exists(
+                os.path.join(path, "manifest.json")):
+            with open(os.path.join(path, "manifest.json")) as f:
+                out.append((path, json.load(f)))
+    return out
+
+
+def health_requeue(dev, card: str, sets) -> dict:
+    """Phase 13, steps 1-2: on two executors of the card, two plain
+    batches, a loss on ``cuda:0`` requeued (every fused kernel launched
+    twice a batch's count), its quarantine bundle, three batches on the
+    other executor, the probe that re-admits ``cuda:0``, two batches in
+    flight on the two executors bitwise equal, and a corrupted batch
+    lost and requeued."""
+    from lodestar_tpu_torch.chaos import CHAOS, PLAN_ENV, FaultPlan, install_from_env
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import (
+        HEALTHY,
+        PROBING,
+        QUARANTINED,
+        TorchBlsVerifier,
+    )
+    from lodestar_tpu_torch.forensics import JOURNAL, RECORDER
+    from lodestar_tpu_torch.ops import fused_core
+
+    first, second = str(dev), f"{dev}#1"
+    v = TorchBlsVerifier(devices=[dev, dev], quarantine_threshold=1,
+                         quarantine_backoff_s=HEALTH_BACKOFF_S,
+                         rng=np.random.default_rng(SEED + 50))
+    RECORDER.configure(verifier=v)
+    warm = v.warmup((BUCKET,))
+    bad = list(sets)
+    bad[1] = dataclasses.replace(bad[1], signature=sets[2].signature)
+    valid, corrupted = v.pack(sets), v.pack(bad)
+    # two plain batches, one on each executor: a batch's launches and wall
+    walls, plain = [], None
+    for want in (first, second):
+        fused_core.reset_launch_counts()
+        ok, landed, seconds = _timed_batch(v, valid)
+        plain = plain or {name: k.launches for name, k in fused_core.COUNTED.items()}
+        walls.append(seconds)
+        if ok is not True or landed != want:
+            raise AssertionError(f"health: a plain batch landed on {landed} -> {ok}")
+    plain_s = min(walls)
+    seq0 = JOURNAL.seq
+    # 1. a loss on cuda:0, armed as a node would arm it, from the plan's JSON;
+    # the placement's cursor is back at cuda:0
+    plan = FaultPlan(SEED).add("device.loss", match={"device": first}, count=1)
+    if not install_from_env({PLAN_ENV: plan.to_json()}):
+        raise AssertionError("health: the fault plan did not arm")
+    sync_all()
+    fused_core.reset_launch_counts()
+    ok, _, requeued_s = _timed_batch(v, valid)
+    lost = {name: k.launches for name, k in fused_core.COUNTED.items()}
+    CHAOS.disarm()
+    landed = [e["device"] for e in _journal_since(seq0, "bls.dispatch")]
+    requeues = _journal_since(seq0, "bls.requeue")
+    state = v.executor_health()[first]["state"]
+    bundles = [m for _, m in _bundles(RECORDER.dir, "quarantine-")
+               if m["reason"] == f"quarantine-{first}"]
+    log(f"health: a valid batch of {len(sets)} lost on {first} -> {ok} after its requeue "
+        f"(dispatched on {landed}; {requeued_s} s dispatch to verdict, a plain batch "
+        f"{walls} s); batches_requeued {v.batches_requeued}, journal bls.requeue from "
+        f"{[e['from_device'] for e in requeues]}, {first} {state}, quarantine bundles "
+        f"{len(bundles)} (files {bundles[0]['files'] if bundles else None})")
+    if (ok is not True or landed != [first, second] or v.batches_requeued != 1
+            or [e["from_device"] for e in requeues] != [first] or state != QUARANTINED
+            or len(bundles) != 1):
+        raise AssertionError("health: the lost batch was not requeued, or cuda:0 not "
+                             "quarantined with its bundle")
+    twice = {name: (lost[name], plain[name]) for name in FUSED}
+    log(f"health: launches of the lost and requeued batch against one batch's "
+        f"{json.dumps(twice)}")
+    bad_counts = [n for n, (a, b) in twice.items() if b == 0 or a != 2 * b]
+    if bad_counts:
+        raise AssertionError(f"health: the lost batch's launches are not twice one batch's "
+                             f"for {bad_counts}")
+    # 2. three batches dispatched at once during the quarantine: all on cuda:0#1
+    during = [v.dispatch(valid) for _ in range(3)]
+    placed = [p.device for p in during]
+    got = [p.result() for p in during]
+    log(f"health: three batches during {first}'s quarantine -> on {placed}, {got}")
+    if placed != [second] * 3 or got != [True] * 3:
+        raise AssertionError("health: a batch landed on the quarantined executor")
+    t_quarantined = time.perf_counter()
+    time.sleep((v.executor_health()[first]["readmission_in_s"] or 0.0) + 0.01)
+    probe_s, tries = None, 0
+    while v.executor_health()[first]["state"] != HEALTHY and tries < 3:
+        tries += 1
+        ok, landed, seconds = _timed_batch(v, valid)
+        if ok is not True:
+            raise AssertionError("health: a batch after the backoff did not verify")
+        if landed == first:
+            probe_s = seconds
+    readmitted_s = time.perf_counter() - t_quarantined
+    health = [e for e in _journal_since(seq0, "bls.health") if e["device"] == first]
+    states = [e["state"] for e in health]
+    readmitted = any(e.get("readmitted") for e in health)
+    log(f"health: after the {HEALTH_BACKOFF_S} s backoff, {tries} batch(es) to the probe on "
+        f"{first} ({probe_s} s dispatch to verdict), {first} "
+        f"{v.executor_health()[first]['state']} {readmitted_s} s after the quarantined "
+        f"batches; {first}'s journal states {states}, readmitted {readmitted}")
+    if probe_s is None or PROBING not in states or not readmitted:
+        raise AssertionError("health: cuda:0 was not probed and re-admitted")
+    # two batches in flight on the two executors, one graph: bitwise equal
+    a, b = v.dispatch(valid), v.dispatch(valid)
+    pair = (a.result(), b.result())
+    same = torch.equal(a._f, b._f) and torch.equal(a._ok, b._ok)  # the pinned host copies
+    log(f"health: one batch in flight on {a.device} and on {b.device} at once -> {pair}, "
+        f"outputs bitwise equal {same}")
+    if not same or pair != (True, True) or {a.device, b.device} != {first, second}:
+        raise AssertionError("health: the two executors' replays of one graph differ")
+    # a corrupted batch lost on whichever executor takes it
+    CHAOS.install(FaultPlan(SEED + 1).add("device.loss", count=1))
+    got, landed, bad_s = _timed_batch(v, corrupted)
+    CHAOS.disarm()
+    log(f"health: a corrupted batch lost on {landed} and requeued -> {got} ({bad_s} s); "
+        f"batches_requeued {v.batches_requeued}")
+    if got is not False or v.batches_requeued != 2:
+        raise AssertionError("health: the lost corrupted batch did not give False")
+    v.close()
+    return dict(warmup_s=warm, requeued_s=requeued_s, plain_s=plain_s,
+                extra_s=requeued_s - plain_s, probe_s=probe_s, readmitted_s=readmitted_s)
+
+
+def health_one_executor(dev, card: str, sets) -> dict:
+    """Phase 13, steps 3-4: on one executor a loss raises with the slot
+    and the in-flight entry freed; a wedge under the watchdog leaves a
+    stall bundle that lists the executors' health."""
+    from lodestar_tpu_torch.chaos import CHAOS, DeviceLostError, FaultPlan
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.forensics import INFLIGHT, RECORDER
+
+    v = TorchBlsVerifier(device=dev, rng=np.random.default_rng(SEED + 51))
+    RECORDER.configure(verifier=v)
+    v.warmup((BUCKET,))
+    valid = v.pack(sets)
+    CHAOS.install(FaultPlan(SEED + 2).add("device.loss", count=1))
+    try:
+        v.dispatch(valid).result()
+        raised = None
+    except DeviceLostError as e:
+        raised = type(e).__name__
+    CHAOS.disarm()
+    slots, entries = v.device_inflight(), len(INFLIGHT)
+    ok, _, _ = _timed_batch(v, valid)
+    log(f"health: one executor, a loss -> raised {raised}; slots {slots}, in-flight "
+        f"entries {entries}; the next batch -> {ok}")
+    if raised != "DeviceLostError" or any(slots.values()) or entries or ok is not True:
+        raise AssertionError("health: a loss with no survivor did not raise cleanly")
+    RECORDER.start_watchdog(WATCHDOG_S)
+    CHAOS.install(FaultPlan(SEED + 3).add("device.wedge", wedge_s=WEDGE_S, count=1))
+    t0 = time.perf_counter()
+    try:
+        v.dispatch(valid).result()
+        raised = None
+    except DeviceLostError as e:
+        raised = type(e).__name__
+    wedge_s = time.perf_counter() - t0
+    CHAOS.disarm()
+    RECORDER.stop_watchdog()
+    stalls = _bundles(RECORDER.dir, "watchdog")
+    listed = False
+    if stalls:
+        path, manifest = stalls[-1]
+        with open(os.path.join(path, "inflight.json")) as f:
+            section = json.load(f)["verifier"]
+        listed = ("inflight.json" in manifest["files"] and str(dev) in section["health"]
+                  and [e["device"] for e in manifest["stalled"]] == [str(dev)])
+    ok, _, _ = _timed_batch(v, valid)
+    log(f"health: a {WEDGE_S} s wedge under a {WATCHDOG_S} s watchdog -> raised {raised} "
+        f"after {wedge_s} s, {len(stalls)} stall bundle(s), manifest lists the health "
+        f"section and the stalled batch {listed}; the next batch -> {ok}")
+    if raised != "DeviceLostError" or len(stalls) != 1 or not listed or ok is not True:
+        raise AssertionError("health: the wedge left no stall bundle with the health section")
+    v.close()
+    return dict(wedge_s=wedge_s)
+
+
+def health_pool(dev, card: str, sets) -> dict:
+    """Phase 13, step 5: a pool over two executors with a loss armed once
+    gives every job's verdict without a per-job retry."""
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.chaos import CHAOS, FaultPlan
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    v = TorchBlsVerifier(devices=[dev, dev], quarantine_threshold=1,
+                         quarantine_backoff_s=HEALTH_BACKOFF_S,
+                         rng=np.random.default_rng(SEED + 52))
+    v.warmup((BUCKET,))
+    v.pack(sets)  # the public keys cached, as on a node
+    jobs = gossip_jobs(sets)
+    bls = BlsBatchPool(v, pipeline_depth=2, flush_threshold=BUCKET, max_buffer_wait=0.02)
+    CHAOS.install(FaultPlan(SEED + 4).add("device.loss", count=1))
+    t0 = time.perf_counter()
+    results = asyncio.run(_verify_all(bls, jobs))
+    wall = time.perf_counter() - t0
+    CHAOS.disarm()
+    bls.close()
+    log(f"health: a pool over 2 executors, a loss armed once: {len(jobs)} jobs -> all True "
+        f"{all(r is True for r in results)} in {wall} s, {len(bls.batch_spans)} batches, "
+        f"batches_requeued {v.batches_requeued}, batch retries {bls.batch_retries} [{card}]")
+    if (not all(r is True for r in results) or len(results) != len(jobs)
+            or v.batches_requeued != 1 or bls.batch_retries != 0):
+        raise AssertionError("health: the pool's lost batch was not saved by its requeue")
+    v.close()
+    return dict(pool_wall=wall)
+
+
+def run_health(dev, card: str, sets, sets256) -> dict:
+    """Phase 13: health, quarantine and requeue on the card, faults
+    injected through the port's fault plane (no real device error: a
+    sticky CUDA error would poison the context every executor of the card
+    shares), bundles written to a temporary directory removed after."""
+    import shutil
+    import tempfile
+
+    from lodestar_tpu_torch.chaos import CHAOS
+    from lodestar_tpu_torch.forensics import RECORDER
+
+    base = tempfile.mkdtemp(prefix="chip-smoke-forensics-")
+    RECORDER.configure(forensics_dir=base)
+    try:
+        with Phase("13 health"):
+            t0 = time.perf_counter()
+            out = health_requeue(dev, card, sets)
+            out.update(health_one_executor(dev, card, sets))
+            out.update(health_pool(dev, card, sets256[:BUCKET]))
+            out["wall"] = time.perf_counter() - t0
+            log(f"health: requeued batch {out['requeued_s']} s against a plain one "
+                f"{out['plain_s']} s (extra {out['extra_s']} s); probe batch "
+                f"{out['probe_s']} s, re-admitted {out['readmitted_s']} s after the "
+                f"quarantined batches; phase {out['wall']} s [{card}]")
+    finally:
+        CHAOS.disarm()
+        RECORDER.stop_watchdog()
+        RECORDER.verifier = None
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1755,10 +2078,12 @@ def main(argv) -> int:
                 f"{SHARDED_BUCKET}; pool {pooled['rate']} sets/s, {pooled['batches']} batches, "
                 f"inflight peak {pooled['inflight_peak']}, two host spans open "
                 f"{pooled['overlap_share']} of the wall [{card}]")
+        if mode in ("all", "split"):
+            run_health(dev, card, sets, sets256)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
-        phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11, 12",
+        phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
                   "fused": "1-5, 2b, 11, 12"}[mode]
         print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,17 +28,24 @@ each, attestation.ts:138) into dispatch-sized batches.
   ``high_water`` pending sets and off at half of it).  Every drop is
   counted in ``dropped_sets`` by (reason, lane), in sets.
 
-Not ported: the forensics journal, the profiler-window hook, the overload
-diagnostic bundle and the metrics registry.  What the JAX pool exported
-as trace spans and gauges the port keeps as plain attributes:
-``batch_retries``, ``inflight_peak`` and ``batch_spans``, the (pack
-start, verdict) host instants of recent batches.
+A merged batch carries its jobs' tightest deadline to
+``verify_signature_sets_async(merged, deadline=...)`` when the verifier
+takes one (``TorchBlsVerifier`` records it in its journal and in-flight
+table).
+
+Not ported: the pool's journal events and trace spans, the
+profiler-window hook, the overload diagnostic bundle and the metrics.
+What the JAX pool exported as trace spans and gauges the port keeps as
+plain attributes: ``batch_retries``, ``inflight_peak`` and
+``batch_spans``, the (pack start, verdict) host instants of recent
+batches.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import inspect
 import logging
 import time
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -96,8 +103,17 @@ class BlsBatchPool:
         self._flush_task: Optional[asyncio.Task] = None
         self._flushing = False
         self._closed = False
-        # the verifier's capabilities are fixed: probe once, not per flush
+        # the verifier's capabilities are fixed: probe once, not per flush.
+        # The deadline goes only to an entry that takes one, as in the JAX
+        # pool: a verifier without it (a test stub) keeps its signature
         self._use_async = hasattr(verifier, "verify_signature_sets_async")
+        self._accepts_deadline = False
+        if self._use_async:
+            try:
+                self._accepts_deadline = "deadline" in inspect.signature(
+                    verifier.verify_signature_sets_async).parameters
+            except (TypeError, ValueError):  # no signature to read
+                self._accepts_deadline = False
 
     # -- public API (chain.bls.verifySignatureSets analog) -------------------
 
@@ -209,12 +225,12 @@ class BlsBatchPool:
     def _shed_expired(self, drained: List[Tuple]) -> List[Tuple]:
         """Drop drained jobs whose deadline passed, before any pack work is
         spent on them: each future gets ``VerificationDroppedError``; the
-        live jobs are returned as (item, future, lane)."""
+        live jobs are returned as (item, future, lane, deadline)."""
         now = time.monotonic()
         live: List[Tuple] = []
         for item, fut, lane, deadline in drained:
             if deadline is None or now <= deadline:
-                live.append((item, fut, lane))
+                live.append((item, fut, lane, deadline))
                 continue
             lane_p = SignatureSetPriority(lane)
             self._count_drop("deadline", lane_p, len(item))
@@ -222,12 +238,16 @@ class BlsBatchPool:
                 fut.set_exception(VerificationDroppedError("deadline", lane_p))
         return live
 
-    async def _dispatch(self, merged: List[SignatureSet]):
+    async def _dispatch(self, merged: List[SignatureSet], deadline: Optional[float] = None):
         """Pack and enqueue one merged batch on a worker thread; returns the
-        task that reads its verdict (on a worker thread too)."""
+        task that reads its verdict (on a worker thread too).  ``deadline``,
+        the batch's tightest job deadline, rides along when the verifier
+        takes one."""
         if self._use_async:
             # returns once the device program is enqueued, not finished
-            pending = await asyncio.to_thread(self.verifier.verify_signature_sets_async, merged)
+            kwargs = {"deadline": deadline} if self._accepts_deadline else {}
+            pending = await asyncio.to_thread(self.verifier.verify_signature_sets_async,
+                                              merged, **kwargs)
             return asyncio.create_task(asyncio.to_thread(pending.result))
         return asyncio.create_task(
             asyncio.to_thread(self.verifier.verify_signature_sets, merged))
@@ -255,11 +275,13 @@ class BlsBatchPool:
                     if not drained:
                         self._update_backpressure()
                         continue  # the whole drain was expired backlog
-                    merged = [s for item, _fut, _lane in drained for s in item]
+                    merged = [s for item, _fut, _lane, _dl in drained for s in item]
+                    deadlines = [dl for _item, _fut, _lane, dl in drained if dl is not None]
                     self._update_backpressure()
                     t_fill = time.monotonic()  # a batch is busy from its pack
                     try:
-                        verdict = await self._dispatch(merged)
+                        verdict = await self._dispatch(merged,
+                                                       min(deadlines) if deadlines else None)
                     except Exception as e:  # noqa: BLE001 - the jobs are retried one by one
                         # a pack or enqueue failure must not strand the
                         # drained jobs: a failed verdict sends them through
@@ -280,7 +302,7 @@ class BlsBatchPool:
                     ok = False
                 self.batch_spans.append((t_fill, time.monotonic()))
                 if ok:
-                    for item, fut, lane in jobs:
+                    for item, fut, lane, _dl in jobs:
                         if not fut.done():  # a cancelled pusher gets nothing
                             fut.set_result(True)
                     continue
@@ -288,7 +310,7 @@ class BlsBatchPool:
                 # that innocent jobs still pass (worker.ts:78-88)
                 self.batch_retries += 1
                 logger.debug("merged batch of %d jobs failed; retrying individually", len(jobs))
-                for item, fut, lane in jobs:
+                for item, fut, lane, _dl in jobs:
                     if fut.done():
                         continue
                     if self._closed:

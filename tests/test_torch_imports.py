@@ -39,7 +39,10 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "ring_gather", "sharded_verify", "library_fuse"):
         assert os.path.join(PORT, "ops", f"{module}.py") in files
     for module in ("native/fastbls", "chain/bls_pool", "utils/queue", "utils/errors",
-                   "crypto/bls/pairing", "crypto/bls/verifier"):
+                   "crypto/bls/pairing", "crypto/bls/verifier", "tracing/__init__",
+                   "tracing/tracer", "tracing/export", "forensics/__init__", "forensics/journal",
+                   "forensics/watchdog", "forensics/bundle", "forensics/recorder",
+                   "chaos/__init__", "chaos/plan", "metrics/__init__", "metrics/registry"):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -67,6 +70,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.chain.bls_pool\n"
         "import lodestar_tpu_torch.utils.queue\n"
         "import lodestar_tpu_torch.crypto.bls.pairing\n"
+        "import lodestar_tpu_torch.tracing\n"
+        "import lodestar_tpu_torch.forensics\n"
+        "import lodestar_tpu_torch.chaos\n"
+        "import lodestar_tpu_torch.metrics\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"

@@ -134,12 +134,12 @@ def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
 
 
 def test_per_card_tier_round_robins_over_distinct_cards(monkeypatch):
-    v = TorchBlsVerifier(devices=["cpu", "cpu"], sharded=False, host_final_exp=False)
+    v = TorchBlsVerifier(devices=["cpu", "meta"], sharded=False,  # two distinct "cards"
+                         host_final_exp=False)
     seen = []
     monkeypatch.setattr(
         "lodestar_tpu_torch.crypto.bls.torch_verifier.verify_signature_sets_fused",
         lambda *args: seen.append(args[0].device) or torch.tensor(True))
-    v._cards = [torch.device("cpu"), torch.device("meta")]  # two distinct "cards"
     packed = _zero_packed(4)
     for _ in range(3):
         v.dispatch(packed)

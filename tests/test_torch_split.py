@@ -308,8 +308,7 @@ def test_a_malformed_chunk_is_false_and_every_chunk_releases(monkeypatch):
 
 
 def test_placement_is_least_loaded_with_a_round_robin_tie_break(monkeypatch):
-    verifier = TorchBlsVerifier(device="cpu")
-    verifier._cards = [torch.device("cpu"), torch.device("meta")]
+    verifier = TorchBlsVerifier(devices=["cpu", "meta"])  # two distinct "cards"
     monkeypatch.setattr(tv, "miller_product_fused",
                         lambda *a: (torch.zeros(6, 2, 50), torch.tensor(False)))
     assert verifier.n_devices == 2
@@ -365,8 +364,7 @@ def test_concurrent_dispatch_and_results_keep_exact_in_flight_counts(monkeypatch
     import sys
     import threading
 
-    verifier = TorchBlsVerifier(device="cpu", rng=np.random.default_rng(8))
-    verifier._cards = [torch.device("cpu"), torch.device("meta")]
+    verifier = TorchBlsVerifier(devices=["cpu", "meta"], rng=np.random.default_rng(8))
     monkeypatch.setattr(tv, "miller_product_fused",
                         lambda *a: (torch.zeros(6, 2, 50), torch.tensor(False)))
     threads, per_thread, errors = 32, 50, []
