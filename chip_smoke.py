@@ -36,21 +36,21 @@ its wall time on a line of its own:
    eager calls between events).
 
 2b. graphs: the verifier's per-bucket CUDA graphs
-   (``crypto/bls/bucket_program.py``) for both programs and both modes
-   (``--split-only`` and ``--fused-only``: the fused program's two), the
-   fused program's at buckets 4 and 128, the XLA-graph program's at
-   bucket 4 (phase 6 makes and holds its full-device graph at 128 the
-   same way): each bucket's ``warmup`` (the eager run, the
+   (``crypto/bls/bucket_program.py``) of the fused program in both modes
+   at bucket 128 (the cuda-marked tests hold both programs' at bucket 4;
+   the XLA-graph program's capture costs 20-30 s a
+   mode at any bucket: phase 6 makes and holds its full-device graph at
+   128 the same way, phase 11 its split graph at 16): each bucket's
+   ``warmup`` (the eager run, the
    capture and the instantiation seconds, the device memory it reserved,
-   the port kernels' launches a replay); then, both buckets' graphs made
-   in the card's one pool, at each bucket a valid batch of the phase's
+   the port kernels' launches a replay); then a valid batch of the phase's
    sets through the eager ops entry and through the graph, every launch
    counter 0 before each: the outputs (f's digits and ok, or the verdict)
    and the verdicts bitwise equal, every kernel launched as often; and a
    valid and a corrupted batch in flight at once, read in reverse order:
-   False, then True.  Its verifiers, their graphs made, carry phases 3-7
-   and 11; phases 10 and 12 warm theirs up first: every per-card batch of
-   those phases is a replay.
+   False, then True.  Its verifiers, their graphs made, carry phases 3-5
+   and 11; phases 6, 10 and 12 warm theirs up first: every per-card batch
+   of those phases is a replay.
 
 Phases 3-10 measure the full-device mode (``host_final_exp=False``: the
 final exponentiation on the card), as before the split dispatch was
@@ -67,7 +67,9 @@ histograms of phases 3, 6 and 11 are read from that record.
    pow16mul, mul, fq2sqr, fold and canon are logged as a histogram of their row
    counts; the batch-128 example inputs verify through
    ``verify_signature_sets_fused``; the card's Miller product at bucket 4
-   equals the CPU plain run's canonically, digit for digit;
+   equals the CPU plain run's canonically, digit for digit (the CPU runs
+   of phases 3, 6 and 9 are made in the host processes while the card
+   works on the earlier phases);
 4. fused times: three batches of 128 fresh signatures (new messages, so
    no signature is in the verifier's point cache; the public keys are, as
    on a node), each timed as pack then device dispatch (a replay) to the
@@ -105,20 +107,30 @@ histograms of phases 3, 6 and 11 are read from that record.
    ``copy_`` of the same slots, ``Tensor.copy_`` of a chunk and an empty
    kernel of one block, the hop's eager issue time, one whole gather; with two or more
    cards visible, the same across min(count, 4) cards (peer access);
-9. sharded slice: ``TorchBlsVerifier(devices=[cuda:0] * 2, sharded=True,
-   sharded_min_batch=256)`` with every launch counter set to 0 just
-   before: 256 valid sets verify, the ring kernel and every fused kernel
-   launched; a corrupted signature, a signature outside G2 in shard 1
-   give False; 150 live sets over 4 shards (shard 3 all padding) and the
-   ring combine give True; the XLA-graph flavour at bucket 16 over 2
-   shards, with every launch counter set to 0 just before, gives True /
-   False, every tower kernel and the ring kernel launched; the shards'
-   bucket-8 Miller partials, all-gathered, are bitwise equal on every
-   shard, and the sharded Miller product equals the CPU plain run
-   canonically; with two or more cards, valid and corrupted batches on
-   cuda:0 and cuda:1;
-10. sharded times: three fresh batches of 256 through the sharded tier
-    (pack + dispatch, sets/s, each shard's enqueue wall), one profiled
+9. sharded slice, every batch a replay of the verifier's per-bucket
+   ``MeshProgram`` (a CUDA graph per shard, one for the combine):
+   ``warmup_sharded`` of ``TorchBlsVerifier(devices=[cuda:0] * n,
+   sharded=True, sharded_min_batch=256)`` at 256 over 2 and 4 shards, in
+   the full-device and the split mode, of the ring combine over 2, and of
+   the XLA-graph flavour at bucket 16 over 2 shards in both modes (each
+   program's eager run, capture and instantiation seconds, device memory
+   and launches a replay); each program's replay against the eager
+   ``ShardedProgram`` on one batch (256 valid, 150 live over 4 shards, 16
+   valid), every launch counter 0 before each: outputs bitwise equal,
+   every kernel and the ring hop launched as often; then, every launch
+   counter 0 just before, 256 valid sets verify, the ring kernel and
+   every fused kernel launched; a corrupted signature, a signature outside
+   G2 in shard 1 give False; 150 live sets over 4 shards (shard 3 all
+   padding) give True; a valid and a corrupted batch in flight, read in
+   reverse: False, True; the XLA-graph flavour, every launch counter 0
+   just before, gives True / False, every tower kernel and the ring
+   kernel launched; the shards' bucket-8 Miller partials, all-gathered,
+   are bitwise equal on every shard, and the sharded Miller product
+   equals the CPU plain run canonically; with two or more cards, the
+   program made, held and valid and corrupted batches on cuda:0 and
+   cuda:1;
+10. sharded times: three fresh batches of 256 through the sharded tier's
+    replays (pack + dispatch, sets/s, each shard's enqueue wall), one profiled
     dispatch (the union of the device's busy intervals), the same sets
     through one card as two chunks of 128; with two or more cards, the
     same across 2 (and 4) cards and the scaling efficiency;
@@ -137,8 +149,9 @@ histograms of phases 3, 6 and 11 are read from that record.
     (valid, corrupted; its kernels but the Fq6 product, which only the
     final exponentiation runs, launched; the row counts of the valid
     batch's tower_fq2_mul, tower_fq2_sqr and tower_fq12_mul launches; its
-    graph made at bucket 16 first); the sharded split at bucket 256
-    over 2 logical shards
+    graph made at bucket 16 first and held as phase 2b holds the fused
+    program's); the sharded split at bucket 256, through phase 9's split
+    programs, over 2 logical shards
     (valid, corrupted, a signature outside G2 in shard 1, one fresh timed
     batch) and over 4 (150 live sets: shard 3 all padding); with two or
     more cards, the sharded split across cuda:0 and cuda:1;
@@ -156,7 +169,8 @@ histograms of phases 3, 6 and 11 are read from that record.
     False; then a job past its deadline is dropped with
     ``VerificationDroppedError``; then a pool over
     ``TorchBlsVerifier(devices=[cuda:0] * 2, sharded=True)`` (``sharded_active``: the
-    merge cap grows to 2 x 128) given phase 9's 256 sets as gossip jobs,
+    merge cap grows to 2 x 128; its mesh program at 256 made by
+    ``warmup_sharded``) given phase 9's 256 sets as gossip jobs,
     whose merged batch rides the sharded tier, every verdict True, and two
     128-set jobs, one holding a corrupted set, which give True, False.
 13. health: the verifier's health, quarantine and requeue, faults
@@ -185,6 +199,18 @@ histograms of phases 3, 6 and 11 are read from that record.
     executors with a loss armed once gives every job True with no per-job
     retry.  Logged: a requeued batch's wall against a plain one's, the
     probe batch's wall, the time to re-admission and the phase's wall.
+14. store: the library built in phase 1 saved to a temporary durable
+    store (``aot/store.py``), then three fresh processes at once: one with
+    nvcc off its PATH and CUDA_HOME pointing at an empty directory,
+    ``TorchBlsVerifier(load_only=True, aot_store=...)``, loads it from the
+    store (ledger kind ``aot_load``), warms bucket 4 and verifies a valid
+    and a corrupted batch (True, False), starting no nvcc; one on an empty
+    store raises ``AotStoreMiss`` before any batch; one allowed to build
+    (into an empty build directory), on a copy of the store whose payload
+    ``chaos.corrupt_file`` corrupted, journals ``aot.corrupt``,
+    quarantines it, rebuilds with nvcc and saves again; logged: the
+    store's load seconds against the nvcc build's, and the compile
+    ledger's summary.
 
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
@@ -196,12 +222,13 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --split-only
     python3 chip_smoke.py --fused-only
+    python3 chip_smoke.py --store-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
-cross-card legs), phases 1, 2, 2b and 11-13, or phases 1-5, 2b, 11 and 12 (every
+cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
-another's), and end with the card line and ``{"ok": true, ...}`` without
-the ``kernels`` object.
+another's), or phases 1 and 14, and end with the card line and
+``{"ok": true, ...}`` without the ``kernels`` object.
 """
 
 from __future__ import annotations
@@ -229,6 +256,7 @@ NVLINK_BYTES_PER_S = 450e9
 INT32_OPS_PER_S = 33.5e12
 
 SEED = 20261016
+REPO = os.path.dirname(os.path.abspath(__file__))
 BUCKET = 128  # the node's MAX_SIGNATURE_SETS_PER_JOB
 SHARDED_BUCKET = 256  # the sharded tier's default smallest bucket (the largest)
 RING_SHAPES = ((6, 2, 50), (2,))  # a GT partial, the two verdict bits
@@ -366,12 +394,15 @@ LIBRARY = ("library_fq2_mul",)
 # final exponentiation, which the split dispatch leaves to the host
 XLA_SPLIT = ("tower_fq2_mul", "tower_fq2_sqr", "tower_fq12_mul")
 SPLIT_XLA_BUCKET = 16  # the XLA-graph split's verdicts, at a bucket that keeps the run short
-GRAPH_BUCKETS = (4, BUCKET)  # the buckets phase 2b holds the fused program's graphs at
-# and the XLA-graph program's: its capture at 128 costs ~15-25 s a mode; phase
-# 6 makes and holds the full-device one, phase 11 the split one at 16
-XLA_GRAPH_BUCKETS = (4,)
-# (fused, host_final_exp) of the four per-card programs
-PROGRAMS = ((True, False), (False, False), (True, True), (False, True))
+XLA_SHARDED_BUCKET = 16  # the sharded XLA-graph flavour's, over 2 shards (8 lanes each)
+# the buckets phase 2b holds the fused program's graphs at (the cuda-marked
+# tests hold both programs' at bucket 4)
+GRAPH_BUCKETS = (BUCKET,)
+# (fused, host_final_exp) of the fused program's two per-card programs, which
+# phase 2b holds; the XLA-graph program's capture costs ~20-30 s a mode at
+# any bucket: phase 6 makes and holds the full-device one at 128, phase 11
+# the split one at 16
+PROGRAMS = ((True, False), (True, True))
 POOL_SETS = 512  # gossip sets phase 12 submits at once
 POOL_BLOCK_SETS = 64  # the block-proposal job's sets
 
@@ -644,6 +675,29 @@ def make_sets(pool, keys, tag: bytes):
     sigs = pool.map(_sign, list(enumerate(msgs)), chunksize=8)
     return [SingleSignatureSet(pubkey=pk, signing_root=m, signature=sig)
             for (_sk, pk), m, sig in zip(keys, msgs, sigs)]
+
+
+def cpu_reference(what: str):
+    """A CPU plain run the card is held against, in a host process beside
+    the card's phases: the canonical digits of the Miller product of the
+    example inputs and the verdict bits, for the fused program at bucket 4
+    (phase 3), the XLA-graph program at bucket 4 (phase 6) or the fused
+    sharded entry over 2 CPU shards at bucket 8 (phase 9)."""
+    torch.set_num_threads(1)
+    from lodestar_tpu_torch.ops import batch_verify, fused_core, fused_verify, limbs
+    from lodestar_tpu_torch.ops.sharded_verify import miller_product_sharded
+
+    if what == "xla":
+        f, ok = batch_verify.miller_product_kernel(
+            *batch_verify.from_packed(batch_verify.example_inputs(4), "cpu"))
+        return limbs.fp_reduce_full(f).numpy(), bool(ok)
+    if what == "fused":
+        f, ok = fused_verify.miller_product_fused(
+            *fused_verify.from_packed(fused_verify.example_inputs(4), "cpu"))
+    else:
+        f, ok = miller_product_sharded(["cpu"] * 2, fused=True)(*fused_verify.example_inputs(8))
+        f = fused_core.lv(f)
+    return fused_core.f_canon(f).numpy(), bool(ok)
 
 
 def non_subgroup_signature() -> bytes:
@@ -970,13 +1024,12 @@ def hold_graph(verifier, dev, valid, bad, what: str) -> None:
         raise AssertionError(f"graphs: {what}: the batches in flight gave {got}")
 
 
-def run_graphs(dev, card: str, sets, programs) -> dict:
-    """Phase 2b: for each (fused, host_final_exp) of ``programs``, the
-    verifier's graphs at GRAPH_BUCKETS (the XLA-graph program's at
-    XLA_GRAPH_BUCKETS): the warmup of each (its eager run,
+def run_graphs(dev, card: str, sets) -> dict:
+    """Phase 2b: for the fused program in both modes (``PROGRAMS``), the
+    verifier's graphs at GRAPH_BUCKETS: the warmup of each (its eager run,
     capture and instantiation seconds, the device memory it reserved);
-    then, the graphs of both buckets made (they share the card's pool),
-    at each bucket a valid batch replayed against the eager ops entry
+    then, every graph made (they share the card's pool), at each bucket a
+    valid batch replayed against the eager ops entry
     (bitwise, every launch count equal) and two batches in flight, valid
     and corrupted, read in reverse order.  Returns the warmed verifiers by
     (fused, host_final_exp), for the later phases."""
@@ -990,19 +1043,15 @@ def run_graphs(dev, card: str, sets, programs) -> dict:
         batches[b] = (packer.pack(sets[:b]), packer.pack(bad))
     verifiers, summary = {}, {}
     with Phase("2b graphs"):
-        for fused, host_final_exp in programs:
+        for fused, host_final_exp in PROGRAMS:
             name = program_name(fused, host_final_exp)
             # the later phases' verifiers (phase 11's is the default one)
-            if fused and host_final_exp:
-                v = TorchBlsVerifier()
-            else:
-                seed = {(True, False): SEED, (False, False): SEED + 1, (False, True): SEED + 30}
-                v = TorchBlsVerifier(device=dev, fused=fused, host_final_exp=host_final_exp,
-                                     rng=np.random.default_rng(seed[(fused, host_final_exp)]))
-            buckets = GRAPH_BUCKETS if fused else XLA_GRAPH_BUCKETS
-            for b in buckets:
+            v = (TorchBlsVerifier() if host_final_exp else
+                 TorchBlsVerifier(device=dev, host_final_exp=False,
+                                  rng=np.random.default_rng(SEED)))
+            for b in GRAPH_BUCKETS:
                 summary[f"{name} b{b}"] = warm_graph(v, dev, b, name, card)
-            for b in buckets:
+            for b in GRAPH_BUCKETS:
                 hold_graph(v, dev, *batches[b], f"{name} bucket {b}")
             verifiers[(fused, host_final_exp)] = v
         log("graphs: " + json.dumps({"card": card, "memory_reserved_bytes":
@@ -1013,7 +1062,7 @@ def run_graphs(dev, card: str, sets, programs) -> dict:
 # -- phases 3-5: the fused path ----------------------------------------------
 
 
-def run_fused(dev, card: str, pool, keys, sets, verifier):
+def run_fused(dev, card: str, pool, keys, sets, verifier, cpu_ref):
     """Phases 3-5 through ``verifier``, phase 2b's full-device fused one
     (its graph at bucket 128 made)."""
     from torch.profiler import ProfilerActivity
@@ -1030,14 +1079,15 @@ def run_fused(dev, card: str, pool, keys, sets, verifier):
         if got is not True:
             raise AssertionError("the batch-128 example inputs did not verify")
 
-        # the card against the CPU plain versions on a small input
+        # the card against the CPU plain versions on a small input (the CPU
+        # run made in a host process beside the card's phases)
         small = fused_verify.example_inputs(4)
         f_gpu, ok_gpu = fused_verify.miller_product_fused(*fused_verify.from_packed(small, dev))
-        f_cpu, ok_cpu = fused_verify.miller_product_fused(*fused_verify.from_packed(small, "cpu"))
-        same = torch.equal(fused_core.f_canon(f_gpu).cpu(), fused_core.f_canon(f_cpu))
+        f_cpu, ok_cpu = cpu_ref["fused"].get()
+        same = np.array_equal(fused_core.f_canon(f_gpu).cpu().numpy(), f_cpu)
         log(f"fused slice: bucket-4 Miller product, card vs CPU plain: canonical f equal {same}, "
-            f"ok {bool(ok_gpu)} / {bool(ok_cpu)}")
-        if not (same and bool(ok_gpu) and bool(ok_cpu)):
+            f"ok {bool(ok_gpu)} / {ok_cpu}")
+        if not (same and bool(ok_gpu) and ok_cpu):
             raise AssertionError("the card's Miller product differs from the CPU plain run")
 
     # fresh signatures; the public keys stay in the point cache, as on a node
@@ -1056,15 +1106,18 @@ def run_fused(dev, card: str, pool, keys, sets, verifier):
 # -- phases 6-7: the XLA-graph path -------------------------------------------
 
 
-def run_xla(dev, card: str, pool, keys, sets, verifier):
-    """Phases 6-7 through ``verifier``, phase 2b's full-device XLA-graph one.
-    Phase 6 first makes its graph at bucket 128 and holds it as phase 2b
-    holds the others, so that the counted batch is a replay."""
+def run_xla(dev, card: str, pool, keys, sets, cpu_ref):
+    """Phases 6-7 through a full-device XLA-graph verifier.  Phase 6 first
+    makes its graph at bucket 128 and holds it as phase 2b holds the fused
+    program's, so that the counted batch is a replay."""
     from torch.profiler import ProfilerActivity
 
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import batch_verify, limbs
 
     with Phase("6 XLA slice"):
+        verifier = TorchBlsVerifier(device=dev, fused=False, host_final_exp=False,
+                                    rng=np.random.default_rng(SEED + 1))
         name = program_name(False, False)
         warm_graph(verifier, dev, BUCKET, name, card)
         bad = list(sets)
@@ -1076,11 +1129,11 @@ def run_xla(dev, card: str, pool, keys, sets, verifier):
 
         small = batch_verify.example_inputs(4)
         f_gpu, ok_gpu = batch_verify.miller_product_kernel(*batch_verify.from_packed(small, dev))
-        f_cpu, ok_cpu = batch_verify.miller_product_kernel(*batch_verify.from_packed(small, "cpu"))
-        same = torch.equal(limbs.fp_reduce_full(f_gpu).cpu(), limbs.fp_reduce_full(f_cpu))
+        f_cpu, ok_cpu = cpu_ref["xla"].get()
+        same = np.array_equal(limbs.fp_reduce_full(f_gpu).cpu().numpy(), f_cpu)
         log(f"xla slice: bucket-4 Miller product, card vs CPU plain: canonical f equal {same}, "
-            f"ok {bool(ok_gpu)} / {bool(ok_cpu)}")
-        if not (same and bool(ok_gpu) and bool(ok_cpu)):
+            f"ok {bool(ok_gpu)} / {ok_cpu}")
+        if not (same and bool(ok_gpu) and ok_cpu):
             raise AssertionError("the card's XLA-path Miller product differs from the CPU run")
 
     with Phase("7 XLA times and profile"):
@@ -1274,7 +1327,107 @@ def expect(verifier, sets, want, what: str) -> None:
         raise AssertionError(f"sharded: {what} gave {got}, expected {want}")
 
 
-def run_sharded(dev, card: str, sets):
+def mesh_program(verifier, bucket: int):
+    return verifier.mesh_programs[("mesh", bucket, verifier.fused, verifier.host_final_exp)]
+
+
+def warm_mesh(verifier, bucket: int, what: str, card: str) -> dict:
+    """``warmup_sharded`` of ``verifier`` at ``bucket``; logs the program's
+    eager run, capture and instantiation seconds (summed over its graphs:
+    one per shard, one for the combine), the device memory it reserved and
+    the port kernels' launches a replay; returns those numbers."""
+    sync_all()
+    before = torch.cuda.memory_reserved()
+    seconds = verifier.warmup_sharded((bucket,))
+    sync_all()
+    program = mesh_program(verifier, bucket)
+    nodes = sum(n for h in program.launch_rows.values() for n in h.values())
+    out = dict(warmup_s=seconds, **program.seconds, graphs=len(program.graphs),
+               reserved_bytes=torch.cuda.memory_reserved() - before, kernel_launches=nodes)
+    log(f"mesh graphs: {what} bucket {bucket}: warmup_sharded {seconds:.3f} s ("
+        f"{len(program.graphs)} graphs: eager run {program.seconds['eager']:.3f} s, capture "
+        f"{program.seconds['capture']:.3f} s, instantiation {program.seconds['instantiate']:.3f} "
+        f"s), device memory reserved +{out['reserved_bytes']} B, {nodes} port kernel launches "
+        f"a replay [{card}]")
+    return out
+
+
+def replay_mesh_against_eager(verifier, packed, what: str, split_ref=None):
+    """One packed batch through the eager ``ShardedProgram`` over the
+    verifier's shards (every counter 0 just before) and through the
+    verifier's ``MeshProgram`` at its bucket (the same): fails unless the
+    outputs (f's digits and ok, or the verdict) are bitwise equal and every
+    kernel, the ring hop included, was launched as often.  ``split_ref``,
+    for a full-device verifier: the eager split entry's run of the same
+    batch over the same shards (its program, outputs and launches), whose
+    ``final_verdict`` is the full entry's tail, so that the eager tier runs
+    once for both modes.  Returns (the verdict, this eager split run's
+    reference, or None)."""
+    from lodestar_tpu_torch.crypto.bls.bucket_program import _tensors
+    from lodestar_tpu_torch.ops import fused_core, sharded_verify
+
+    entry = (sharded_verify.miller_product_sharded if verifier.host_final_exp
+             else sharded_verify.verify_signature_sets_sharded)
+    program = mesh_program(verifier, packed[0].shape[0])
+    sync_all()
+    fused_core.reset_launch_counts()
+    if split_ref is None:
+        eager = entry(verifier.devices, verifier.fused, verifier.sharded_combine)
+        outs = eager(*packed)
+        before = {}
+    else:
+        eager, (f, ok), before = split_ref
+        outs = sharded_verify.final_verdict(eager.mesh, verifier.fused, f, ok)
+    want = [t.cpu() for t in _tensors(outs)]
+    sync_all()
+    eager_launches = {name: k.launches + before.get(name, 0)
+                      for name, k in fused_core.COUNTED.items()}
+    fused_core.reset_launch_counts()
+    got, ready = program.run(packed)
+    ready.synchronize()
+    replayed = {name: k.launches for name, k in fused_core.COUNTED.items()}
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    verdicts = tuple(verdict_of(outs, verifier.host_final_exp) for outs in (got, want))
+    log(f"mesh graphs: {what}: replay against the eager ShardedProgram, outputs bitwise equal "
+        f"{same}, verdicts {verdicts}, launches equal {replayed == eager_launches} "
+        f"({sum(eager_launches.values())} launches, ring_hop {replayed['ring_hop']})")
+    if not same or replayed != eager_launches or verdicts[0] != verdicts[1]:
+        raise AssertionError(f"mesh graphs: {what}: the replay differs from the eager run "
+                             f"(launches {replayed} against {eager_launches})")
+    ref = (eager, outs, eager_launches) if verifier.host_final_exp else None
+    return verdicts[0], ref
+
+
+def hold_mesh(verifier, packed, what: str, want: bool = True, split_ref=None):
+    """``replay_mesh_against_eager``; fails unless the verdict is ``want``;
+    returns the eager split run's reference (None in the full mode)."""
+    got, ref = replay_mesh_against_eager(verifier, packed, what, split_ref)
+    if got is not want:
+        raise AssertionError(f"mesh graphs: {what}: the verdict is not {want}")
+    return ref
+
+
+def in_flight(verifier, valid, bad, what: str) -> None:
+    """A valid and a corrupted batch in flight at once, read in reverse."""
+    first, second = verifier.dispatch(valid), verifier.dispatch(bad)
+    got = (second.result(), first.result())
+    log(f"sharded slice: {what}: two batches in flight, valid then corrupted, read in "
+        f"reverse order -> {got}")
+    if got != (False, True):
+        raise AssertionError(f"sharded: {what}: the batches in flight gave {got}")
+
+
+def corrupt(sets, i: int, j: int):
+    bad = list(sets)
+    bad[i] = dataclasses.replace(bad[i], signature=sets[j].signature)
+    return bad
+
+
+def run_sharded(dev, card: str, sets, cpu_ref):
+    """Phase 9: every sharded batch a replay of the verifier's per-bucket
+    ``MeshProgram``.  Returns (the full-device fused verifier over 2
+    shards, its counted batch's launches, the XLA-graph flavour's, the
+    split verifiers over 2 and 4 shards for phase 11)."""
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.ops import fused_core, fused_verify
     from lodestar_tpu_torch.ops.ring_gather import ring_all_gather
@@ -1282,54 +1435,86 @@ def run_sharded(dev, card: str, sets):
 
     fused = FUSED + ("ring_hop",)
     logical = [dev, dev]
+
+    def tier(devices, seed, **kw):
+        kw.setdefault("sharded_min_batch", SHARDED_BUCKET)
+        kw.setdefault("host_final_exp", False)
+        return TorchBlsVerifier(devices=devices, sharded=True,
+                                rng=np.random.default_rng(SEED + seed), **kw)
+
     with Phase("9 sharded slice"):
-        verifier = TorchBlsVerifier(devices=logical, sharded=True,
-                                    sharded_min_batch=SHARDED_BUCKET,
-                                    rng=np.random.default_rng(SEED + 3), host_final_exp=False)
+        verifier = tier(logical, 3)
+        four = tier([dev] * 4, 4)
+        summary = {}
+        for name, v in (("fused full-device, 2 shards", verifier),
+                        ("fused full-device, 4 shards", four)):
+            summary[name] = warm_mesh(v, SHARDED_BUCKET, name, card)
+        valid = verifier.pack(sets)
+        live150 = four.pack(sets[:150])
+        hold_mesh(verifier, valid, "fused full-device, 2 shards, 256 valid")
+        hold_mesh(four, live150, "fused full-device, 4 shards, 150 live (shard 3 all padding)")
+
         fused_core.reset_launch_counts()
         t0 = time.perf_counter()
         ok = verifier.verify_signature_sets(sets)
         first_s = time.perf_counter() - t0
         launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
         log(f"sharded slice: valid batch of {len(sets)} over {verifier.mesh_devices} logical "
-            f"shards -> {ok} (first run {first_s:.3f} s, sharded batches "
+            f"shards -> {ok} (a replay, {first_s:.3f} s, sharded batches "
             f"{verifier.sharded_batches}); launches per batch {json.dumps(launches)}")
         if ok is not True or verifier.sharded_batches != 1:
             raise AssertionError("sharded: a valid batch of 256 did not verify on the mesh")
         idle = [name for name in fused if launches[name] == 0]
         if idle:
             raise AssertionError(f"sharded: kernels never launched on the path: {idle}")
-
-        bad = list(sets)
-        bad[5] = dataclasses.replace(bad[5], signature=sets[6].signature)
-        expect(verifier, bad, False, "one corrupted signature")
-        bad = list(sets)
-        bad[130] = dataclasses.replace(bad[130], signature=non_subgroup_signature())
-        expect(verifier, bad, False, "a signature outside G2 in shard 1")
-        four = TorchBlsVerifier(devices=[dev] * 4, sharded=True, sharded_min_batch=SHARDED_BUCKET,
-                                rng=np.random.default_rng(SEED + 4), host_final_exp=False)
+        expect(verifier, corrupt(sets, 5, 6), False, "one corrupted signature")
+        outside = list(sets)
+        outside[130] = dataclasses.replace(outside[130], signature=non_subgroup_signature())
+        expect(verifier, outside, False, "a signature outside G2 in shard 1")
         expect(four, sets[:150], True,
                "150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
-        if four.sharded_batches != 1:
-            raise AssertionError("sharded: the 4-shard batch did not ride the mesh")
-        ring = TorchBlsVerifier(devices=logical, sharded=True, sharded_min_batch=SHARDED_BUCKET,
-                                sharded_combine="ring", rng=np.random.default_rng(SEED + 5),
-                                host_final_exp=False)
-        expect(ring, sets, True, "ring combine, valid batch")
-        xla = TorchBlsVerifier(devices=logical, fused=False, sharded=True, sharded_min_batch=16,
-                               rng=np.random.default_rng(SEED + 6), host_final_exp=False)
-        fused_core.reset_launch_counts()
-        expect(xla, sets[:16], True, "XLA-graph flavour, bucket 16, valid")
-        xla_launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
-        log(f"sharded slice: XLA-graph flavour launches per batch {json.dumps(xla_launches)}")
-        idle = [name for name in TOWER + ("ring_hop",) if xla_launches[name] == 0]
-        if idle:
-            raise AssertionError(f"sharded XLA-graph: kernels never launched on the path: {idle}")
-        bad = list(sets[:16])
-        bad[3] = dataclasses.replace(bad[3], signature=sets[4].signature)
-        expect(xla, bad, False, "XLA-graph flavour, bucket 16, corrupted")
-        if xla.sharded_batches != 2:
-            raise AssertionError("sharded: the XLA-graph batches did not ride the mesh")
+        in_flight(verifier, valid, verifier.pack(corrupt(sets, 200, 201)), "fused, 2 shards")
+        if four.sharded_batches != 1 or verifier.sharded_batches != 5:
+            raise AssertionError("sharded: a batch of 256 did not ride the mesh")
+
+        # the split mode (phase 11 verifies through these)
+        split2 = tier(logical, 31, host_final_exp=True)
+        split4 = tier([dev] * 4, 33, host_final_exp=True)
+        for name, v, packed in (("fused split, 2 shards", split2, valid),
+                                ("fused split, 4 shards", split4, live150)):
+            summary[name] = warm_mesh(v, SHARDED_BUCKET, name, card)
+            hold_mesh(v, packed, name)
+
+        ring = tier(logical, 5, sharded_combine="ring")
+        summary["fused full-device ring, 2 shards"] = warm_mesh(ring, SHARDED_BUCKET,
+                                                                "ring combine", card)
+        hold_mesh(ring, valid, "ring combine, 2 shards, 256 valid")
+
+        # the XLA-graph flavour at bucket 16 over 2 shards, both modes: the
+        # split mode's eager run is the full mode's reference too (its
+        # final exponentiation added), the eager tier costing ~20-30 s a run
+        small, bad16 = sets[:XLA_SHARDED_BUCKET], corrupt(sets[:XLA_SHARDED_BUCKET], 3, 4)
+        xla_launches, ref, packed16 = None, None, verifier.pack(small)
+        for host_final_exp in (True, False):
+            name = f"xla {'split' if host_final_exp else 'full-device'}, 2 shards"
+            xla = tier(logical, 6 + 30 * host_final_exp, fused=False,
+                       sharded_min_batch=XLA_SHARDED_BUCKET, host_final_exp=host_final_exp)
+            summary[name] = warm_mesh(xla, XLA_SHARDED_BUCKET, name, card)
+            ref = hold_mesh(xla, packed16, name, split_ref=ref)
+            if not host_final_exp:
+                fused_core.reset_launch_counts()
+                expect(xla, small, True, f"XLA-graph flavour, bucket {XLA_SHARDED_BUCKET}, valid")
+                xla_launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
+                log(f"sharded slice: XLA-graph flavour launches per batch "
+                    f"{json.dumps(xla_launches)}")
+                idle = [n for n in TOWER + ("ring_hop",) if xla_launches[n] == 0]
+                if idle:
+                    raise AssertionError(f"sharded XLA-graph: kernels never launched on the "
+                                         f"path: {idle}")
+            expect(xla, bad16, False, f"{name}, bucket {XLA_SHARDED_BUCKET}, corrupted")
+            if xla.sharded_batches != 1 + (not host_final_exp):
+                raise AssertionError("sharded: the XLA-graph batches did not ride the mesh")
+        log("mesh graphs: " + json.dumps({"card": card, "programs": summary}))
 
         # the gathered partials on every shard, and the card against the CPU
         t0 = time.perf_counter()
@@ -1341,32 +1526,26 @@ def run_sharded(dev, card: str, sets):
         sync_all()
         same_reps = all(torch.equal(st, torch.stack(parts)) for st in stacks)
         f_gpu, ok_gpu = miller_product_sharded(logical, fused=True)(*small)
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            f_cpu, ok_cpu = miller_product_sharded(["cpu"] * 2, fused=True)(*small)
-        finally:
-            torch.set_num_threads(threads)
-        same = torch.equal(fused_core.f_canon(fused_core.lv(f_gpu)).cpu(),
-                           fused_core.f_canon(fused_core.lv(f_cpu)))
+        f_cpu, ok_cpu = cpu_ref["sharded"].get()
+        same = np.array_equal(fused_core.f_canon(fused_core.lv(f_gpu)).cpu().numpy(), f_cpu)
         log(f"sharded slice: bucket-8 Miller partials all-gathered, every shard's stack "
-            f"bitwise equal {same_reps}; the sharded product, card vs CPU plain: canonical f "
-            f"equal {same}, ok {bool(ok_gpu)} / {bool(ok_cpu)} ({time.perf_counter() - t0:.1f} s)")
-        if not (same and same_reps and bool(ok_gpu) and bool(ok_cpu)):
+            f"bitwise equal {same_reps}; the sharded product, card vs CPU plain (run beside "
+            f"the card's phases in a host process): canonical f equal {same}, ok "
+            f"{bool(ok_gpu)} / {ok_cpu} ({time.perf_counter() - t0:.1f} s)")
+        if not (same and same_reps and bool(ok_gpu) and ok_cpu):
             raise AssertionError("sharded: the card's Miller product differs from the CPU run")
 
         count = torch.cuda.device_count()
         if count >= 2:
             cards = [torch.device("cuda", i) for i in range(2)]
-            two = TorchBlsVerifier(devices=cards, sharded=True, rng=np.random.default_rng(SEED + 7),
-                                   host_final_exp=False)
+            two = tier(cards, 7)
+            warm_mesh(two, SHARDED_BUCKET, "fused full-device, cuda:0 and cuda:1", card)
+            hold_mesh(two, two.pack(sets), "fused full-device, cuda:0 and cuda:1, 256 valid")
             expect(two, sets, True, "valid batch on cuda:0 and cuda:1")
-            bad = list(sets)
-            bad[200] = dataclasses.replace(bad[200], signature=sets[201].signature)
-            expect(two, bad, False, "corrupted batch on cuda:0 and cuda:1")
+            expect(two, corrupt(sets, 200, 201), False, "corrupted batch on cuda:0 and cuda:1")
         else:
             log("sharded slice: the cross-card batches did not run, 1 card visible")
-    return verifier, launches, xla_launches
+    return verifier, launches, xla_launches, {2: split2, 4: split4}
 
 
 def profile_sharded(verifier, packed, dispatch_s: float, card: str, path: str) -> float:
@@ -1505,10 +1684,12 @@ def launch_rows(verifier, sets, names, path: str) -> dict:
     return hist
 
 
-def run_split(dev, card: str, pool, keys, sets, sets256, verifiers) -> dict:
-    """Phase 11 through phase 2b's split verifiers: the default one (the
-    fused program, its graph at bucket 128 made) and the XLA-graph one when
-    2b made it (warmed here at bucket SPLIT_XLA_BUCKET)."""
+def run_split(dev, card: str, pool, keys, sets, sets256, verifiers, tiers=None) -> dict:
+    """Phase 11 through phase 2b's split verifier, the default one (the
+    fused program, its graph at bucket 128 made), an XLA-graph one (its
+    graph made and held here at bucket SPLIT_XLA_BUCKET) and the sharded
+    split verifiers over 2 and 4 shards (``tiers``, phase 9's, their
+    programs made; made here when phase 9 did not run)."""
     from torch.profiler import ProfilerActivity
 
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
@@ -1529,11 +1710,12 @@ def run_split(dev, card: str, pool, keys, sets, sets256, verifiers) -> dict:
                                        out["stages"]["device_miller"], card, FUSED, "split",
                                        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-        xla = verifiers.get((False, True)) or TorchBlsVerifier(
-            fused=False, rng=np.random.default_rng(SEED + 30))
-        log(f"split xla: warmup at bucket {SPLIT_XLA_BUCKET} "
-            f"{xla.warmup((SPLIT_XLA_BUCKET,)):.1f} s")
+        xla = TorchBlsVerifier(fused=False, rng=np.random.default_rng(SEED + 30))
+        name = program_name(False, True)
+        warm_graph(xla, dev, SPLIT_XLA_BUCKET, name, card)
         small = sets[:SPLIT_XLA_BUCKET]
+        hold_graph(xla, dev, xla.pack(small), xla.pack(corrupt(small, 1, 2)),
+                   f"{name} bucket {SPLIT_XLA_BUCKET}")
         launch_rows(xla, small, TOWER_HISTOGRAM, "split xla")
         fused_core.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1552,8 +1734,15 @@ def run_split(dev, card: str, pool, keys, sets, sets256, verifiers) -> dict:
         if got is not False:
             raise AssertionError("split xla: a corrupted batch verified")
 
-        mesh = TorchBlsVerifier(devices=[dev, dev], sharded=True, sharded_min_batch=SHARDED_BUCKET,
-                                rng=np.random.default_rng(SEED + 31))
+        if tiers is None:
+            tiers = {}
+            for n, seed in ((2, 31), (4, 33)):
+                tiers[n] = TorchBlsVerifier(devices=[dev] * n, sharded=True,
+                                            sharded_min_batch=SHARDED_BUCKET,
+                                            rng=np.random.default_rng(SEED + seed))
+                warm_mesh(tiers[n], SHARDED_BUCKET, f"fused split, {n} shards", card)
+        mesh, four = tiers[2], tiers[4]
+        riding = (mesh.sharded_batches, four.sharded_batches)
         fused_core.reset_launch_counts()
         expect(mesh, sets256, True, "split, 2 logical shards, valid batch of 256")
         launches = {name: k.launches for name, k in fused_core.COUNTED.items()}
@@ -1572,11 +1761,9 @@ def run_split(dev, card: str, pool, keys, sets, sets256, verifiers) -> dict:
         if mesh.host_final_exps != finished:
             raise AssertionError("split sharded: the host final exponentiation ran although "
                                  "the combined ok bits were False")
-        four = TorchBlsVerifier(devices=[dev] * 4, sharded=True, sharded_min_batch=SHARDED_BUCKET,
-                                rng=np.random.default_rng(SEED + 33))
         expect(four, sets256[:150], True,
                "split, 150 live sets at bucket 256 over 4 shards (shard 3 all padding)")
-        if mesh.sharded_batches != 3 or four.sharded_batches != 1:
+        if (mesh.sharded_batches - riding[0], four.sharded_batches - riding[1]) != (3, 1):
             raise AssertionError("split sharded: a batch of 256 did not ride the mesh")
         timed = make_sets(pool, keys, b"split sharded timed")
         mesh_rate, mesh_stages = time_split(mesh, [timed], card)
@@ -1656,6 +1843,7 @@ def run_pool_sharded(dev, card: str, sets256) -> dict:
     mesh = TorchBlsVerifier(devices=[dev, dev], sharded=True, sharded_min_batch=SHARDED_BUCKET,
                             rng=np.random.default_rng(SEED + 34))
     mesh.warmup((BUCKET,))  # the retried 128-set jobs ride the card's graph
+    mesh.warmup_sharded((SHARDED_BUCKET,))  # the merged batches ride the mesh's
     bls = BlsBatchPool(mesh, pipeline_depth=2, flush_threshold=BUCKET, max_buffer_wait=0.02)
     if not mesh.sharded_active or bls._flush_window()[1] != 2 * BUCKET:
         raise AssertionError(f"pool sharded: tier active {mesh.sharded_active}, merge cap "
@@ -2014,7 +2202,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 2
     mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split",
-            ("--fused-only",): "fused"}.get(tuple(argv))
+            ("--fused-only",): "fused", ("--store-only",): "store"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2030,13 +2218,21 @@ def main(argv) -> int:
     with Phase("1 build"):
         t0 = time.perf_counter()
         _build.load()
+        build = dict(kind=_build.build_kind, seconds=_build.build_seconds)
         log(f"build: nvcc sm_90a library {_build.library_path()} in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s ({build['kind']})")
 
     keys = make_keys(SHARDED_BUCKET)
     procs = min(8, os.cpu_count() or 1)
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
-        if mode != "sharded":
+        # the CPU plain runs the card is held against, made beside the
+        # card's phases in the host processes
+        cpu_ref = {what: pool.apply_async(cpu_reference, (what,))
+                   for what, modes in (("fused", ("all", "fused")), ("xla", ("all",)),
+                                       ("sharded", ("all", "sharded"))) if mode in modes}
+        if mode == "store":
+            run_store(dev, card, make_sets(pool, keys[:STORE_BUCKET], b"store"), build)
+        if mode not in ("sharded", "store"):
             with Phase("2 kernels"):
                 registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
@@ -2044,32 +2240,34 @@ def main(argv) -> int:
             sets = make_sets(pool, keys[:BUCKET], b"slice")
             log(f"slice: built {BUCKET} signature sets in {procs} host processes in "
                 f"{time.perf_counter() - t0:.1f} s")
-            programs = PROGRAMS if mode == "all" else tuple(p for p in PROGRAMS if p[0])
-            verifiers = run_graphs(dev, card, sets, programs)
+            verifiers = run_graphs(dev, card, sets)
         if mode in ("all", "fused"):
             fused_launches, fused_rate, fused_idle = run_fused(dev, card, pool, keys[:BUCKET], sets,
-                                                               verifiers[(True, False)])
+                                                               verifiers[(True, False)], cpu_ref)
         if mode == "all":
             xla_launches, xla_rate, xla_idle = run_xla(dev, card, pool, keys[:BUCKET], sets,
-                                                       verifiers[(False, False)])
+                                                       cpu_ref)
             log(f"paths at bucket {BUCKET}: fused {fused_rate} sets/s, device idle {fused_idle} "
                 f"of the dispatch; xla {xla_rate} sets/s, device idle {xla_idle} of the "
                 f"dispatch [{card}]")
         if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
-        t0 = time.perf_counter()
-        sets256 = make_sets(pool, keys, b"sharded slice")
-        log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes in "
-            f"{time.perf_counter() - t0:.1f} s")
+        if mode != "store":
+            t0 = time.perf_counter()
+            sets256 = make_sets(pool, keys, b"sharded slice")
+            log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes "
+                f"in {time.perf_counter() - t0:.1f} s")
+        tiers = None
         if mode in ("all", "sharded"):
-            verifier, sharded_launches, sharded_xla_launches = run_sharded(dev, card, sets256)
+            verifier, sharded_launches, sharded_xla_launches, tiers = run_sharded(
+                dev, card, sets256, cpu_ref)
             times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
             log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
-        if mode != "sharded":
-            split = run_split(dev, card, pool, keys, sets, sets256, verifiers)
+        if mode not in ("sharded", "store"):
+            split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
             log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s, device idle "
@@ -2080,11 +2278,13 @@ def main(argv) -> int:
                 f"{pooled['overlap_share']} of the wall [{card}]")
         if mode in ("all", "split"):
             run_health(dev, card, sets, sets256)
+        if mode == "all":
+            run_store(dev, card, sets, build)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
         phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
-                  "fused": "1-5, 2b, 11, 12"}[mode]
+                  "fused": "1-5, 2b, 11, 12", "store": "1, 14"}[mode]
         print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
@@ -2151,6 +2351,164 @@ def main(argv) -> int:
         "count": torch.cuda.device_count()}}))
     return 0
 
+# -- phase 14: the durable store of built kernel libraries ------------------------
+
+STORE_BUCKET = 4  # the bucket phase 14's processes warm and verify at
+
+# Run in a fresh process by phase 14 (``python3 -c``, the repository root
+# and a JSON file of the case on its command line): records every process
+# it starts, then makes a verifier over the store, warms it at
+# STORE_BUCKET and verifies the case's batches; prints one JSON line.
+STORE_CHILD = r"""
+import json, os, shutil, subprocess, sys, time
+started = []
+class Watched(subprocess.Popen):
+    def __init__(self, args, *a, **k):
+        started.append(args if isinstance(args, str) else " ".join(map(str, args)))
+        super().__init__(args, *a, **k)
+subprocess.Popen = Watched
+sys.path.insert(0, sys.argv[1])
+case = json.load(open(sys.argv[2]))
+import numpy as np
+from lodestar_tpu_torch.aot import AotStoreMiss, KernelLibraryStore
+from lodestar_tpu_torch.crypto.bls import PublicKey, SingleSignatureSet
+from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+from lodestar_tpu_torch.forensics import JOURNAL
+from lodestar_tpu_torch.observatory import COMPILE_LEDGER
+from lodestar_tpu_torch.ops.kernels import _build
+if case.get("build_dir"):
+    _build.BUILD_DIR = case["build_dir"]
+store = KernelLibraryStore(path=case["store"])
+out = {"which_nvcc": shutil.which("nvcc"), "cuda_home": os.environ.get("CUDA_HOME")}
+if case.get("library_only"):
+    _build.load(store=store)
+    out["library"] = {"kind": _build.build_kind, "seconds": _build.build_seconds}
+else:
+    v = TorchBlsVerifier(load_only=case["load_only"], aot_store=store,
+                         rng=np.random.default_rng(case["seed"]))
+    t0 = time.perf_counter()
+    try:
+        v.warmup((case["bucket"],))
+        out["warmup_s"] = time.perf_counter() - t0
+        out["library"] = {"kind": _build.build_kind, "seconds": _build.build_seconds}
+        batches = [[SingleSignatureSet(pubkey=PublicKey.from_bytes(bytes.fromhex(pk)),
+                                       signing_root=bytes.fromhex(m),
+                                       signature=bytes.fromhex(sg))
+                    for pk, m, sg in batch] for batch in case["batches"]]
+        out["verdicts"] = [v.verify_signature_sets(b) for b in batches]
+    except AotStoreMiss as e:
+        out["raised"] = f"AotStoreMiss: {e}"
+    out["dispatches"] = v.dispatches
+out["started"] = started
+out["store"] = store.stats()
+out["journal"] = [e["kind"] for e in JOURNAL.events() if e["kind"].startswith("aot.")]
+out["ledger"] = COMPILE_LEDGER.session_summary()
+print(json.dumps(out))
+"""
+
+
+def _without_nvcc(tmp: str) -> dict:
+    """The environment with every directory holding an nvcc taken off PATH
+    and CUDA_HOME pointing at an empty directory."""
+    env = dict(os.environ)
+    env["PATH"] = os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                                  if d and not os.path.exists(os.path.join(d, "nvcc")))
+    env["CUDA_HOME"] = os.path.join(tmp, "no_cuda")
+    os.makedirs(env["CUDA_HOME"], exist_ok=True)
+    return env
+
+
+def store_child(tmp: str, name: str, case: dict, env=None) -> subprocess.Popen:
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(case, f)
+    return subprocess.Popen([sys.executable, "-c", STORE_CHILD, REPO, path], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def store_result(name: str, proc: subprocess.Popen, timeout: float = 300) -> dict:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"store: the {name} process did not end in {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"store: the {name} process failed ({proc.returncode}):\n"
+                             f"{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    log(f"store: {name}: " + json.dumps(res))
+    return res
+
+
+def run_store(dev, card: str, sets, build: dict) -> dict:
+    """Phase 14: this checkout's library saved to a temporary durable
+    store, and three fresh processes at once: one with nvcc off its PATH
+    and CUDA_HOME empty, under ``load_only=True``, loads it from the store,
+    warms bucket 4 and verifies a valid and a corrupted batch (True,
+    False) starting no nvcc; one on an empty store raises ``AotStoreMiss``
+    before any batch; one, allowed to build into an empty build directory,
+    finds a copy of the store whose payload ``chaos.corrupt_file``
+    corrupted, quarantines it, rebuilds with nvcc and saves again.  Logs
+    the store's load seconds against the build's and the compile ledger's
+    summary."""
+    import shutil
+    import tempfile
+
+    from lodestar_tpu_torch.aot import KernelLibraryStore, capability_tag
+    from lodestar_tpu_torch.chaos import corrupt_file
+    from lodestar_tpu_torch.observatory import COMPILE_LEDGER
+    from lodestar_tpu_torch.ops.kernels import _build
+
+    batch = sets[:STORE_BUCKET]
+    batches = [[(s.pubkey.to_bytes().hex(), s.signing_root.hex(), s.signature.hex())
+                for s in b] for b in (batch, corrupt(batch, 1, 2))]
+    with Phase("14 store"), tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        store = KernelLibraryStore(path=os.path.join(tmp, "store"))
+        t0 = time.perf_counter()
+        key = store.save(_build.ENTRY, (), _build._digest(()), _build.library_path(),
+                         capability_tag(dev), nvcc=_build.nvcc_version())
+        log(f"store: saved {key} ({time.perf_counter() - t0:.3f} s) to {store.path}: "
+            + json.dumps(store.keys()[key]))
+        bad_store = os.path.join(tmp, "corrupt")
+        shutil.copytree(store.path, bad_store)
+        corrupt_file(os.path.join(bad_store, store.keys()[key]["file"]), seed=SEED)
+        case = dict(store=store.path, load_only=True, bucket=STORE_BUCKET, seed=SEED + 50,
+                    batches=batches)
+        env = _without_nvcc(tmp)
+        procs = {"load_only": store_child(tmp, "load_only", case, env),
+                 "empty store": store_child(tmp, "empty", dict(
+                     case, store=os.path.join(tmp, "empty")), env),
+                 "corrupt payload": store_child(tmp, "corrupt", dict(
+                     case, store=bad_store, load_only=False, library_only=True,
+                     build_dir=os.path.join(tmp, "build")))}
+        loaded, empty, rebuilt = (store_result(n, p) for n, p in procs.items())
+        nvcc = [c for r in (loaded, empty) for c in r["started"] if "nvcc" in c]
+        if loaded["which_nvcc"] or nvcc:
+            raise AssertionError(f"store: nvcc reachable or started under load_only: "
+                                 f"{loaded['which_nvcc']} {nvcc}")
+        if (loaded["library"]["kind"] != "aot_load" or loaded["verdicts"] != [True, False]
+                or loaded["ledger"].get("kernels", {}).get("aot_load", {}).get("count") != 1):
+            raise AssertionError("store: the load_only process did not load the stored "
+                                 "library and verify True, False")
+        if "AotStoreMiss" not in empty.get("raised", "") or empty["dispatches"] != 0:
+            raise AssertionError("store: an empty store did not raise AotStoreMiss before any "
+                                 "batch")
+        files = sorted(os.listdir(os.path.join(bad_store, "entries")))
+        if ("aot.corrupt" not in rebuilt["journal"] or rebuilt["library"]["kind"] != "build"
+                or not any(f.endswith(".quarantined") for f in files)
+                or KernelLibraryStore(path=bad_store).verify()["ok"] != [key]):
+            raise AssertionError(f"store: the corrupt payload was not quarantined, rebuilt and "
+                                 f"saved again ({files})")
+        load_s, build_s = loaded["library"]["seconds"], rebuilt["library"]["seconds"]
+        log(f"store: library load from the store {load_s} s (load_only, no nvcc) against an "
+            f"nvcc build {build_s} s in the same call (phase 1: {build['kind']} "
+            f"{build['seconds']} s); load_only warmup at bucket {STORE_BUCKET} "
+            f"{loaded['warmup_s']} s; the corrupt payload quarantined, journal "
+            f"{rebuilt['journal']}; entries {files} [{card}]")
+        ledger = COMPILE_LEDGER.configure(path=COMPILE_LEDGER.path)
+        log("store: compile ledger " + json.dumps(ledger.summary()))
+    return dict(load_s=load_s, build_s=build_s)
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

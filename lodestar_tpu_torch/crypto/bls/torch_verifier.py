@@ -20,7 +20,17 @@ exponentiation runs on the card too, and the device returns the verdict.
 On a card each (card, bucket, program, mode) is one CUDA graph
 (``bucket_program.BucketProgram``, the counterpart of the JAX verifier's
 per-bucket executables): captured at its first batch, or ahead of time by
-``warmup(buckets)`` / ``warmup_async``, and replayed for every batch.  The
+``warmup(buckets)`` / ``warmup_async``, and replayed for every batch.
+Making a program walks the JAX verifier's materialization ladder, with
+the kernel library in place of its executables: the library comes from
+this process, else the durable store (``aot/store.py``: ``aot_store=``,
+or the process-wide store that ``LODESTAR_TPU_TORCH_AOT_STORE`` turns
+on), else ``build/``, else nvcc, and is then saved to the store; the
+graph is captured from it.  ``load_only=True`` (the rolling-restart
+contract) refuses to build: a library the store cannot serve raises
+``AotStoreMiss`` and no nvcc process starts.  Every build, load and
+capture is recorded in the compile ledger
+(``observatory.COMPILE_LEDGER``) by entry, bucket and device.  The
 outputs are copied to pinned host memory behind the replay and an event
 is recorded after the copies; waiting on that event is the sync, so that
 a verdict does not wait for batches enqueued after it on the same stream.
@@ -60,19 +70,24 @@ on: the tier is opt-in, as the JAX verifier's is off a TPU pool) the
 verifier has two tiers, as the JAX verifier's pool does: a batch whose
 bucket is at least ``sharded_min_batch`` and divisible by the shard count
 rides the sharded tier (``ops/sharded_verify``, one batch split over
-every shard; its health record is the mesh pseudo-executor's, key
-``MESH``); any other batch runs whole on one executor.
+every shard; its health record is the mesh pseudo-executor's, named
+``mesh{n}`` for n executors as in the JAX verifier); any other batch
+runs whole on one executor.  The tier's program is one
+``bucket_program.MeshProgram`` per bucket (a graph per shard, one for the
+combine), made at a bucket's first batch or by ``warmup_sharded`` and
+``warmup``'s mesh pass.
 ``sharded_active`` tells the pool that the tier can take a batch, so that
 it merges batches up to the mesh's bucket.
 
 ``close()`` releases what the verifier holds (the per-bucket graphs and
-their pools, the sharded tier's program and its streams, the point
+their pools, the sharded tier's programs and its streams, the point
 cache); a verify after it raises.  The kernel
 libraries stay loaded: every verifier in the process shares them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import secrets
@@ -84,18 +99,20 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ...aot.store import capability_tag
 from ...chaos import CHAOS, DeviceLostError
 from ...forensics.journal import JOURNAL
 from ...forensics.watchdog import INFLIGHT
 from ...native import fastbls
 from ...ops import limbs as fl
 from ...ops.batch_verify import miller_product_kernel, verify_signature_sets_kernel
-from ...ops.fused_core import LV
 from ...ops.fused_verify import miller_product_fused, verify_signature_sets_fused
 from ...ops.htc import hash_to_field_limbs
-from ...ops.sharded_verify import miller_product_sharded, verify_signature_sets_sharded
+from ...observatory.compile_ledger import COMPILE_LEDGER
+from ...ops.kernels import _build
+from ...ops.sharded_verify import COMBINES, Mesh, mesh_device_name
 from ...tracing import TRACER, current_batch_id
-from .bucket_program import BucketProgram
+from .bucket_program import BucketProgram, MeshProgram
 from .curve import g2_from_bytes, to_affine_batch
 from .verifier import PointCache, SignatureSet, SingleSignatureSet, get_aggregated_pubkey
 
@@ -104,8 +121,21 @@ logger = logging.getLogger(__name__)
 # Padding buckets: the smallest that fits the batch is used.  128 is the
 # node's MAX_SIGNATURE_SETS_PER_JOB; larger buckets amortize sync batches.
 DEFAULT_BUCKETS = (4, 16, 64, 128, 256)
-#: the name of the sharded tier's pseudo-executor (one program over the mesh)
-MESH = "mesh"
+
+
+def entry_name(fused: bool, host_final_exp: bool) -> str:
+    """The compile-ledger label of a per-card program, as the JAX
+    verifier's ``_entry_name``."""
+    if fused:
+        return "fused_split" if host_final_exp else "fused_full"
+    return "xla_split" if host_final_exp else "xla_full"
+
+
+def mesh_entry_name(host_final_exp: bool) -> str:
+    """The compile-ledger label of the sharded tier's program, as the JAX
+    verifier's ``_mesh_entry_name`` (paired with the ``mesh{n}`` device
+    label: one entry, never n per-card rows)."""
+    return "sharded_split" if host_final_exp else "sharded_full"
 
 
 def sharded_default(n_devices: int) -> bool:
@@ -131,25 +161,6 @@ def fq12_blob(digits) -> bytes:
     arr = np.asarray(digits, dtype=np.float64)
     return b"".join((fl.limbs_to_int(arr[i, j]) % fl.P_INT).to_bytes(48, "big")
                     for i in range(6) for j in range(2))
-
-
-def _stage_readback(f, ok):
-    """The sharded tier's (f's digits, ok, event): on a card, ok and f's
-    digits (an LV's loose digits on the fused program) are copied to
-    pinned host memory on the stream that made them, and the event is
-    recorded after the copies; on the CPU they are returned as they are,
-    with no event."""
-    digits = f.a if isinstance(f, LV) else f
-    if digits.device.type != "cuda":
-        return digits, ok, None
-    host = []
-    for t in (digits, ok):
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(digits.device))
-    return host[0], host[1], ready
 
 
 class PendingVerdict:
@@ -189,7 +200,7 @@ class PendingVerdict:
         self._attempt = attempt    # requeue generation (0: first placement)
         self._fault = fault        # an armed chaos FaultSpec riding this verdict
         self._exc: Optional[Exception] = None
-        #: the executor the batch runs on (a card, ``MESH``), or None (chunked)
+        #: the executor the batch runs on (a card, ``mesh{n}``), or None (chunked)
         self.device = device
         #: the tightest job deadline riding the batch (``time.monotonic()``)
         self.deadline = deadline
@@ -370,7 +381,11 @@ class TorchBlsVerifier:
     quarantined; ``quarantine_backoff_s``: its first backoff, doubled by
     each failed probe up to ``quarantine_backoff_max_s`` (the JAX
     verifier's parameters and defaults).  ``metrics``: a ``metrics.Metrics``
-    registry the verifier reports to (None: none).
+    registry the verifier (and the compile ledger) report to (None: none).
+    ``aot_store``: a ``aot.KernelLibraryStore`` (None: the process-wide
+    one, on when configured or when ``LODESTAR_TPU_TORCH_AOT_STORE`` is
+    set).  ``load_only``: never build the kernel library (the
+    rolling-restart contract): a store miss raises ``AotStoreMiss``.
 
     Several host threads may pack and dispatch at once (the pool keeps
     batches in flight from worker threads): the coefficient draws, the
@@ -382,7 +397,8 @@ class TorchBlsVerifier:
                  sharded_combine: str = "all_gather", host_final_exp: bool = True,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, point_cache_size: int = 8192,
                  quarantine_threshold: int = 2, quarantine_backoff_s: float = 1.0,
-                 quarantine_backoff_max_s: float = 60.0, metrics=None):
+                 quarantine_backoff_max_s: float = 60.0, metrics=None, aot_store=None,
+                 load_only: bool = False):
         if not buckets:
             raise ValueError("buckets: at least one bucket")
         self.buckets = tuple(sorted(buckets))
@@ -406,8 +422,17 @@ class TorchBlsVerifier:
         self.sharded = sharded_default(len(self.devices)) if sharded is None else bool(sharded)
         self.sharded_min_batch = (self.buckets[-1] if sharded_min_batch is None
                                   else sharded_min_batch)
-        entry = miller_product_sharded if host_final_exp else verify_signature_sets_sharded
-        self._mesh_program = entry(self.devices, fused, sharded_combine) if self.sharded else None
+        if self.sharded and sharded_combine not in COMBINES:
+            raise ValueError(f"sharded_combine must be one of {COMBINES}, got {sharded_combine!r}")
+        self.sharded_combine = sharded_combine
+        # the sharded tier's shards and their streams, shared by its
+        # per-bucket programs, and a graph pool per shard
+        self._mesh = Mesh(self.devices) if self.sharded else None
+        self._mesh_pools: Optional[list] = None
+        #: the sharded tier's programs by ("mesh", bucket, fused, host_final_exp)
+        self.mesh_programs: Dict[tuple, MeshProgram] = {}
+        self.aot_store = aot_store
+        self.load_only = load_only
         #: the shard count of the sharded tier (0 when it is off)
         self.mesh_devices = len(self.devices) if self.sharded else 0
         #: batches the sharded tier verified
@@ -426,6 +451,8 @@ class TorchBlsVerifier:
         #: failed batches replayed on another executor
         self.batches_requeued = 0
         self.metrics = metrics
+        if metrics is not None:
+            COMPILE_LEDGER.configure(metrics=metrics)
         # the self-healing pool's parameters: consecutive failures before
         # quarantine, the first backoff, and the doubling cap
         self.quarantine_threshold = max(1, quarantine_threshold)
@@ -451,7 +478,8 @@ class TorchBlsVerifier:
         ]
         # the sharded tier's pseudo-executor: its slot and health record;
         # not in the placement rotation (a mesh batch spans every shard)
-        self._mesh_ex = DeviceExecutor(None, -1, quarantine_backoff_s, MESH)
+        self._mesh_ex = DeviceExecutor(None, -1, quarantine_backoff_s,
+                                       mesh_device_name(len(self._executors)))
         self._rr = 0  # the round-robin tie-break cursor
         #: the per-card programs by (card, bucket, fused, host_final_exp)
         self.programs: Dict[tuple, BucketProgram] = {}
@@ -465,11 +493,21 @@ class TorchBlsVerifier:
 
     def close(self) -> None:
         """Release the per-bucket graphs and their pools (after the cards
-        have finished the batches in flight), the sharded tier's program
-        (its streams) and the point cache; a verify or dispatch after this
-        raises.  Verdicts already dispatched can still be read.  The kernel
-        libraries stay loaded: every verifier in the process shares them."""
+        have finished the batches in flight), the sharded tier's programs
+        and its streams, and the point cache; a verify or dispatch after
+        this raises.  Verdicts already dispatched can still be read.  The
+        kernel libraries stay loaded: every verifier in the process shares
+        them."""
         self._closed = True
+        with contextlib.ExitStack() as held:
+            for lock in self._mesh_locks():
+                held.enter_context(lock)
+            if self._mesh is not None and self._mesh.cuda:
+                for card in self._cards:
+                    torch.cuda.synchronize(card)
+            self.mesh_programs.clear()
+            self._mesh_pools = None
+            self._mesh = None
         for card, lock in list(self._card_locks.items()):
             with lock:
                 if card.type == "cuda" and card in self._graph_pools:
@@ -477,7 +515,6 @@ class TorchBlsVerifier:
                 for key in [k for k in self.programs if k[0] == card]:
                     del self.programs[key]
                 self._graph_pools.pop(card, None)
-        self._mesh_program = None
         self.point_cache.clear()
 
     def _check_open(self) -> None:
@@ -578,13 +615,13 @@ class TorchBlsVerifier:
         """The sharded tier can take a batch: the verifier is open and some
         bucket is of the tier's size.  The pool reads it, on every fill, to
         grow its merge cap to the mesh's bucket."""
-        return self._mesh_program is not None and any(map(self._sharded_size_ok, self.buckets))
+        return self._mesh is not None and any(map(self._sharded_size_ok, self.buckets))
 
     @property
     def shard_enqueue_walls(self) -> List[float]:
         """Host seconds each shard took to enqueue its slice of the last
         sharded batch (empty when the tier is off or has not run)."""
-        return list(self._mesh_program.mesh.enqueue_walls) if self._mesh_program else []
+        return list(self._mesh.enqueue_walls) if self._mesh is not None else []
 
     # -- placement -----------------------------------------------------------
 
@@ -815,13 +852,34 @@ class TorchBlsVerifier:
             return miller_product_fused if self.fused else miller_product_kernel
         return verify_signature_sets_fused if self.fused else verify_signature_sets_kernel
 
-    def _program(self, card, bucket: int) -> BucketProgram:
+    def _kernels(self, card, load_only: Optional[bool] = None) -> None:
+        """The kernel library, before a program on ``card`` is made: from
+        this process, the store, ``build/`` or nvcc (``_build.load``);
+        with ``load_only`` the store or ``AotStoreMiss``.  The CPU runs
+        the plain versions and needs none."""
+        if card.type == "cuda":
+            _build.load(store=self.aot_store,
+                        load_only=self.load_only if load_only is None else load_only,
+                        capability=capability_tag(card))
+
+    @staticmethod
+    def _note_capture(program, entry: str, bucket: int, device: str) -> None:
+        """A program's graphs made on a card: its eager, capture and
+        instantiation seconds into the compile ledger (on the CPU nothing
+        is captured, and nothing is noted)."""
+        if program.seconds:
+            COMPILE_LEDGER.note("capture", sum(program.seconds.values()), entry=entry,
+                                bucket=bucket, device=device,
+                                **{f"{k}_s": v for k, v in program.seconds.items()})
+
+    def _program(self, card, bucket: int, load_only: Optional[bool] = None) -> BucketProgram:
         """The card's program at ``bucket``, made (on a card: run once and
         captured) at first use, under the card's lock."""
         key = (card, bucket, self.fused, self.host_final_exp)
         program = self.programs.get(key)
         if program is None:
-            lock = self._card_locks.setdefault(card, threading.Lock())
+            self._kernels(card, load_only)
+            lock = self._card_lock(card)
             with lock:
                 program = self.programs.get(key)
                 if program is None:
@@ -832,24 +890,117 @@ class TorchBlsVerifier:
                         if pool is None:
                             pool = self._graph_pools[card] = torch.cuda.graph_pool_handle()
                     program = BucketProgram(card, bucket, self._entry(), lock, pool)
+                    self._note_capture(program, entry_name(self.fused, self.host_final_exp),
+                                       bucket, str(card))
                     self.programs[key] = program
         return program
 
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> float:
+    def _card_lock(self, card) -> threading.Lock:
+        with self._sched_lock:
+            return self._card_locks.setdefault(card, threading.Lock())
+
+    def _mesh_locks(self) -> List[threading.Lock]:
+        """The locks of every card the mesh spans, in card-index order."""
+        if self._mesh is None:
+            return []
+        cards = sorted(self._cards, key=lambda d: (d.type, -1 if d.index is None else d.index))
+        return [self._card_lock(c) for c in cards]
+
+    def _mesh_program_for(self, bucket: int, load_only: Optional[bool] = None) -> MeshProgram:
+        """The sharded tier's program at ``bucket`` (key ("mesh", bucket,
+        fused, host_final_exp)), made at first use (on a card: run once
+        and captured, a graph per shard and one for the combine) under the
+        locks of every card it spans."""
+        key = ("mesh", bucket, self.fused, self.host_final_exp)
+        program = self.mesh_programs.get(key)
+        if program is None:
+            for card in self._cards:
+                self._kernels(card, load_only)
+            with contextlib.ExitStack() as held:
+                locks = self._mesh_locks()
+                for lock in locks:
+                    held.enter_context(lock)
+                program = self.mesh_programs.get(key)
+                if program is None:
+                    self._check_open()
+                    mesh = self._mesh
+                    if mesh.cuda and self._mesh_pools is None:
+                        # a pool per shard: logical shards replay at once
+                        self._mesh_pools = [torch.cuda.graph_pool_handle() for _ in mesh.devices]
+                    program = MeshProgram(mesh, bucket, self.fused, self.sharded_combine,
+                                          not self.host_final_exp, locks, self._mesh_pools)
+                    self._note_capture(program, mesh_entry_name(self.host_final_exp), bucket,
+                                       self._mesh_ex.name)
+                    self.mesh_programs[key] = program
+        return program
+
+    def _warmup_sharded_tier(self, buckets: Sequence[int], load_only: bool) -> int:
+        """The mesh pass: the sharded tier's program for every bucket of
+        ``buckets`` that rides it (the JAX verifier's ``_sharded_buckets``),
+        each in a compile-ledger window under the mesh's label (``hit``
+        when it was made already).  A failure raises: the port has no
+        per-card tier to degrade the mesh to.  Returns the programs made
+        or found."""
+        if self.n_executors < 2 or self._mesh is None:
+            return 0
+        warmed = 0
+        entry, name = mesh_entry_name(self.host_final_exp), self._mesh_ex.name
+        for b in buckets:
+            if not self._sharded_size_ok(b):
+                continue
+            if CHAOS.armed and not load_only:
+                CHAOS.maybe_raise("bls.compile", where="warmup", device=name, bucket=b,
+                                  fused=self.fused, sharded=True)
+            with COMPILE_LEDGER.attribute(entry, bucket=b, device=name):
+                self._mesh_program_for(b, load_only)
+            warmed += 1
+        return warmed
+
+    def warmup_sharded(self, buckets: Optional[Sequence[int]] = None,
+                       load_only: Optional[bool] = None) -> float:
+        """Make only the sharded tier's programs, one per eligible bucket
+        of ``buckets`` (None: the verifier's), ledgered under the single
+        ``mesh{n}`` label, as the JAX verifier's ``warmup_sharded``.
+        Returns its wall seconds."""
+        self._check_open()
+        if load_only is None:
+            load_only = self.load_only
+        t0 = time.perf_counter()
+        warmed = self._warmup_sharded_tier(
+            tuple(self.buckets if buckets is None else buckets), load_only)
+        dt = time.perf_counter() - t0
+        JOURNAL.record("bls.warmup", seconds=round(dt, 3), sharded=True, mesh_programs=warmed,
+                       devices=self.n_executors, load_only=load_only or None)
+        return dt
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               load_only: Optional[bool] = None) -> float:
         """Make the active program's graph for every bucket of ``buckets``
-        (None: the verifier's) on every card: the kernel library is built,
-        each program runs once and is captured.  Adds its wall seconds to
+        (None: the verifier's) on every card, then, as the JAX verifier
+        does, the sharded tier's programs (``warmup_sharded``'s pass): the
+        kernel library is loaded (or, unless ``load_only``, built), each
+        program runs once and is captured.  ``load_only`` (None: the
+        verifier's): a library the store cannot serve raises
+        ``AotStoreMiss``.  Adds its wall seconds to
         ``stage_seconds["warmup"]`` and returns them.  On the CPU there is
         nothing to capture."""
         self._check_open()
+        if load_only is None:
+            load_only = self.load_only
         t0 = time.perf_counter()
-        for bucket in (self.buckets if buckets is None else buckets):
+        bucket_list = tuple(self.buckets if buckets is None else buckets)
+        for bucket in bucket_list:
             for card in self._cards:
-                self._program(card, bucket)
+                if CHAOS.armed and not load_only:
+                    CHAOS.maybe_raise("bls.compile", where="warmup", device=str(card),
+                                      bucket=bucket, fused=self.fused)
+                self._program(card, bucket, load_only)
+        # the mesh's programs after the per-card ones, as in the JAX verifier
+        self._warmup_sharded_tier(bucket_list, load_only)
         dt = time.perf_counter() - t0
         self._add_stage("warmup", dt)
         JOURNAL.record("bls.warmup", seconds=round(dt, 3), devices=self.n_executors,
-                       fused=self.fused)
+                       fused=self.fused, load_only=load_only or None)
         return dt
 
     def warmup_async(self, buckets: Optional[Sequence[int]] = None) -> threading.Thread:
@@ -918,12 +1069,13 @@ class TorchBlsVerifier:
             if CHAOS.armed:
                 CHAOS.maybe_raise("bls.compile", where="dispatch", device=ex.name,
                                   bucket=bucket, fused=self.fused, sharded=True)
-            out = self._mesh_program(*packed)
+            outs, ready = self._mesh_program_for(bucket).run(packed)
             if self.host_final_exp:
-                f, ok, ready = _stage_readback(*out)
+                f, ok = outs
                 out = None
             else:
-                f = ok = ready = None
+                (out,) = outs
+                f = ok = None
         except BaseException:
             self._release_executor(ex)
             raise
@@ -984,7 +1136,7 @@ class TorchBlsVerifier:
     def _host_final_exp_verdict(self, f, ok, ready=None) -> bool:
         """The split dispatch's host stage: wait for ``ready``, the event
         after the batch's copies to the host (the sync; on the CPU there is
-        none), read ok first, then f's digits (``_stage_readback``), reduce
+        none), read ok first, then f's digits (the program's host copies), reduce
         each component mod p and run the C final exponentiation and is-one
         check."""
         t0 = time.perf_counter()

@@ -28,6 +28,11 @@ except Exception:  # pragma: no cover
     HAVE_PROM = False
 
 
+#: the compile-time histogram's bucket ladder (seconds), the JAX
+#: package's ``observatory/latency.COMPILE_BUCKETS_S``
+COMPILE_BUCKETS_S = (0.1, 0.5, 1, 5, 10, 30, 60, 120, 300, 600)
+
+
 class _NoopMetric:
     def labels(self, *a, **k):
         return self
@@ -79,8 +84,9 @@ class Metrics:
     the recorder and the tracer.  Left out: the pool's metrics (the pool
     reports none yet), the node's chain, network and database groups,
     the degrade ladder's counter (the port has no ladder), and the
-    compile, memory-sampler and mesh-observatory metrics, whose bindings
-    are not ported."""
+    memory-sampler and mesh-observatory metrics, whose bindings are not
+    ported.  The compile ledger (``observatory.compile_ledger``) observes
+    ``bls_compile_seconds``."""
 
     def __init__(self):
         self.reg = MetricsRegistry()
@@ -150,6 +156,18 @@ class Metrics:
             "executor health state per device: 0 healthy, 1 suspect, "
             "2 probing (one re-admission batch in flight), 3 quarantined",
             labels=("device",),
+        )
+        # the compile ledger: what making a program cost, by entry and kind
+        self.bls_compile_seconds = r.histogram(
+            "lodestar_bls_compile_seconds",
+            "program materialization cost by entry and kind: build = nvcc "
+            "built the kernel library, build_cache = a built library "
+            "loaded from build/, aot_load = the durable store served the "
+            "library, capture = a CUDA graph made (eager run, capture, "
+            "instantiation), hit = already live in-process (compile "
+            "ledger, persisted in compile_ledger.json)",
+            buckets=COMPILE_BUCKETS_S,
+            labels=("entry", "kind"),
         )
         # flight recorder & failure forensics
         self.bls_watchdog_stalls_total = r.counter(

@@ -21,6 +21,13 @@ hop, for shard s + 1's "buffer ready" event (recorded after that shard
 allocated its output and seeded it); each shard's stream ends waiting for
 the last hop of shard s - 1, so whatever it runs next reads a full stack.
 
+Inside a CUDA graph (the sharded tier's combine, ``MeshProgram``) one
+stream issues every copy, ``issuer``: shard 0's, whose capture holds
+them.  The hops keep their order, and a copy between two other cards
+goes through peer pointers from the issuer's card, enabled before the
+capture (``enable_issuer_peers``); the caller gives the outputs, made
+outside the capture, so that no allocation on another card is captured.
+
 On the CPU the plain version (``ring_all_gather_plain``, the same hops as
 ``copy_``) runs; mixing CPU and CUDA chunks raises, and so does a pair of
 distinct cards without peer access.  There is no fallback to ``copy_`` on
@@ -107,14 +114,12 @@ def ring_permute_plain(chunks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _enable_peers(devices: Sequence[torch.device]) -> None:
-    """Peer access from each shard's card to its right neighbour's; raises
-    when two distinct cards cannot reach each other."""
+def _enable_pairs(pairs) -> None:
+    """Peer access from card a to card b for each (a, b); raises when two
+    distinct cards cannot reach each other."""
     from .kernels import _build
 
-    n = len(devices)
-    for s in range(n):
-        a, b = devices[s].index, devices[(s + 1) % n].index
+    for a, b in pairs:
         if a == b or (a, b) in _peers_enabled:
             continue
         if not torch.cuda.can_device_access_peer(a, b):
@@ -127,12 +132,25 @@ def _enable_peers(devices: Sequence[torch.device]) -> None:
             _peers_enabled.add((a, b))
 
 
+def _enable_peers(devices: Sequence[torch.device]) -> None:
+    """Peer access from each shard's card to its right neighbour's."""
+    n = len(devices)
+    _enable_pairs([(devices[s].index, devices[(s + 1) % n].index) for s in range(n)])
+
+
+def enable_issuer_peers(issuer: torch.device, devices: Sequence[torch.device]) -> None:
+    """Peer access from the issuing card to every shard's card, as a
+    capture on the issuer's stream needs before it begins."""
+    _enable_pairs([(issuer.index, d.index) for d in devices])
+
+
 def launch_hop(src: torch.Tensor, dst: torch.Tensor, stream: torch.cuda.Stream) -> None:
-    """One ring_hop_k launch on ``stream`` (the sender's): src -> dst, both
-    contiguous float32 of one size, dst on src's card or a peer's."""
+    """One ring_hop_k launch on ``stream`` (the sender's, or the issuer's):
+    src -> dst, both contiguous float32 of one size, on the stream's card
+    or a peer's."""
     from .kernels import _build
 
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(stream.device):
         rc = _build.load().launch_ring_hop(src.data_ptr(), dst.data_ptr(), src.numel(),
                                            stream.cuda_stream)
     if rc != 0:
@@ -140,7 +158,12 @@ def launch_hop(src: torch.Tensor, dst: torch.Tensor, stream: torch.cuda.Stream) 
     RING_HOP.count_launch()
 
 
-def _streams(chunks, streams) -> List[torch.cuda.Stream]:
+def _streams(chunks, streams, issuer=None) -> List[torch.cuda.Stream]:
+    if issuer is not None:
+        if streams is not None:
+            raise ValueError("ring: streams or an issuer, not both")
+        _enable_pairs([(issuer.device.index, c.device.index) for c in chunks])
+        return [issuer] * len(chunks)
     if streams is None:
         return [torch.cuda.current_stream(c.device) for c in chunks]
     if len(streams) != len(chunks):
@@ -158,7 +181,8 @@ def _record(stream: torch.cuda.Stream) -> torch.cuda.Event:
 
 
 def ring_all_gather(chunks: Sequence[torch.Tensor], out: Optional[Sequence[torch.Tensor]] = None,
-                    streams: Optional[Sequence[torch.cuda.Stream]] = None) -> List[torch.Tensor]:
+                    streams: Optional[Sequence[torch.cuda.Stream]] = None,
+                    issuer: Optional[torch.cuda.Stream] = None) -> List[torch.Tensor]:
     """Every shard's chunk to every shard: ``out[s]`` becomes the (n, ...)
     stack of all chunks in shard order, on shard s's device.
 
@@ -166,14 +190,19 @@ def ring_all_gather(chunks: Sequence[torch.Tensor], out: Optional[Sequence[torch
     device's current stream by default).  ``out`` (allocated here when
     None) holds one contiguous (n, ...) buffer per shard; when the caller
     gives it, it must have been made on the shard's stream.  On return each
-    shard's stream is ordered after the whole gather."""
+    shard's stream is ordered after the whole gather.  ``issuer``: one
+    stream that issues every copy in hop order (a graph's capture); then
+    ``out`` is required."""
     if _check(chunks, out) == "cpu":
         if out is None:
             out = [c.new_empty((len(chunks),) + tuple(c.shape)) for c in chunks]
         return ring_all_gather_plain(chunks, out)
     n = len(chunks)
-    streams = _streams(chunks, streams)
-    _enable_peers([c.device for c in chunks])
+    if issuer is not None and out is None:
+        raise ValueError("ring: an issuer needs the outputs made outside its capture")
+    streams = _streams(chunks, streams, issuer)
+    if issuer is None:
+        _enable_peers([c.device for c in chunks])
     if out is None:
         out = []
         for c, st in zip(chunks, streams):
@@ -190,7 +219,8 @@ def ring_all_gather(chunks: Sequence[torch.Tensor], out: Optional[Sequence[torch
         right = (s + 1) % n
         if k == 0:
             st.wait_event(ready[right])
-            out[right].record_stream(st)
+            if issuer is None:
+                out[right].record_stream(st)
         else:
             st.wait_event(landed[(k - 1) * n + (s - 1) % n])
         launch_hop(out[s][slot], out[right][slot], st)
@@ -202,26 +232,35 @@ def ring_all_gather(chunks: Sequence[torch.Tensor], out: Optional[Sequence[torch
 
 
 def ring_permute(chunks: Sequence[torch.Tensor],
-                 streams: Optional[Sequence[torch.cuda.Stream]] = None) -> List[torch.Tensor]:
+                 streams: Optional[Sequence[torch.cuda.Stream]] = None,
+                 out: Optional[Sequence[torch.Tensor]] = None,
+                 issuer: Optional[torch.cuda.Stream] = None) -> List[torch.Tensor]:
     """One hop of the ring (``lax.ppermute`` with the (s, s + 1) pairs):
     returns, per shard s, shard s - 1's chunk on shard s's device.  On
-    return each shard's stream is ordered after the hop that fed it."""
+    return each shard's stream is ordered after the hop that fed it.
+    ``out`` (one buffer per shard, like its chunk) and ``issuer`` as in
+    ``ring_all_gather``."""
     if _check(chunks) == "cpu":
         return ring_permute_plain(chunks)
     n = len(chunks)
-    streams = _streams(chunks, streams)
-    _enable_peers([c.device for c in chunks])
-    out, ready = [], []
-    for c, st in zip(chunks, streams):
-        with torch.cuda.stream(st):
-            out.append(torch.empty_like(c))
-        ready.append(_record(st))
+    if issuer is not None and out is None:
+        raise ValueError("ring: an issuer needs the outputs made outside its capture")
+    streams = _streams(chunks, streams, issuer)
+    if issuer is None:
+        _enable_peers([c.device for c in chunks])
+    if out is None:
+        out = []
+        for c, st in zip(chunks, streams):
+            with torch.cuda.stream(st):
+                out.append(torch.empty_like(c))
+    ready = [_record(st) for st in streams]
     done = []
     for s in range(n):
         st = streams[s]
         right = (s + 1) % n
         st.wait_event(ready[right])
-        out[right].record_stream(st)
+        if issuer is None:
+            out[right].record_stream(st)
         launch_hop(chunks[s], out[right], st)
         done.append(_record(st))
     for s in range(n):

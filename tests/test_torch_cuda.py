@@ -19,9 +19,10 @@ all-gather and as a one-hop permute at 2 and 4 logical shards on card 0
 and across cards when two or more are visible; the sharded tier's
 verdicts at bucket 4 over 2 logical shards.  The verifier's per-bucket
 graphs: a replay gives the eager program's outputs bitwise and its launch
-counts, for both programs and both modes; two batches in flight read their
-own verdicts; a dispatch after ``warmup`` calls no kernel wrapper; a
-failed capture raises, and nothing runs in its place.
+counts, for both programs and both modes, and so does the sharded tier's
+per-bucket program over 2 logical shards; two batches in flight read
+their own verdicts; a dispatch after ``warmup`` calls no kernel wrapper;
+a failed capture raises, and nothing runs in its place.
 ``tests/kernel_build_variants.py`` holds builds of the same sources that
 the port does not run to the same check."""
 
@@ -276,6 +277,41 @@ def test_sharded_split_bucket8_verdicts_on_logical_shards(card):
     for case, key in (("valid", "verdict_valid2"), ("corrupted", "verdict_corrupted2")):
         assert v.dispatch(gen.bucket8(ins, case)).result() is bool(ins[key])
     assert v.sharded_batches == 2
+
+
+@pytest.mark.parametrize("host_final_exp", [True, False])
+@pytest.mark.parametrize("fused", [True, False])
+def test_mesh_replay_equals_the_eager_sharded_program_bitwise(fused, host_final_exp, card):
+    """The sharded tier's per-bucket program over 2 logical shards (a graph
+    per shard and one for the combine) gives the eager ``ShardedProgram``'s
+    outputs on the same batch bitwise, and every kernel's launches, the
+    ring hop's included."""
+    from lodestar_tpu_torch.crypto.bls.bucket_program import _tensors
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+
+    with np.load(gen.SHARDED_NPZ) as z:
+        ins = dict(z)
+    v = TorchBlsVerifier(devices=[card, card], sharded=True, sharded_min_batch=8, fused=fused,
+                         host_final_exp=host_final_exp)
+    v.warmup_sharded((8,))
+    program = v.mesh_programs[("mesh", 8, fused, host_final_exp)]
+    assert len(program.graphs) == 3 and program.launch_rows["ring_hop"]
+    entry = sv.miller_product_sharded if host_final_exp else sv.verify_signature_sets_sharded
+    for case in ("valid", "corrupted"):
+        packed = gen.bucket8(ins, case)
+        torch.cuda.synchronize(card)
+        fc.reset_launch_counts()
+        want = _tensors(entry([card, card], fused)(*packed))
+        torch.cuda.synchronize(card)
+        eager = {name: k.launches for name, k in fc.COUNTED.items()}
+        fc.reset_launch_counts()
+        got, ready = program.run(packed)
+        ready.synchronize()
+        assert {name: k.launches for name, k in fc.COUNTED.items()} == eager
+        for g, w in zip(got, want):
+            assert g.is_pinned() and torch.equal(g, w.cpu())
+    assert v.dispatch(gen.bucket8(ins, "valid")).result() is True
+    assert v.device_inflight() == {"mesh2": 0}
 
 
 def test_one_pool_flush_on_the_card(card):

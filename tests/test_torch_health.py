@@ -40,6 +40,7 @@ from lodestar_tpu.crypto.bls import tpu_verifier as jtv
 from lodestar_tpu.forensics.journal import JOURNAL as JJOURNAL
 from lodestar_tpu.forensics.recorder import RECORDER as JRECORDER
 from lodestar_tpu.forensics.watchdog import INFLIGHT as JINFLIGHT
+from lodestar_tpu.ops.sharded_verify import mesh_device_name as jax_mesh_device_name
 from lodestar_tpu.tracing import TRACER as JTRACER
 from lodestar_tpu_torch import tracing
 from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
@@ -108,7 +109,7 @@ def port_verifier(n, threshold=2, backoff=1.0, backoff_max=60.0, sharded=False, 
     stub = _StubProgram()
     v._program = lambda card, bucket: stub
     if sharded:
-        v._mesh_program = lambda *packed: torch.tensor(True)
+        v._mesh_program_for = lambda bucket: stub
     return v
 
 
@@ -134,17 +135,15 @@ class Clock:
         return self.now
 
 
-_NAMES = {"port": re.compile(r"\bcpu(?:#(\d+))?|\bmesh\b"),
-          "jax": re.compile(r"\bcpu:(\d+)|\bmesh\d+")}
+_NAMES = {"port": re.compile(r"\bcpu(?:#(\d+))?"),
+          "jax": re.compile(r"\bcpu:(\d+)")}
 
 
 def norm(side, text):
-    """Executor names -> 'ex<index>' (the mesh -> 'mesh')."""
-    def sub(m):
-        if m.group(0).startswith("mesh"):
-            return "mesh"
-        return f"ex{int(m.group(1) or 0)}"
-    return _NAMES[side].sub(sub, str(text))
+    """Card executor names -> 'ex<index>' (the port names a repeated card
+    ``cpu``, ``cpu#1``, ...; the JAX verifier its CPU devices ``cpu:0``,
+    ``cpu:1``, ...); the mesh's name, ``mesh{n}`` in both, stays as it is."""
+    return _NAMES[side].sub(lambda m: f"ex{int(m.group(1) or 0)}", str(text))
 
 
 HEALTH_KEYS = ("state", "failures", "quarantines", "backoff_s")
@@ -227,6 +226,30 @@ def run_script(monkeypatch, steps, n, metrics=(None, None), **kw):
         assert port.verdicts == jax.verdicts, where
         assert port.transitions() == jax.transitions(), where
     return port, jax
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_executor_names_are_the_jax_verifiers(n):
+    """The keys of ``executor_health()`` and ``device_inflight()`` are the
+    JAX verifier's for the same devices: the cards by executor index, the
+    mesh pseudo-executor by name, ``mesh{n}``, letter for letter."""
+    port, jax = port_verifier(n, sharded=True), jax_verifier(n, sharded=True)
+    assert port._mesh_ex.name == jax._mesh_ex.name == jax_mesh_device_name(n)
+    assert ({norm("port", k) for k in port.executor_health()}
+            == {norm("jax", k) for k in jax.executor_health()})
+    assert jax_mesh_device_name(n) in port.executor_health()
+    # a mesh batch in flight: the port's key is the name the JAX verifier
+    # files the same batch under in its in-flight table
+    pending = (port.dispatch(fake_packed()), jax.dispatch(fake_packed()))
+    assert set(port.device_inflight()) == {e["device"] for e in JINFLIGHT.snapshot()} == {
+        jax_mesh_device_name(n)}
+    assert [p.result() for p in pending] == [True, True]
+    # per-card batches on every executor
+    port, jax = port_verifier(n), jax_verifier(n)
+    pending = [v.dispatch(fake_packed()) for v in (port, jax) for _ in range(n)]
+    assert ({norm("port", k) for k in port.device_inflight()}
+            == {norm("jax", k) for k in jax.device_inflight()} == {f"ex{i}" for i in range(n)})
+    assert [p.result() for p in pending] == [True] * (2 * n)
 
 
 PARITY_CASES = {
@@ -378,7 +401,7 @@ def test_an_enqueue_failure_raises_frees_the_slot_and_is_not_requeued():
     CHAOS.install(FaultPlan(0).add("bls.compile", match={"sharded": True}))
     with pytest.raises(InjectedCompileError):
         mesh.dispatch(fake_packed())
-    assert mesh.device_inflight() == {"mesh": 0} and mesh.dispatches == 0
+    assert mesh.device_inflight() == {jax_mesh_device_name(2): 0} and mesh.dispatches == 0
     assert {h["state"] for h in mesh.executor_health().values()} == {HEALTHY}
 
 

@@ -42,7 +42,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "crypto/bls/pairing", "crypto/bls/verifier", "tracing/__init__",
                    "tracing/tracer", "tracing/export", "forensics/__init__", "forensics/journal",
                    "forensics/watchdog", "forensics/bundle", "forensics/recorder",
-                   "chaos/__init__", "chaos/plan", "metrics/__init__", "metrics/registry"):
+                   "chaos/__init__", "chaos/plan", "metrics/__init__", "metrics/registry",
+                   "aot/__init__", "aot/store", "observatory/__init__",
+                   "observatory/compile_ledger", "crypto/bls/bucket_program"):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -74,6 +76,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.forensics\n"
         "import lodestar_tpu_torch.chaos\n"
         "import lodestar_tpu_torch.metrics\n"
+        "import lodestar_tpu_torch.aot\n"
+        "import lodestar_tpu_torch.observatory\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"

@@ -492,7 +492,9 @@ def test_merged_batch_rides_the_sharded_tier_on_the_cpu():
     assert results == [True] * 4
     assert v.sharded_batches == 1 and len(pool.batch_spans) == 1
     assert v.host_final_exps == 1 and pool.batch_retries == 0
-    assert v.device_inflight() == {"mesh": 0}
+    from lodestar_tpu.ops.sharded_verify import mesh_device_name  # the JAX name
+
+    assert v.device_inflight() == {mesh_device_name(2): 0}
 
 
 def test_torch_verifier_close_releases_what_it_holds_and_refuses_verifies():

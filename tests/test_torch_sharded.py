@@ -122,7 +122,13 @@ def test_verifier_routes_eligible_buckets_to_the_mesh(monkeypatch):
     assert not TorchBlsVerifier(devices=["cpu"] * 3, sharded=True,
                                 sharded_min_batch=16).sharded_eligible(64)
     calls = []
-    monkeypatch.setattr(v, "_mesh_program", lambda *packed: calls.append("mesh") or torch.tensor(True))
+
+    class _Mesh:
+        def run(self, packed):
+            calls.append("mesh")
+            return (torch.tensor(True),), None
+
+    monkeypatch.setattr(v, "_mesh_program_for", lambda bucket: _Mesh())
     monkeypatch.setattr(
         "lodestar_tpu_torch.crypto.bls.torch_verifier.verify_signature_sets_fused",
         lambda *args: calls.append(("card", args[0].device)) or torch.tensor(True))

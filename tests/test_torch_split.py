@@ -38,6 +38,7 @@ from lodestar_tpu.crypto.bls import verifier as over
 from lodestar_tpu.crypto.bls.curve import g2_to_bytes
 from lodestar_tpu.crypto.bls.hash_to_curve import hash_to_field_fq2, map_to_curve_g2
 from lodestar_tpu.native import fastbls as jax_fastbls
+from lodestar_tpu.ops.sharded_verify import mesh_device_name as jax_mesh_device_name
 from lodestar_tpu_torch.crypto.bls import PublicKey, SingleSignatureSet
 from lodestar_tpu_torch.crypto.bls import fields as F
 from lodestar_tpu_torch.crypto.bls import torch_verifier as tv
@@ -233,9 +234,10 @@ def test_sharded_split_over_two_cpu_shards_equals_jax(case, key, sharded_npz):
         want = bool(sharded_npz[key])
         packed = gen.bucket8(sharded_npz, case)
     pending = verifier.dispatch(packed)
-    assert pending.device == "mesh" and verifier.device_inflight() == {"mesh": 1}
+    mesh = jax_mesh_device_name(2)
+    assert pending.device == mesh and verifier.device_inflight() == {mesh: 1}
     assert pending.result() is want is (case == "valid")
-    assert verifier.sharded_batches == 1 and verifier.device_inflight() == {"mesh": 0}
+    assert verifier.sharded_batches == 1 and verifier.device_inflight() == {mesh: 0}
     # the ok bits decide a batch outside G2 before any host final exponentiation
     if case != "corrupted":  # (the stored corrupted x may fail either check)
         assert verifier.host_final_exps == int(case == "valid")
