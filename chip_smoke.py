@@ -211,6 +211,31 @@ histograms of phases 3, 6 and 11 are read from that record.
     quarantines it, rebuilds with nvcc and saves again; logged: the
     store's load seconds against the nvcc build's, and the compile
     ledger's summary.
+15. observatory: the port's own entry (``cli.py``): ``add_bls_flags``
+    parsed with ``--bls-buckets 128 --bls-warmup blocking --torch-profile
+    <tmp> --profile-window 2 --telemetry-interval-s 0.2 --forensics-dir
+    <tmp>`` (and ``--trace-dump``), ``configure_tracing``, ``make_pool``
+    (``make_verifier``: the split fused ``TorchBlsVerifier`` on ``cuda:0``,
+    its warmup under ``run_window(label="warmup")``) with a metrics
+    registry that keeps what is reported to it, ``configure_forensics``
+    (``RECORDER.install()``, then ``configure_observatory``: the sampler
+    over the verifier's executors, the two-flush window armed); the 256
+    sets of phase 9 as 1-3-set gossip jobs plus one 64-set block job, then
+    one 128-set job: every verdict True; the window finishes without an
+    error, its merged trace passes ``tools/check_trace`` with device
+    evidence and names the ten fused kernels, every batch of the window
+    has device events inside its dispatch window (not the dispatch-wall
+    fallback); the sampler's ``cuda:0`` row holds memory in use, the
+    card's total memory as its limit and a busy ratio above 0; the pool's
+    dispatches, batch-size sum and end-to-end count equal its batches,
+    sets and jobs; a pool set to shed (a job past its deadline, threshold
+    1) writes one ``overload`` bundle with per-lane counts and a
+    configured ``profile.json``; SIGUSR2 writes a bundle and the run goes
+    on.  Logged: each batch's six-way breakdown, the window's device
+    events, skew and offset, the export's timebase (how far the first
+    kernel lies from the window's start, the clock map's error at it),
+    the sampler's and the capture's overhead ratios, and the 128-set
+    batch's wall inside the window beside the same batch's outside it.
 
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
@@ -223,12 +248,14 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --split-only
     python3 chip_smoke.py --fused-only
     python3 chip_smoke.py --store-only
+    python3 chip_smoke.py --observatory-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
 cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
-another's), or phases 1 and 14, and end with the card line and
-``{"ok": true, ...}`` without the ``kernels`` object.
+another's), phases 1 and 14, or phases 1 and 15 (signing its 256 sets
+itself), and end with the card line and ``{"ok": true, ...}`` without the
+``kernels`` object.
 """
 
 from __future__ import annotations
@@ -2202,7 +2229,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 2
     mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split",
-            ("--fused-only",): "fused", ("--store-only",): "store"}.get(tuple(argv))
+            ("--fused-only",): "fused", ("--store-only",): "store",
+            ("--observatory-only",): "observatory"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2232,7 +2260,9 @@ def main(argv) -> int:
                                        ("sharded", ("all", "sharded"))) if mode in modes}
         if mode == "store":
             run_store(dev, card, make_sets(pool, keys[:STORE_BUCKET], b"store"), build)
-        if mode not in ("sharded", "store"):
+        if mode == "observatory":
+            run_observatory(dev, card, pool, keys)
+        if mode not in ("sharded", "store", "observatory"):
             with Phase("2 kernels"):
                 registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
@@ -2252,7 +2282,7 @@ def main(argv) -> int:
                 f"dispatch [{card}]")
         if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
-        if mode != "store":
+        if mode not in ("store", "observatory"):
             t0 = time.perf_counter()
             sets256 = make_sets(pool, keys, b"sharded slice")
             log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes "
@@ -2266,7 +2296,7 @@ def main(argv) -> int:
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
-        if mode not in ("sharded", "store"):
+        if mode not in ("sharded", "store", "observatory"):
             split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
@@ -2280,11 +2310,13 @@ def main(argv) -> int:
             run_health(dev, card, sets, sets256)
         if mode == "all":
             run_store(dev, card, sets, build)
+            run_observatory(dev, card, pool, keys, sets256)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
         phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
-                  "fused": "1-5, 2b, 11, 12", "store": "1, 14"}[mode]
+                  "fused": "1-5, 2b, 11, 12", "store": "1, 14",
+                  "observatory": "1, 15"}[mode]
         print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
@@ -2509,6 +2541,312 @@ def run_store(dev, card: str, sets, build: dict) -> dict:
         ledger = COMPILE_LEDGER.configure(path=COMPILE_LEDGER.path)
         log("store: compile ledger " + json.dumps(ledger.summary()))
     return dict(load_s=load_s, build_s=build_s)
+
+
+# -- phase 15: the observatory on the card ------------------------------------
+
+OBS_BLOCK_SETS = 64  # the block-proposal job of phase 15's first round
+
+
+class _Tally:
+    """One metric family of ``TallyMetrics``: what was added, set and
+    observed, by labels."""
+
+    def __init__(self):
+        self.children, self.value, self.count, self.sum = {}, 0.0, 0, 0.0
+
+    def labels(self, **kw):
+        return self.children.setdefault(tuple(sorted(kw.items())), _Tally())
+
+    def inc(self, n=1.0):
+        self.value += n
+
+    def set(self, v):
+        self.value = v
+
+    def observe(self, v):
+        self.count += 1
+        self.sum += v
+
+    def total(self, attr: str) -> float:
+        return getattr(self, attr) + sum(c.total(attr) for c in self.children.values())
+
+
+class TallyMetrics:
+    """A metrics registry with the registry's attribute names that keeps
+    what the port reports to it (the card's machine has no
+    ``prometheus_client``, under which the port's registry is a no-op)."""
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        family = _Tally()
+        setattr(self, name, family)
+        return family
+
+
+def _load_check_trace():
+    """tools/check_trace.py (standard library only), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                    "check_trace.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _device_intervals(doc, base: int):
+    return [(e["ts"], e["ts"] + e.get("dur", 0.0), e["name"]) for e in doc["traceEvents"]
+            if isinstance(e.get("pid"), int) and e["pid"] >= base and e.get("ph") == "X"]
+
+
+def _clock_check(summary, merged_dev, mono_minus_wall_us: float) -> dict:
+    """The window's timebase, read from its raw export: torch.profiler's
+    ``ts`` is microseconds after ``baseTimeNanoseconds`` (a wall-clock
+    instant); with the wall and monotonic clocks read together, each
+    event's exact host instant is known.  Returns how far the first
+    kernel lies from the window's start, and how far the merge's clock map
+    put it from its exact instant (the anchor's error)."""
+    with open(summary["files"][0]) as f:
+        raw = json.load(f)
+    base_us = raw.get("baseTimeNanoseconds", 0) / 1e3
+    events = raw["traceEvents"]
+    window = [e for e in events if e.get("cat") == "Trace" and e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    first = min(kernels, key=lambda e: e["ts"])
+    exact = base_us + first["ts"] + mono_minus_wall_us
+    merged = min(t0 for t0, _t1, name in merged_dev if name == first["name"])
+    return dict(base_time_ns=raw.get("baseTimeNanoseconds"),
+                first_kernel_after_window_start_us=(first["ts"] - window[0]["ts"]) if window
+                else None,
+                anchor_error_us=merged - exact, raw_events=len(events), kernels=len(kernels))
+
+
+def run_observatory(dev, card: str, pool, keys, sets256=None) -> dict:
+    """Phase 15: the port's own entry (``cli.py``) with a profile window,
+    the device sampler, the pool's metrics and the recorder's hooks."""
+    import argparse
+    import faulthandler
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    from lodestar_tpu_torch import cli, tracing
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.crypto.bls.verifier import (
+        SignatureSetPriority,
+        VerificationDroppedError,
+    )
+    from lodestar_tpu_torch.forensics import RECORDER
+    from lodestar_tpu_torch.observatory import attribution, device_sampler, xprof
+
+    with Phase("15 observatory"):
+        if sets256 is None:
+            t0 = time.perf_counter()
+            sets256 = make_sets(pool, keys, b"observatory")
+            log(f"observatory: signed {len(sets256)} sets in {time.perf_counter() - t0:.1f} s")
+        check_trace = _load_check_trace()
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-observatory-")
+        args = cli.add_bls_flags(argparse.ArgumentParser()).parse_args([
+            "--bls-buckets", str(BUCKET), "--bls-warmup", "blocking",
+            "--torch-profile", os.path.join(tmp, "profile"), "--profile-window", "2",
+            "--telemetry-interval-s", "0.2", "--forensics-dir", os.path.join(tmp, "forensics"),
+            "--trace-dump", os.path.join(tmp, "trace.json")])
+        tracing.TRACER.clear()
+        xprof.CAPTURE = None
+        metrics = TallyMetrics()
+        mono_minus_wall_us = (time.monotonic_ns() - time.time_ns()) / 1e3
+        cli.configure_tracing(args)
+        t0 = time.perf_counter()
+        bls = cli.make_pool(args, metrics=metrics)
+        verifier = bls.verifier
+        warm_window = xprof.get_capture().last_window()["summary"]
+        log(f"observatory: make_verifier {time.perf_counter() - t0:.1f} s, warmup under the "
+            f"profile window '{warm_window['label']}' ({warm_window['device_events']} device "
+            f"events); verifier fused={verifier.fused} split={verifier.host_final_exp} on "
+            f"{[ex.name for ex in verifier._executors]} buckets {verifier.buckets}")
+        t0 = time.perf_counter()
+        cli.configure_forensics(args, metrics=metrics, pool=bls)  # arms the window too
+        configure_s = time.perf_counter() - t0
+        cap = xprof.get_capture()
+        sampler = device_sampler.SAMPLER
+        try:
+            # a fresh verifier: the first round packs cold (keys and
+            # signatures decompressed), the later rounds' sets are cached
+            gossip = gossip_jobs(list(sets256[OBS_BLOCK_SETS:]))
+            block = list(sets256[:OBS_BLOCK_SETS])
+
+            async def rounds():
+                t1 = time.perf_counter()
+                first = await asyncio.gather(
+                    *[bls.verify_signature_sets(job) for job in gossip],
+                    bls.verify_signature_sets(block, priority=SignatureSetPriority.BLOCK_PROPOSAL))
+                n1 = len(bls.batch_spans)
+                t2 = time.perf_counter()
+                second = await bls.verify_signature_sets(list(sets256[:BUCKET]))
+                return first, second, n1, (t2 - t1, time.perf_counter() - t2)
+
+            t0 = time.perf_counter()
+            first, second, n_first, round_s = asyncio.run(rounds())
+            wall = time.perf_counter() - t0
+            t_rounds = time.perf_counter()
+            # the background sampler's view of the rounds: busy ticks of its
+            # window (a batch is in the in-flight table from its enqueue to
+            # its verdict's read)
+            row_name = str(dev)
+            background = (sampler.busy_ratio(row_name), sum(sampler._busy.get(row_name, ())),
+                          sampler.ticks)
+            if not cap.wait_idle(120.0):
+                raise AssertionError("observatory: the profile window did not finish")
+            finish_s = time.perf_counter() - t_rounds  # stop, export, parse, merge
+            inside = bls.batch_spans[-1][1] - bls.batch_spans[-1][0]
+            # the same batch once more, the window closed: the profiler's cost
+            outside_v = asyncio.run(_verify_all(bls, [list(sets256[:BUCKET])]))
+            outside = bls.batch_spans[-1][1] - bls.batch_spans[-1][0]
+            jobs = len(gossip) + 1 + 2
+            verdicts = list(first) + [second] + outside_v
+            log(f"observatory: {len(gossip)} gossip jobs and one {len(block)}-set block job "
+                f"({len(sets256)} sets), then one {BUCKET}-set job, in {wall} s (rounds "
+                f"{round_s[0]} s, {round_s[1]} s; configure_forensics with the window's start "
+                f"{configure_s:.2f} s before them): all True "
+                f"{all(r is True for r in verdicts)}; {len(bls.batch_spans)} batches; the "
+                f"window finished {finish_s:.1f} s after the last verdict")
+            if not all(r is True for r in verdicts) or len(verdicts) != jobs:
+                raise AssertionError("observatory: a valid job did not verify")
+            snap = cap.snapshot()
+            if snap["last_error"] is not None or snap["windows"] < 2:
+                raise AssertionError(f"observatory: the window failed: {snap['last_error']}")
+            last = cap.last_window()
+            doc, summary = last["trace"], last["summary"]
+            errs = check_trace.validate(doc) + check_trace.validate_device_merge(doc)
+            if errs:
+                raise AssertionError(f"observatory: the merged trace fails check_trace: {errs}")
+            dev_iv = _device_intervals(doc, xprof.DEVICE_PID_BASE)
+            names = {n for _a, _b, n in dev_iv}
+            missing = [k for k in FUSED
+                       if not any(re.search(rf"\b{k}_k\b", n) for n in names)]
+            clock = _clock_check(summary, dev_iv, mono_minus_wall_us)
+            log(f"observatory: window '{summary['label']}' over "
+                f"{doc['otherData']['profile']['flushes']} flushes: "
+                f"{len(dev_iv)} device events of {len(names)} names, skew {summary['skew_us']} "
+                f"us, offset {summary['offset_us']} us; timebase: ts after "
+                f"baseTimeNanoseconds {clock['base_time_ns']}, the first kernel "
+                f"{clock['first_kernel_after_window_start_us']} us after the window's start, "
+                f"the clock map's error at it {clock['anchor_error_us']} us; raw export "
+                f"{clock['raw_events']} events ({clock['kernels']} kernels) [{card}]")
+            if missing:
+                raise AssertionError(f"observatory: the merged trace names no {missing}")
+            # the device time by kernel name over the window's batches: the
+            # port's kernels, and the glue ranked by op
+            by_name = {}
+            for t0_us, t1_us, name in dev_iv:
+                by_name[name] = by_name.get(name, 0.0) + (t1_us - t0_us) / 1e3
+            ours = {n: ms for n, ms in by_name.items() if re.search(r"\b[a-z0-9_]+_k\(", n)}
+            glue = sorted(((ms, n) for n, ms in by_name.items() if n not in ours), reverse=True)
+            log(f"observatory: device ms in the window: the port's kernels "
+                f"{sum(ours.values())} ms, the rest {sum(ms for ms, _ in glue)} ms over "
+                f"{len(glue)} names; the rest ranked: " + json.dumps(
+                    [[round(ms, 3), n[:90]] for ms, n in glue[:10]]))
+            report = attribution.attribute_spans(doc["traceEvents"])
+            fallback = []
+            for b in report["batches"]:
+                d0, d1 = b["window_us"]
+                evidence = any(t1 > d0 and t0 < d1 for t0, t1, _n in dev_iv)
+                if not evidence:
+                    fallback.append(b["cid"])
+                log("observatory: batch " + json.dumps(
+                    {"cid": b["cid"], "device": b["device"], "e2e_s": b["e2e_s"],
+                     "device_evidence": evidence, "overlap_ratio": b["overlap_ratio"],
+                     **b["stages"]}))
+            log(f"observatory: the window's overlap ratio {report['overlap_ratio']} over "
+                f"{len(report['batches'])} batches [{card}]")
+            if len(report["batches"]) != n_first + 1 or fallback:
+                raise AssertionError(f"observatory: batches {len(report['batches'])} (want "
+                                     f"{n_first + 1}), without device evidence {fallback}")
+            # one tick with a batch surely in flight (enqueued, its verdict
+            # not read), then the row
+            pending = verifier.verify_signature_sets_async(list(sets256[:BUCKET]))
+            sampler.tick()
+            row = sampler.snapshot()["devices"].get(row_name)
+            if pending.result() is not True:
+                raise AssertionError("observatory: the sampler's batch did not verify")
+            total = torch.cuda.get_device_properties(dev).total_memory
+            log(f"observatory: sampler row {row_name} {json.dumps(row)} after {sampler.ticks} "
+                f"ticks, the last with a batch in flight (during the rounds: busy ratio "
+                f"{background[0]}, {background[1]} busy of the window's ticks at tick "
+                f"{background[2]}); sampler overhead ratio {sampler.overhead_ratio()}, capture "
+                f"overhead ratio {cap.overhead_ratio()} [{card}]")
+            if (row is None or not row["hbm"] or row["hbm"]["bytes_in_use"] <= 0
+                    or row["hbm"]["bytes_limit"] != total or not row["busy_ratio"] > 0):
+                raise AssertionError(f"observatory: the sampler's row is wrong: {row}")
+            log(f"observatory: a {BUCKET}-set batch's wall inside the window {inside} s, "
+                f"outside it {outside} s: the profiler's cost {inside - outside} s [{card}]")
+            batches = len(bls.batch_spans)
+            dispatches = metrics.bls_pool_dispatches_total.total("value")
+            sets_seen = metrics.bls_pool_batch_size.total("sum")
+            e2e = metrics.bls_e2e_verify_seconds.total("count")
+            n_sets = len(sets256) + 2 * BUCKET
+            log(f"observatory: pool metrics: dispatches {dispatches} (batches {batches}), "
+                f"batch-size sum {sets_seen} (sets {n_sets}), e2e count {e2e} (jobs {jobs}); "
+                f"bls_pool_sets_total {metrics.bls_pool_sets_total.total('value')} (the JAX "
+                f"pool counts none)")
+            if dispatches != batches or sets_seen != n_sets or e2e != jobs:
+                raise AssertionError("observatory: the pool's metrics disagree with its batches")
+            # a pool set to shed: one job past its deadline crosses a
+            # threshold of 1 and writes one overload bundle
+            shed = BlsBatchPool(verifier, overload_shed_threshold=1, max_buffer_wait=0.01,
+                                metrics=metrics)
+
+            async def shed_one():
+                try:
+                    await shed.verify_signature_sets(sets256[:2], deadline=time.monotonic() - 1)
+                except VerificationDroppedError as e:
+                    await shed._overload_task
+                    return e.reason
+                return None
+
+            reason = asyncio.run(shed_one())
+            shed.close()
+            bundles = _bundles(RECORDER.dir, "overload")
+            if reason != "deadline" or len(bundles) != 1:
+                raise AssertionError(f"observatory: shed {reason}, overload bundles {bundles}")
+            path, manifest = bundles[0]
+            overload = manifest["overload"]
+            with open(os.path.join(path, "profile.json")) as f:
+                profile = json.load(f)
+            log(f"observatory: overload bundle {os.path.basename(path)}: dropped by lane "
+                f"{overload['dropped_by_lane']}, profile configured {profile['configured']}")
+            if overload["dropped_by_lane"] != {"unaggregated": 2} or profile["configured"] is not True:
+                raise AssertionError("observatory: the overload bundle is wrong")
+            before = len(_bundles(RECORDER.dir, "sigusr2"))
+            os.kill(os.getpid(), signal.SIGUSR2)
+            time.sleep(0.2)
+            after = len(_bundles(RECORDER.dir, "sigusr2"))
+            log(f"observatory: SIGUSR2 after RECORDER.install(): bundles {before} -> {after}, "
+                f"the process runs on")
+            if after != before + 1:
+                raise AssertionError("observatory: SIGUSR2 wrote no bundle")
+            merged = cli.finalize_profile(args)
+            cli.dump_trace(args.trace_dump)
+            log(f"observatory: merged trace {merged}, span dump {args.trace_dump}")
+        finally:
+            device_sampler.stop_sampler()
+            RECORDER.stop_watchdog()
+            RECORDER.uninstall_signal_handlers()
+            if RECORDER._prev_excepthook is not None:
+                sys.excepthook, RECORDER._prev_excepthook = RECORDER._prev_excepthook, None
+            faulthandler.disable()
+            xprof.CAPTURE = None
+            tracing.disable()
+            tracing.TRACER.clear()
+            bls.close()
+            verifier.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return dict(inside=inside, outside=outside, batches=len(report["batches"]))
+
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -237,9 +237,16 @@ class PendingVerdict:
             return all(results)
         if self._f is not None:
             return self._verifier._host_final_exp_verdict(self._f, self._ok, self._ready)
+        # the full-device verdict: the sync is the read; the span plays
+        # the final exponentiation's part on this path's timeline
+        t0_ns = TRACER.now()
         if self._ready is not None:
             self._ready.synchronize()
-        return bool(self._out)
+        value = bool(self._out)
+        if TRACER.enabled:
+            TRACER.add_span("bls.final_exp", "bls", t0_ns, cid=current_batch_id(),
+                            on_device=True)
+        return value
 
     def result(self) -> bool:
         if self._value is not None:
@@ -426,15 +433,18 @@ class TorchBlsVerifier:
             raise ValueError(f"sharded_combine must be one of {COMBINES}, got {sharded_combine!r}")
         self.sharded_combine = sharded_combine
         # the sharded tier's shards and their streams, shared by its
-        # per-bucket programs, and a graph pool per shard
-        self._mesh = Mesh(self.devices) if self.sharded else None
+        # per-bucket programs, and a graph pool per shard; as in the JAX
+        # verifier the tier needs two executors: one executor builds no
+        # mesh, whatever ``sharded`` says (``self.sharded`` keeps it)
+        tiered = self.sharded and len(self.devices) >= 2
+        self._mesh = Mesh(self.devices) if tiered else None
         self._mesh_pools: Optional[list] = None
         #: the sharded tier's programs by ("mesh", bucket, fused, host_final_exp)
         self.mesh_programs: Dict[tuple, MeshProgram] = {}
         self.aot_store = aot_store
         self.load_only = load_only
         #: the shard count of the sharded tier (0 when it is off)
-        self.mesh_devices = len(self.devices) if self.sharded else 0
+        self.mesh_devices = len(self.devices) if tiered else 0
         #: batches the sharded tier verified
         self.sharded_batches = 0
         #: split dispatches finished on the host
@@ -542,11 +552,12 @@ class TorchBlsVerifier:
 
     def executor_health(self) -> Dict[str, Dict[str, object]]:
         """Each executor's health snapshot (and the mesh's, when the
-        sharded tier is on): the diagnostic bundles read it."""
+        sharded tier is on over two executors or more): the diagnostic
+        bundles read it."""
         now = time.monotonic()
         with self._sched_lock:
             out = {ex.name: ex.health.snapshot(now) for ex in self._executors}
-            if self.sharded:
+            if self.sharded and self.n_executors > 1:
                 out[self._mesh_ex.name] = self._mesh_ex.health.snapshot(now)
             return out
 
@@ -596,12 +607,13 @@ class TorchBlsVerifier:
         return self.dispatch(packed, deadline=deadline)
 
     def _sharded_size_ok(self, bucket: int) -> bool:
-        return (self.sharded and bucket >= self.sharded_min_batch
+        return (self.sharded and self.n_executors >= 2 and bucket >= self.sharded_min_batch
                 and bucket % len(self.devices) == 0)
 
     def sharded_eligible(self, bucket: int) -> bool:
-        """A bucket rides the sharded tier: the tier is on, the bucket is at
-        least ``sharded_min_batch`` and splits evenly over the shards, and
+        """A bucket rides the sharded tier: the tier is on over two
+        executors or more, the bucket is at least ``sharded_min_batch`` and
+        splits evenly over the shards, and
         the mesh is eligible as an executor is (a quarantined mesh sits
         out its backoff, then one idle probe batch decides)."""
         if not self._sharded_size_ok(bucket):
@@ -941,7 +953,7 @@ class TorchBlsVerifier:
         when it was made already).  A failure raises: the port has no
         per-card tier to degrade the mesh to.  Returns the programs made
         or found."""
-        if self.n_executors < 2 or self._mesh is None:
+        if self._mesh is None:  # the tier is off, or one executor
             return 0
         warmed = 0
         entry, name = mesh_entry_name(self.host_final_exp), self._mesh_ex.name
@@ -999,6 +1011,9 @@ class TorchBlsVerifier:
         self._warmup_sharded_tier(bucket_list, load_only)
         dt = time.perf_counter() - t0
         self._add_stage("warmup", dt)
+        if TRACER.enabled:
+            TRACER.instant("bls.warmup_done", cat="bls", seconds=round(dt, 3),
+                           devices=self.n_executors)
         JOURNAL.record("bls.warmup", seconds=round(dt, 3), devices=self.n_executors,
                        fused=self.fused, load_only=load_only or None)
         return dt
@@ -1138,28 +1153,34 @@ class TorchBlsVerifier:
         after the batch's copies to the host (the sync; on the CPU there is
         none), read ok first, then f's digits (the program's host copies), reduce
         each component mod p and run the C final exponentiation and is-one
-        check."""
+        check.  The ``bls.final_exp`` span covers all of it, the sync
+        included, as the JAX verifier's does."""
         t0 = time.perf_counter()
-        if ready is not None:
-            ready.synchronize()
-        live = bool(ok)
-        t1 = time.perf_counter()
-        self._add_stage("sync", t1 - t0)
-        if not live:
-            return False
-        arr = f.detach().to("cpu").numpy()
-        t2 = time.perf_counter()
-        verdict = fastbls.final_exp_is_one(fq12_blob(arr))
-        t3 = time.perf_counter()
-        with self._stats_lock:
-            self.stage_seconds["readback"] += t2 - t1
-            self.stage_seconds["final_exp"] += t3 - t2
-            self.host_final_exps += 1
-        if self.metrics:
-            self.metrics.bls_pool_final_exp_seconds.observe(t3 - t0)
-            self.metrics.bls_verifier_stage_duration_seconds.labels(
-                stage="final_exp").observe(t3 - t0)
-        return verdict
+        t0_ns = TRACER.now()
+        try:
+            if ready is not None:
+                ready.synchronize()
+            live = bool(ok)
+            t1 = time.perf_counter()
+            self._add_stage("sync", t1 - t0)
+            if not live:
+                return False
+            arr = f.detach().to("cpu").numpy()
+            t2 = time.perf_counter()
+            verdict = fastbls.final_exp_is_one(fq12_blob(arr))
+            t3 = time.perf_counter()
+            with self._stats_lock:
+                self.stage_seconds["readback"] += t2 - t1
+                self.stage_seconds["final_exp"] += t3 - t2
+                self.host_final_exps += 1
+            if self.metrics:
+                self.metrics.bls_pool_final_exp_seconds.observe(t3 - t0)
+                self.metrics.bls_verifier_stage_duration_seconds.labels(
+                    stage="final_exp").observe(t3 - t0)
+            return verdict
+        finally:
+            if TRACER.enabled:
+                TRACER.add_span("bls.final_exp", "bls", t0_ns, cid=current_batch_id())
 
     def _coefficients(self, b: int) -> np.ndarray:
         """b fresh odd 64-bit RLC coefficients."""
@@ -1189,6 +1210,7 @@ class TorchBlsVerifier:
         rejected), a rejected batch, and a packed batch's padding lanes."""
         cache_counts = [0, 0]  # hits, misses
         t0 = time.perf_counter()
+        t0_ns = TRACER.now()
         try:
             packed = self._pack(sets, cache_counts)
         finally:
@@ -1203,6 +1225,9 @@ class TorchBlsVerifier:
                     self.metrics.bls_pack_cache_hits_total.inc(hits)
                 if misses:
                     self.metrics.bls_pack_cache_misses_total.inc(misses)
+            if TRACER.enabled:
+                TRACER.add_span("bls.pack", "bls", t0_ns, cid=current_batch_id(),
+                                sets=len(sets), cache_hits=hits)
         with self._stats_lock:
             if packed is None:
                 self.pack_rejected += 1

@@ -19,7 +19,8 @@ unhandled exception once the recorder's hooks are installed.  Layout
       topology.json    the cards torch sees (only when CUDA is already
                        initialized — a crash path must never initialize
                        it)
-      profile.json     the profiler window's state (no binding yet)
+      profile.json     the profiler window's capture state: open/last
+                       window, attribution summary, measured overhead
       config.json      argv, python/torch versions, LODESTAR*/TORCH*/CUDA*
                        env
 
@@ -114,9 +115,18 @@ def _topology() -> Dict[str, Any]:
 
 
 def _profile_state() -> Dict[str, Any]:
-    """The profiler window's capture state: the port has no profiler
-    binding yet."""
-    return {"configured": False, "note": "no profiler binding"}
+    """The profiler window's capture state: whether a profile window is
+    open, the last window's summary (batch attribution + scaling loss),
+    and the capture's measured overhead — lazy import so a crash path
+    never pays for (or dies in) the observatory package."""
+    from ..observatory.xprof import get_capture
+
+    cap = get_capture()
+    if cap is None:
+        return {"configured": False}
+    out: Dict[str, Any] = {"configured": True}
+    out.update(cap.snapshot())
+    return out
 
 
 def _config() -> Dict[str, Any]:

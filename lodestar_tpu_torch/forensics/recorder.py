@@ -1,13 +1,27 @@
 """FlightRecorder: the wiring hub of the forensics subsystem (the port's
 copy of the JAX package's ``forensics/recorder.py``, without its
-``jax.monitoring`` listener and its crash hooks: the signal handlers,
-excepthook and faulthandler wait for a runtime that installs them).
+``jax.monitoring`` listener: the port's compile ledger records its
+builds and captures itself).
 
 One process-wide ``RECORDER`` object owns the configuration (bundle
 directory, metrics, pool/verifier references) and the dump triggers:
 
 - ``dump(reason)``            on-demand bundle (the verifier's quarantine
-                              bundles, tests)
+                              bundles, the pool's overload bundle, tests)
+- SIGTERM / SIGUSR2           ``install_signal_handlers`` (SIGUSR2 dumps
+                              and continues — the classic "what are you
+                              doing right now" poke; SIGTERM dumps, then
+                              chains to the previous handler / default
+                              so shutdown semantics are unchanged)
+- unhandled exception         ``install_excepthook`` (bundle named after
+                              the exception type, then the previous hook
+                              runs so the traceback still prints)
+- hard faults                 ``install_faulthandler`` points the stdlib
+                              faulthandler at ``<dir>/faulthandler.log``
+                              so segfault-class deaths leave stacks next
+                              to the bundles
+
+``install()`` is the one-call CLI entry (``cli.configure_forensics``).
 - watchdog stall              automatic bundle via ``start_watchdog``
 """
 
@@ -15,6 +29,8 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
+import sys
 import tempfile
 import threading
 from typing import Any, Dict, List, Optional
@@ -46,9 +62,13 @@ class FlightRecorder:
         self.watchdog: Optional[Watchdog] = None
         self.bundles_written = 0
         self.keep_bundles = 16  # dump() prunes the dir beyond this
-        # reentrant: a dump that triggers another on the same thread
-        # (a journal handler, a metric) must not deadlock
+        # reentrant: a SIGTERM arriving while THIS thread is mid-dump runs
+        # the handler on the same frame — a plain Lock would deadlock the
+        # shutdown
         self._dump_lock = threading.RLock()
+        self._prev_handlers: Dict[int, Any] = {}
+        self._prev_excepthook = None
+        self._faulthandler_file = None
 
     # -- configuration -------------------------------------------------------
 
@@ -83,7 +103,7 @@ class FlightRecorder:
     def dump(self, reason: str, extra: Optional[Dict[str, Any]] = None,
              metric_reason: Optional[str] = None) -> str:
         """Write one bundle and return its path.  Serialized: concurrent
-        triggers (watchdog + on-demand) queue rather than interleave.
+        triggers (watchdog, signal, on-demand) queue rather than interleave.
         ``metric_reason`` bounds the Prometheus label when ``reason``
         carries variable text (the verifier passes "quarantine" for its
         ``quarantine-<executor>`` bundles)."""
@@ -128,6 +148,91 @@ class FlightRecorder:
         if self.watchdog is not None:
             self.watchdog.stop()
 
+    # -- crash triggers ------------------------------------------------------
 
-#: process-wide singleton (a node installs it; tests configure+restore)
+    def install_signal_handlers(self, signals=(signal.SIGTERM, signal.SIGUSR2)) -> None:
+        """Main-thread only (signal module requirement).  SIGUSR2: dump
+        and keep running.  Anything else (SIGTERM): dump, then chain to
+        the previous disposition so the process still dies."""
+        for signum in signals:
+            prev = signal.getsignal(signum)
+            self._prev_handlers[signum] = prev
+
+            def handler(num, frame, _prev=prev):
+                try:
+                    self.dump(signal.Signals(num).name.lower())
+                except Exception:
+                    pass
+                if num == signal.SIGUSR2:
+                    return
+                if _prev is signal.SIG_IGN:
+                    # the process ignored this signal before we hooked it;
+                    # dumping must not change that survival semantic
+                    return
+                if callable(_prev) and _prev is not signal.SIG_DFL:
+                    _prev(num, frame)
+                else:
+                    signal.signal(num, signal.SIG_DFL)
+                    os.kill(os.getpid(), num)
+
+            signal.signal(signum, handler)
+
+    def uninstall_signal_handlers(self) -> None:
+        for signum, prev in self._prev_handlers.items():
+            try:
+                signal.signal(signum, prev)
+            except (ValueError, OSError):
+                pass
+        self._prev_handlers.clear()
+
+    def install_excepthook(self) -> None:
+        if self._prev_excepthook is not None:
+            return
+        self._prev_excepthook = sys.excepthook
+
+        def hook(exc_type, exc, tb):
+            try:
+                self.journal.record(
+                    "crash", level="CRITICAL",
+                    exc=f"{exc_type.__name__}: {exc}",
+                )
+                self.dump(f"crash-{exc_type.__name__}")
+            except Exception:
+                pass
+            (self._prev_excepthook or sys.__excepthook__)(exc_type, exc, tb)
+
+        sys.excepthook = hook
+
+    def install_faulthandler(self) -> Optional[str]:
+        import faulthandler
+
+        try:
+            os.makedirs(self.dir, exist_ok=True)
+            path = os.path.join(self.dir, "faulthandler.log")
+            self._faulthandler_file = open(path, "a")
+            faulthandler.enable(file=self._faulthandler_file)
+            return path
+        except OSError:
+            return None
+
+    def install(self, watchdog_deadline_s: Optional[float] = None) -> "FlightRecorder":
+        """The CLI's one call: crash hooks, signal handlers, faulthandler,
+        and (optionally) the watchdog.  The JAX recorder's
+        ``install_jax_monitoring`` has no counterpart: the port's compile
+        ledger (``observatory.COMPILE_LEDGER``) records every build, load
+        and capture itself."""
+        self.install_excepthook()
+        self.install_faulthandler()
+        try:
+            self.install_signal_handlers()
+        except ValueError:
+            pass  # not the main thread; crash hooks still active
+        if watchdog_deadline_s:
+            self.start_watchdog(watchdog_deadline_s)
+        self.journal.record("forensics.installed", dir=self.dir,
+                            watchdog_deadline_s=watchdog_deadline_s)
+        return self
+
+
+#: process-wide singleton (the CLI installs it; tests configure+restore)
 RECORDER = FlightRecorder()

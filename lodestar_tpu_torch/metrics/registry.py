@@ -32,6 +32,14 @@ except Exception:  # pragma: no cover
 #: package's ``observatory/latency.COMPILE_BUCKETS_S``
 COMPILE_BUCKETS_S = (0.1, 0.5, 1, 5, 10, 30, 60, 120, 300, 600)
 
+#: the queue-wait / e2e verify latency ladder (seconds), the JAX
+#: package's ``observatory/latency.SLO_LATENCY_BUCKETS_S``: the 100 ms
+#: queue-wait SLO and the 400 ms / 1000 ms lane deadlines are bucket edges
+SLO_LATENCY_BUCKETS_S = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.0,
+    2.0, 5.0, 10.0,
+)
+
 
 class _NoopMetric:
     def labels(self, *a, **k):
@@ -79,18 +87,42 @@ class MetricsRegistry:
 
 
 class Metrics:
-    """The JAX registry's metrics that the port reports: the verifier's
-    stages, executors, self-healing pool and pack caches, the watchdog,
-    the recorder and the tracer.  Left out: the pool's metrics (the pool
-    reports none yet), the node's chain, network and database groups,
-    the degrade ladder's counter (the port has no ladder), and the
-    memory-sampler and mesh-observatory metrics, whose bindings are not
-    ported.  The compile ledger (``observatory.compile_ledger``) observes
-    ``bls_compile_seconds``."""
+    """The JAX registry's metrics that the port reports: the batch pool's,
+    the verifier's stages, executors, self-healing pool and pack caches,
+    the device sampler's, the profile windows' attribution, the watchdog,
+    the recorder and the tracer.  Left out: the node's chain, network,
+    database and validator-monitor groups, and the degrade ladder's
+    counter (the port has no ladder).  The compile ledger
+    (``observatory.compile_ledger``) observes ``bls_compile_seconds``."""
 
     def __init__(self):
         self.reg = MetricsRegistry()
         r = self.reg
+        # the batch pool (blsThreadPool.* analog, lodestar.ts:385)
+        self.bls_pool_queue_length = r.gauge(
+            "lodestar_bls_pool_queue_length", "pending signature sets in the device pool"
+        )
+        self.bls_pool_dispatches_total = r.counter(
+            "lodestar_bls_pool_dispatches_total", "device batch-verify dispatches"
+        )
+        self.bls_pool_sets_total = r.counter(
+            "lodestar_bls_pool_sets_total", "signature sets verified", labels=("result",)
+        )
+        self.bls_pool_batch_size = r.histogram(
+            "lodestar_bls_pool_batch_size",
+            "live sets per dispatch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+        )
+        self.bls_pool_dispatch_seconds = r.histogram(
+            "lodestar_bls_pool_dispatch_seconds",
+            "device dispatch latency",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        self.bls_pool_job_wait_seconds = r.histogram(
+            "lodestar_bls_pool_job_wait_seconds",
+            "time a set waits in the buffer before dispatch",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1),
+        )
         # the verifier's stages (pack -> device -> final exp)
         self.bls_pool_pack_seconds = r.histogram(
             "lodestar_bls_pool_pack_seconds",
@@ -102,12 +134,45 @@ class Metrics:
             "device readback + host final exponentiation per dispatch",
             buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1),
         )
+        self.bls_pool_inflight_depth = r.gauge(
+            "lodestar_bls_pool_inflight_depth",
+            "merged batches concurrently in flight on the device pipeline",
+        )
+        # span-derived pipeline observability (docs/observability.md)
+        self.bls_pool_queue_wait_seconds = r.histogram(
+            "lodestar_bls_pool_queue_wait_seconds",
+            "DEPRECATED (one release, round 11): laneless queue-wait "
+            "histogram on ad-hoc buckets — use bls_queue_wait_seconds "
+            "(per lane, SLO-ladder buckets)",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.02, 0.05, 0.1, 0.5, 1),
+        )
+        self.bls_pool_overlap_ratio = r.gauge(
+            "lodestar_bls_pool_overlap_ratio",
+            "sum of in-flight batch busy time / flush wall time "
+            "(>1 means batches overlapped; 1 is fully serial)",
+        )
+        self.bls_pool_inflight_peak = r.gauge(
+            "lodestar_bls_pool_inflight_peak",
+            "highest in-flight depth the pipeline has reached",
+        )
+        self.bls_verifier_stage_seconds = r.gauge(
+            "lodestar_bls_verifier_stage_seconds",
+            "DEPRECATED (one release, round 11): cumulative wall seconds "
+            "per stage as a last-write gauge snapshot at flush — use the "
+            "per-dispatch histogram bls_verifier_stage_duration_seconds",
+            labels=("stage",),
+        )
         # the executors + pack-side caches
         self.bls_device_inflight = r.gauge(
             "lodestar_bls_device_inflight",
             "merged batches in flight per device executor "
             "(the least-loaded scheduler's placement signal)",
             labels=("device",),
+        )
+        self.bls_sets_per_sec_per_chip = r.gauge(
+            "lodestar_bls_sets_per_sec_per_chip",
+            "signature sets resolved per second per device in the last "
+            "pool flush — the BASELINE.json north star, live",
         )
         self.bls_pack_cache_hits_total = r.counter(
             "lodestar_bls_pack_cache_hits_total",
@@ -124,6 +189,46 @@ class Metrics:
             "pack-stage rejections (malformed bytes or infinity point; "
             "the batch never dispatched)",
         )
+        # overload survival: QoS lanes, shedding, backpressure (round 10,
+        # docs/overload.md)
+        self.bls_pool_dropped_total = r.counter(
+            "lodestar_bls_pool_dropped_total",
+            "signature sets dropped by the overload policy instead of "
+            "verified (deadline shed / overflow eviction / shutdown), "
+            "by reason and QoS lane — every drop is accounted here",
+            labels=("reason", "lane"),
+        )
+        self.bls_pool_backpressure = r.gauge(
+            "lodestar_bls_pool_backpressure",
+            "1 while pending sets sit above the pool high-water mark "
+            "(gossip intake slows its sheddable topics), 0 once drained "
+            "below the low-water release point",
+        )
+        self.bls_pool_lane_pending = r.gauge(
+            "lodestar_bls_pool_lane_pending",
+            "pending verification jobs per QoS lane "
+            "(block_proposal/aggregate/unaggregated/sync_committee)",
+            labels=("lane",),
+        )
+        # performance observatory (round 11, docs/observability.md
+        # §Performance observatory)
+        self.bls_queue_wait_seconds = r.histogram(
+            "lodestar_bls_queue_wait_seconds",
+            "per-job pool buffer wait by QoS lane, on the firehose SLO "
+            "bucket ladder — p50/p99 here, in firehose reports, and in "
+            "bls.queue_wait spans agree to one bucket "
+            "(replaces the deprecated laneless bls_pool_queue_wait_seconds)",
+            buckets=SLO_LATENCY_BUCKETS_S,
+            labels=("lane",),
+        )
+        self.bls_e2e_verify_seconds = r.histogram(
+            "lodestar_bls_e2e_verify_seconds",
+            "end-to-end verify latency by QoS lane: job enqueue -> "
+            "verdict resolved (drops excluded — they land in "
+            "bls_pool_dropped_total), SLO-ladder buckets",
+            buckets=SLO_LATENCY_BUCKETS_S,
+            labels=("lane",),
+        )
         self.bls_verifier_stage_duration_seconds = r.histogram(
             "lodestar_bls_verifier_stage_duration_seconds",
             "per-call verifier stage duration (pack/dispatch/final_exp) — "
@@ -132,12 +237,67 @@ class Metrics:
             buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5),
             labels=("stage",),
         )
+        self.bls_device_hbm_bytes = r.gauge(
+            "lodestar_bls_device_hbm_bytes",
+            "per-executor card memory from the allocator's counters "
+            "(torch.cuda.memory_stats) by kind "
+            "(bytes_in_use/peak_bytes_in_use/bytes_limit/bytes_reserved), "
+            "sampled by the observatory device sampler",
+            labels=("device", "kind"),
+        )
+        self.bls_device_busy_ratio = r.gauge(
+            "lodestar_bls_device_busy_ratio",
+            "fraction of recent sampler ticks each device had >= 1 "
+            "unresolved batch in flight — the is-the-mesh-actually-full "
+            "signal roadmap item 1 is judged by",
+            labels=("device",),
+        )
+        self.bls_sets_per_sec_mesh = r.gauge(
+            "lodestar_bls_sets_per_sec_mesh",
+            "whole-mesh signature sets resolved per second in the last "
+            "pool flush (sets/wall, NOT divided by device count) — the "
+            "headline the sharded-kernel roadmap item is measured against",
+        )
         self.bls_sharded_batches_total = r.counter(
             "lodestar_bls_sharded_batches_total",
             "merged batches dispatched as ONE mesh-spanning shard_map "
             "program (the sharded verifier tier, docs/multichip.md) — "
             "zero on a busy multi-device pool means big batches are "
             "fanning out per-device instead of using the whole mesh",
+        )
+        # mesh observatory: profile-window attribution (ISSUE 20,
+        # docs/observability.md §Mesh observatory)
+        self.bls_mesh_overlap_ratio = r.gauge(
+            "lodestar_bls_mesh_overlap_ratio",
+            "fraction of device-busy (dispatch-window) time during which "
+            "the host was packing ANOTHER merged batch — 1.0 means the "
+            "pipeline fully hides host pack behind device compute, 0 "
+            "means the stages strictly alternate (attribution engine, "
+            "updated per profile window)",
+        )
+        self.bls_sharded_combine_seconds = r.histogram(
+            "lodestar_bls_sharded_combine_seconds",
+            "per-mesh-batch cross-chip collective (GT combine) seconds "
+            "attributed from profile-window device events inside the "
+            "dispatch window — the communication term of the "
+            "scaling-loss breakdown",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1),
+        )
+        self.bls_pipeline_bubble_seconds = r.histogram(
+            "lodestar_bls_pipeline_bubble_seconds",
+            "per-merged-batch end-to-end seconds the six-way attribution "
+            "(queue/pack/device/combine/final_exp) could NOT explain — "
+            "scheduler idle between pipeline stages",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1),
+        )
+        self.bls_scaling_loss = r.gauge(
+            "lodestar_bls_scaling_loss",
+            "mesh scaling loss (1 - scaling efficiency) split by "
+            "component: communication (cross-chip collectives), "
+            "shard_imbalance (slowest vs mean shard), serial_host "
+            "(pack/final-exp the mesh waits on) — components sum to "
+            "the measured gap within tolerance",
+            labels=("component",),
         )
         # self-healing device pool (docs/chaos.md)
         self.bls_batch_requeues_total = r.counter(

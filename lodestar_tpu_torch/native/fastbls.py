@@ -1,5 +1,6 @@
 """ctypes binding for the port's copy of ``fastbls.c`` (native BLS12-381 in
-portable C): the host final exponentiation of the split dispatch.
+portable C): the host final exponentiation of the split dispatch, and the
+batch verification behind ``crypto/bls/native_verifier.FastBlsVerifier``.
 
 The counterpart of ``lodestar_tpu/native/fastbls.py``, over the copies of
 ``fastbls.c`` and ``fastbls_consts.h`` beside this file.  At first use the
@@ -22,7 +23,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(_HERE))
@@ -84,6 +85,15 @@ def load() -> ctypes.CDLL:
             lib.fb_final_exp_is_one.argtypes = [ctypes.c_char_p]
             lib.fb_final_exp.restype = ctypes.c_int
             lib.fb_final_exp.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+            lib.fb_batch_verify.restype = ctypes.c_int
+            lib.fb_batch_verify.argtypes = [
+                ctypes.c_size_t,
+                ctypes.c_char_p,
+                ctypes.POINTER(ctypes.c_uint32),
+                ctypes.c_char_p,
+                ctypes.c_char_p,
+                ctypes.POINTER(ctypes.c_uint64),
+            ]
             if lib.fb_selftest() != 1:
                 raise RuntimeError("fastbls: fb_selftest failed; the library is not used")
         except (OSError, RuntimeError) as e:
@@ -116,3 +126,25 @@ def final_exp(blob: bytes) -> bytes:
     if load().fb_final_exp(out, blob) < 0:
         raise ValueError("fastbls: an Fq12 component is not below p")
     return out.raw
+
+
+def batch_verify(sets: Sequence[Tuple[List[bytes], bytes, bytes]],
+                 coeffs: Sequence[int]) -> bool:
+    """Random-linear-combination batch verification in C
+    (``fb_batch_verify``), as the JAX binding's ``batch_verify``.  ``sets``:
+    (compressed public keys, 32-byte signing root, 96-byte compressed
+    signature); ``coeffs``: odd 64-bit coefficients, one per set.  False on
+    malformed inputs or a failed verification; the library's build or
+    self-test failure raises."""
+    lib = load()
+    n = len(sets)
+    if n == 0:
+        return False
+    pk_blob = b"".join(pk for pks, _, _ in sets for pk in pks)
+    counts = (ctypes.c_uint32 * n)(*[len(pks) for pks, _, _ in sets])
+    msgs = b"".join(m for _, m, _ in sets)
+    sigs = b"".join(sig for _, _, sig in sets)
+    if len(msgs) != 32 * n or len(sigs) != 96 * n:
+        return False
+    c_arr = (ctypes.c_uint64 * n)(*[c & 0xFFFFFFFFFFFFFFFF for c in coeffs])
+    return lib.fb_batch_verify(n, pk_blob, counts, msgs, sigs, c_arr) == 1

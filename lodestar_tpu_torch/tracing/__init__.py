@@ -4,9 +4,13 @@
 The module-level singleton ``TRACER`` is what the instrumented code
 records into; it is disabled by default, and every hot-path site gates on
 the constant-time ``TRACER.enabled`` check.  ``enable()`` / ``disable()``
-flip it process-wide.  The port's verifier records ``bls.dispatch`` (one
-enqueue, on a card or the mesh) and ``bls.requeue`` (a failed batch sent
-to another executor, with ``from_device`` / ``to_device``).
+flip it process-wide.  The port's verifier records ``bls.pack`` (the
+host pack), ``bls.dispatch`` (one enqueue, on a card or the mesh),
+``bls.final_exp`` (the sync, the read and the host final exponentiation;
+on the full-device path the sync and the read, ``on_device=True``),
+``bls.requeue`` (a failed batch sent to another executor, with
+``from_device`` / ``to_device``) and the ``bls.warmup_done`` instant; the
+batch pool records ``bls.queue_wait``, ``bls.shed`` and ``pool.batch``.
 
 Correlation: a caller parks a merged batch's id in a
 ``contextvars.ContextVar`` (``set_batch``) before handing work to a

@@ -36,6 +36,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import enum
+import time
 from typing import Any, Callable, Deque, Dict, Generic, List, Optional, Tuple, TypeVar
 
 from .errors import LodestarError
@@ -54,8 +55,8 @@ class QueueError(LodestarError):
         super().__init__({"code": code.value})
 
 
-#: internal entry shape: (item, future, deadline)
-_Entry = Tuple[Any, "asyncio.Future", Optional[float]]
+#: internal entry shape: (item, future, t_enqueue, deadline)
+_Entry = Tuple[Any, "asyncio.Future", float, Optional[float]]
 
 
 class JobItemQueue(Generic[T, R]):
@@ -73,6 +74,11 @@ class JobItemQueue(Generic[T, R]):
 
     def __len__(self) -> int:
         return self._len
+
+    def lane_lengths(self) -> Dict[int, int]:
+        """Pending job count per non-empty lane (the pool's lane gauges;
+        O(lanes), not O(jobs))."""
+        return {lane: len(dq) for lane, dq in self._lanes.items() if dq}
 
     # -- internal lane bookkeeping -------------------------------------------
 
@@ -140,15 +146,17 @@ class JobItemQueue(Generic[T, R]):
             if not self._evict_one(priority):
                 raise QueueError(QueueErrorCode.QUEUE_MAX_LENGTH)
         fut: "asyncio.Future[R]" = asyncio.get_running_loop().create_future()
-        self._append(priority, (item, fut, deadline))
+        self._append(priority, (item, fut, time.monotonic(), deadline))
         return await fut
 
     # -- consumer API ---------------------------------------------------------
 
     def drain_batch(self, max_items: int, max_size: int) -> List[Tuple]:
         """Pull up to ``max_items`` pending jobs in lane order, as
-        (item, future, priority, deadline) records; the caller resolves
-        the futures.  ``max_size`` caps the
+        (item, future, t_enqueue, priority, deadline) records (t_enqueue:
+        the push's ``time.monotonic()``, from which the pool derives each
+        job's queue wait); the caller resolves the futures.  ``max_size``
+        caps the
         drain at an accumulated item size: it stops before the job that
         would cross it (always taking at least one), so that merged batches
         stay dispatch-sized under a backlog."""
@@ -161,11 +169,11 @@ class JobItemQueue(Generic[T, R]):
                 break
             entry = dq.popleft()
             self._account_removed(entry)
-            item, fut, deadline = entry
+            item, fut, t_enq, deadline = entry
             if fut.done():  # the pusher was cancelled: nothing to resolve,
                 continue    # and a corpse must not eat max_size budget
             size += self._size_fn(item)
-            out.append((item, fut, lane, deadline))
+            out.append((item, fut, t_enq, lane, deadline))
         return out
 
     def abort(self) -> None:

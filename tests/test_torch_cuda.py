@@ -22,7 +22,8 @@ graphs: a replay gives the eager program's outputs bitwise and its launch
 counts, for both programs and both modes, and so does the sharded tier's
 per-bucket program over 2 logical shards; two batches in flight read
 their own verdicts; a dispatch after ``warmup`` calls no kernel wrapper;
-a failed capture raises, and nothing runs in its place.
+a failed capture raises, and nothing runs in its place.  One profile
+window over one pool flush names the ten fused kernels.
 ``tests/kernel_build_variants.py`` holds builds of the same sources that
 the port does not run to the same check."""
 
@@ -336,6 +337,48 @@ def test_one_pool_flush_on_the_card(card):
 
     results, pool = asyncio.run(main())
     assert results == [True, True, False] and pool.batch_retries == 1
+
+
+def test_one_profile_window_over_one_pool_flush_on_the_card(card, tmp_path):
+    """One profile window (observatory/xprof.py: torch.profiler on its own
+    thread) over one pool flush of the split fused program at bucket 4:
+    the window finishes without an error, and its merged trace names the
+    ten fused kernels among its device events."""
+    from lodestar_tpu_torch import tracing
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.crypto.bls import PublicKey, SingleSignatureSet, interop_secret_key
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.observatory import xprof
+
+    sets = []
+    for i in range(3):
+        sk = interop_secret_key(i)
+        msg = b"card window %d" % i
+        sets.append(SingleSignatureSet(PublicKey.from_bytes(sk.to_public_key().to_bytes()), msg,
+                                       sk.sign(msg).to_bytes()))
+    v = TorchBlsVerifier(device=card, buckets=(4,))
+    v.warmup()
+    tracing.enable(4096)
+    cap = xprof.ProfileCapture(str(tmp_path))
+    xprof.CAPTURE = cap
+    try:
+        async def main():
+            cap.request_window(flushes=1)
+            pool = BlsBatchPool(v, max_buffer_wait=0.01)
+            out = await asyncio.gather(*[pool.verify_signature_sets([s]) for s in sets])
+            pool.close()
+            return out
+
+        assert asyncio.run(main()) == [True] * 3
+        assert cap.wait_idle(60.0) and cap.snapshot()["last_error"] is None
+        doc = cap.last_window()["trace"]
+    finally:
+        xprof.CAPTURE = None
+        tracing.disable()
+        tracing.TRACER.clear()
+    device = {e["name"].split("(")[0] for e in doc["traceEvents"]
+              if e.get("pid", 0) >= xprof.DEVICE_PID_BASE and e.get("ph") == "X"}
+    assert {f"{name}_k" for name in chip_smoke.FUSED} <= device
 
 
 # -- the verifier's per-bucket graphs -------------------------------------------

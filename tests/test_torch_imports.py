@@ -44,7 +44,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "forensics/watchdog", "forensics/bundle", "forensics/recorder",
                    "chaos/__init__", "chaos/plan", "metrics/__init__", "metrics/registry",
                    "aot/__init__", "aot/store", "observatory/__init__",
-                   "observatory/compile_ledger", "crypto/bls/bucket_program"):
+                   "observatory/compile_ledger", "crypto/bls/bucket_program",
+                   "observatory/attribution", "observatory/device_sampler",
+                   "observatory/xprof", "crypto/bls/native_verifier", "cli"):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -78,6 +80,11 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.metrics\n"
         "import lodestar_tpu_torch.aot\n"
         "import lodestar_tpu_torch.observatory\n"
+        "import lodestar_tpu_torch.observatory.xprof\n"
+        "import lodestar_tpu_torch.observatory.device_sampler\n"
+        "import lodestar_tpu_torch.observatory.attribution\n"
+        "import lodestar_tpu_torch.crypto.bls.native_verifier\n"
+        "import lodestar_tpu_torch.cli\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
