@@ -236,6 +236,24 @@ histograms of phases 3, 6 and 11 are read from that record.
     kernel lies from the window's start, the clock map's error at it),
     the sampler's and the capture's overhead ratios, and the 128-set
     batch's wall inside the window beside the same batch's outside it.
+16. analysis: ``lodestar_tpu_torch.analysis.run_all(device="cuda")``, every
+    layer of the port's static analysis (``python -m
+    lodestar_tpu_torch.analysis --device cuda``): the AST lint and metrics
+    coverage, the test-cost census, the lock audit, the bound proofs over
+    the plain versions and the kernel headers' obligations (the g++ audit
+    build), the device programs' traces at bucket 128 on the card (host
+    syncs, wide dtypes, the sharded pieces, no matrix product), the ring's
+    hop plan, the host walks of every cooperative body, the sixteen
+    kernels' launch resources (``cudaFuncGetAttributes`` against the
+    launch configuration: no spill, the block's threads, shared memory
+    within the card's opt-in limit) and ``compute-sanitizer``'s
+    racecheck, synccheck and memcheck over a child that launches each
+    kernel once at 37 rows (its version logged; a toolkit without it, or
+    one that refuses the device, is logged as such and the child runs
+    alone).  Zero violations, or the run fails.  The known violations,
+    the ladder kernels' spill held at its measured bytes, are logged as
+    open, apart from the count.  Logged per kernel: registers, local and
+    shared bytes, and each tool's result.
 
 Signatures are made by a pool of host processes (the bigint oracle is
 pure Python); the pool is closed before the end.
@@ -249,12 +267,13 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --fused-only
     python3 chip_smoke.py --store-only
     python3 chip_smoke.py --observatory-only
+    python3 chip_smoke.py --analysis-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
 cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
-another's), phases 1 and 14, or phases 1 and 15 (signing its 256 sets
-itself), and end with the card line and ``{"ok": true, ...}`` without the
+another's), phases 1 and 14, phases 1 and 15 (signing its 256 sets
+itself), or phases 1 and 16, and end with the card line and ``{"ok": true, ...}`` without the
 ``kernels`` object.
 """
 
@@ -272,6 +291,10 @@ import time
 
 import numpy as np
 import torch
+
+# the cooperative kernels, and their seeded inputs within their contracts
+# and at the digit bounds
+from lodestar_tpu_torch.analysis.kernel_audit import COOP, LOOSE_TOP, edge_inputs, kernel_inputs
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -400,14 +423,11 @@ SHAPES = {
     # 5 values x 512 rows x 2 components, 128 of its 138 launches (last)
     "canon": (4 * BUCKET, 10 * BUCKET, 40 * BUCKET),
 }
-# the cooperative kernels, every row kernel (one warp per Fq step; one row
-# a block, or several for fq2mul, pow16mul, mul, fq2sqr, fold, canon,
+# the cooperative kernels (COOP), every row kernel (one warp per Fq step;
+# one row a block, or several for fq2mul, pow16mul, mul, fq2sqr, fold, canon,
 # tower_fq2_mul, tower_fq2_sqr and library_fq2_mul): also held at these row
 # counts (a single row; a partial last block for every rows-a-block count;
 # one past the ladder's 512) and on inputs at the digit bounds, untimed
-COOP = ("lad1", "lad2", "lad3", "fq2pow16mul", "fq2mul", "pow16mul", "mul", "fq2sqr", "fold",
-        "canon", "tower_fq2_mul", "tower_fq2_sqr", "tower_fq6_mul", "tower_fq12_mul",
-        "library_fq2_mul")
 COOP_CHECK_ROWS = (1, 37, 513)
 # the kernels whose launches' row counts phases 3 and 11 log as a histogram
 ROW_HISTOGRAM = ("fq2mul", "pow16mul", "mul", "fq2sqr", "fold", "canon")
@@ -483,43 +503,7 @@ def issue_ms(fn, reps: int = 20) -> float:
 # -- phase 2: every kernel against its plain version -------------------------
 
 
-def kernel_inputs(kernel, rows: int, rng: np.random.Generator, dev):
-    """Seeded inputs: loose digits up to 2^22 - 1 where the kernel folds on
-    entry, semi-strict digits (<= 256) where it takes kernel outputs.  Row
-    0 is random; rows 1-4, as many as there are, are zero, p, 2p and every
-    digit at the bound."""
-    from lodestar_tpu_torch.crypto.bls.fields import P
-    from lodestar_tpu_torch.ops import limbs as fl
-
-    shape = (rows,) + kernel.tail
-    out = []
-    for i in range(kernel.n_in):
-        top = (1 << 22) - 1 if i < kernel.loose_in else 256
-        a = rng.integers(0, top + 1, size=shape).astype(np.float32)
-        flat = a.reshape(rows, -1, 50)
-        for r, edge in enumerate((0, fl.int_to_limbs(P), fl.int_to_limbs(2 * P), top)[: rows - 1]):
-            flat[r + 1] = edge
-        out.append(torch.from_numpy(a).to(dev))
-    return out
-
-
-def edge_inputs(kernel, rows: int, rng: np.random.Generator, dev):
-    """Seeded inputs at the digit bounds: every digit of row 0 at its
-    input's bound (2^22 - 1 loose, 256 semi-strict), and in the other rows
-    each digit at the bound or random, with even odds."""
-    shape = (rows,) + kernel.tail
-    out = []
-    for i in range(kernel.n_in):
-        top = (1 << 22) - 1 if i < kernel.loose_in else 256
-        a = rng.integers(0, top + 1, size=shape)
-        a = np.where(rng.random(shape) < 0.5, top, a).astype(np.float32)
-        a[0] = top
-        out.append(torch.from_numpy(a).to(dev))
-    return out
-
-
 # canon's inputs at the edges of its branches (canon_edge_rows)
-LOOSE_TOP = (1 << 22) - 1
 CANON_EDGES = ("loose-max", "zero", "p-1", "p", "p+1", "2p-1", "2p", "3p-1", "carry-chain")
 
 
@@ -2230,7 +2214,8 @@ def main(argv) -> int:
         return 2
     mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split",
             ("--fused-only",): "fused", ("--store-only",): "store",
-            ("--observatory-only",): "observatory"}.get(tuple(argv))
+            ("--observatory-only",): "observatory",
+            ("--analysis-only",): "analysis"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2250,6 +2235,14 @@ def main(argv) -> int:
         log(f"build: nvcc sm_90a library {_build.library_path()} in "
             f"{time.perf_counter() - t0:.1f} s ({build['kind']})")
 
+    if mode == "analysis":
+        run_analysis(card)
+        log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
+        print(card)
+        print(json.dumps({"ok": True, "phases": "1, 16",
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
+        return 0
     keys = make_keys(SHARDED_BUCKET)
     procs = min(8, os.cpu_count() or 1)
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
@@ -2311,6 +2304,7 @@ def main(argv) -> int:
         if mode == "all":
             run_store(dev, card, sets, build)
             run_observatory(dev, card, pool, keys, sets256)
+    audit = run_analysis(card) if mode == "all" else None
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
@@ -2355,6 +2349,7 @@ def main(argv) -> int:
             "issue_ms": r["issue_ms"],
             "by_rows": r["by_rows"],
             "launches_by_path": by_path(name),
+            **audit["kernels"][name],
         })
     hop = ring[2]
     line.append({
@@ -2375,6 +2370,7 @@ def main(argv) -> int:
         "chunk_bytes": 4 * int(np.prod(RING_SHAPES[0])),
         "gather_ms": {str(k): v["gather_ms"] for k, v in ring.items()},
         "launches_by_path": by_path("ring_hop"),
+        **audit["kernels"]["ring_hop"],
     })
     print(json.dumps({"kernels": line}))
     print(card)
@@ -2382,6 +2378,58 @@ def main(argv) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+# -- phase 16: the analysis layer on the card ---------------------------------------
+
+
+def run_analysis(card: str) -> dict:
+    """Phase 16: every analysis layer with the card's halves; fails on a
+    violation.  Returns {"kernels": {name: the audit's columns of the
+    kernels line}, "report": run_all's report}."""
+    from lodestar_tpu_torch.analysis import format_report, run_all
+
+    with Phase("16 analysis"):
+        report: dict = {}
+        violations = run_all(device="cuda", report=report, log=log)
+        san = report["sanitizer"]
+        if not san["carried"]:
+            verdict = "not carried by the toolkit"
+            log("analysis: compute-sanitizer: the card's CUDA toolkit does not carry it; "
+                "racecheck, synccheck and memcheck not run")
+        elif not san["supported"]:
+            verdict = "refuses the device"
+            log(f"analysis: {san['path']} ({san['version']}): {san.get('message')}; "
+                f"racecheck, synccheck and memcheck not run; the child alone: "
+                f"{san.get('child')}")
+        else:
+            verdict = ", ".join(f"{t} {r['status']}" for t, r in san["tools"].items())
+            log(f"analysis: {san['path']} ({san['version']}): {verdict} over the sixteen "
+                f"kernels at 37 rows")
+        kernels = {}
+        for r in report["resources"]:
+            shared = r["static_shared_bytes"] + r["dynamic_shared_bytes"]
+            log(f"analysis: {r['name']}: {r['registers']} registers, {r['local_bytes']} local "
+                f"bytes, {r['static_shared_bytes']} + {r['dynamic_shared_bytes']} = {shared} "
+                f"shared bytes (opt-in limit {r['optin']}), a block of {r['threads']} threads "
+                f"(at most {r['max_threads']}) [{card}]")
+            name = r["name"].split("[")[0]
+            cols = {"registers": r["registers"], "local_bytes": r["local_bytes"],
+                    "shared_bytes": shared, "sanitizer": verdict}
+            if name == "ring_hop":  # three instances: the most of each
+                prev = kernels.get(name)
+                if prev is not None:
+                    cols.update({k: max(prev[k], cols[k]) for k in
+                                 ("registers", "local_bytes", "shared_bytes")})
+            kernels[name] = cols
+        for v in report["known"]:
+            log(f"analysis: known violation (open, not clean): {v} [{card}]")
+        log(f"analysis: layers {json.dumps(report['seconds'])} s; "
+            f"{len(violations)} violation(s), {len(report['known'])} known violation(s)")
+        if violations:
+            raise RuntimeError("phase 16: the analysis found violations:\n"
+                               + format_report(violations))
+    return {"kernels": kernels, "report": report}
+
 
 # -- phase 14: the durable store of built kernel libraries ------------------------
 

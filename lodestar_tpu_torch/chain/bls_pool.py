@@ -143,7 +143,7 @@ class BlsBatchPool:
             try:
                 self._accepts_deadline = "deadline" in inspect.signature(
                     verifier.verify_signature_sets_async).parameters
-            except (TypeError, ValueError):  # no signature to read
+            except (TypeError, ValueError):  # no signature to read  # lint: disable=bls-silent-except
                 self._accepts_deadline = False
 
     # -- public API (chain.bls.verifySignatureSets analog) -------------------

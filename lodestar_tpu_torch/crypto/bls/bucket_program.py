@@ -87,7 +87,7 @@ def _capture(device, stream, pool, fn: Callable, *args):
         except BaseException:
             try:
                 graph.capture_end()
-            except RuntimeError:  # the capture's own error is raised below
+            except RuntimeError:  # the capture's own error is raised below  # lint: disable=bls-silent-except
                 pass
             raise
         t1 = time.perf_counter()

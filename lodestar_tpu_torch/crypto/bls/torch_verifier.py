@@ -230,7 +230,7 @@ class PendingVerdict:
             for part in self._parts:
                 try:
                     results.append(part.result())
-                except Exception as e:  # noqa: BLE001 - re-raised below
+                except Exception as e:  # noqa: BLE001 - re-raised below  # lint: disable=bls-silent-except
                     error = error or e
             if error is not None:
                 raise error
@@ -595,7 +595,7 @@ class TorchBlsVerifier:
                 for part in parts:
                     try:
                         part.result()
-                    except Exception:  # noqa: BLE001 - the enqueue failure is raised
+                    except Exception:  # noqa: BLE001 - the enqueue failure is raised  # lint: disable=bls-silent-except
                         pass
                 raise
             return PendingVerdict(parts=parts, deadline=deadline)
@@ -1275,7 +1275,7 @@ class TorchBlsVerifier:
             else:
                 try:
                     sig_pt = g2_from_bytes(raw, subgroup_check=False)
-                except ValueError:
+                except ValueError:  # pack() counts the rejected batch  # lint: disable=bls-silent-except
                     return None
                 if sig_pt.is_infinity():
                     return None

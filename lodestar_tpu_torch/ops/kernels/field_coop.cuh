@@ -206,11 +206,113 @@ constexpr int SCR = SB + 2 * NL;
 // digits after them, the digit pairs' carry flags (16-byte aligned)
 constexpr int RA = X0, RB = X1, RV = Y0, RF = Y1;
 
+// -- the 2^24 obligations --------------------------------------------------------
+
+// The any-order argument above needs every sum a step forms below 2^24 and
+// every fold input within the bound its carry passes are counted for.
+// Each such place is a named obligation (lcb::Id): a static_assert below
+// where its bound is a constant expression of the digit contracts, and a
+// check of the host audit build (-DLC_BOUND_AUDIT, g++ only, never nvcc),
+// which records the least and largest value each obligation reaches
+// (LC_BOUND) while the bodies run on inputs at the contracts' extremes and
+// on seeded ones; lodestar_tpu_torch/analysis/limb_interval.py holds them
+// below 2^24, each fold input within 0..2^BITS - 1, and each at or below
+// the interval proven for the same step of the plain version.
+namespace lcb {
+
+enum Id {
+  FOLD_IN_10,    // a fold<10> input digit: add, add_twice, scale by 2 or 3
+  FOLD_IN_12,    // a fold<12> input digit: scale by 8
+  FOLD_IN_13,    // a fold<13> input digit: sub, sub_sum (the bias-2^12 pad)
+  FOLD_IN_22,    // a fold<22> input digit: a loose kernel input
+  FOLD_IN_24,    // a fold<24> input digit: the limbs strict sum and fp_sub
+  CARRY_PASS,    // a digit after a carry pass
+  REDUCE_SUM,    // a fold column: digit j plus sum_r h_r RED[r][j]
+  MUL_OPERAND,   // a product operand digit: a or the sum a + a2
+  MUL_COLUMN,    // an anti-diagonal column sum of the 50 x 50 product
+  CANON_BARRETT, // a column of x[47..50] mu with its carry in
+  CANON_QP,      // a column of q p
+  CANON_RIPPLE,  // an exact ripple's input digit (x - q p, r - 2p, r' - p)
+  COUNT
+};
+
+constexpr const char* NAMES[COUNT] = {
+    "fold.input<10>", "fold.input<12>", "fold.input<13>", "fold.input<22>", "fold.input<24>",
+    "carry.pass",     "reduce.sum",     "mul.operand",    "mul.column",     "canon.barrett",
+    "canon.qp",       "canon.ripple"};
+
+constexpr long long EXACT = 1LL << 24;  // int32 sums in any order, float32 digits exactly
+constexpr long long SEMI = 256;         // a semi-strict digit
+constexpr long long LOOSE = (1LL << 22) - 1;  // a loose kernel input digit
+constexpr long long PAD_HI = (1LL << 12) + 255;  // a subtraction pad's digit (K_PAD, K_PAD51)
+constexpr long long PAD_LO = 1LL << 12;
+
+// the fold input bound of fold<BITS>: the carry pass count's contract
+template <int BITS>
+constexpr Id fold_input() {
+  static_assert(BITS == 10 || BITS == 12 || BITS == 13 || BITS == 22 || BITS == 24,
+                "a fold bound without an obligation");
+  return BITS == 10 ? FOLD_IN_10 : BITS == 12 ? FOLD_IN_12 : BITS == 13 ? FOLD_IN_13
+       : BITS == 22 ? FOLD_IN_22 : FOLD_IN_24;
+}
+
+// The constant obligations (the runtime ones are held by the audit build):
+// fold inputs of the Lin helpers at the bounds their callers fold them at
+static_assert(2 * SEMI <= (1LL << 10) - 1, "fold.input<10>: add of two semi-strict digits");
+static_assert(3 * SEMI <= (1LL << 10) - 1, "fold.input<10>: add_twice, scale by 3");
+static_assert(8 * SEMI <= (1LL << 12) - 1, "fold.input<12>: scale by 8");
+static_assert(SEMI + PAD_HI <= (1LL << 13) - 1 && PAD_LO - 2 * SEMI >= 0,
+              "fold.input<13>: a + (pad - b) and a + (pad - (b + c)), never negative");
+static_assert(LOOSE <= (1LL << 22) - 1, "fold.input<22>: a loose input");
+static_assert(SEMI + PAD_HI <= (1LL << 24) - 1, "fold.input<24>: the limbs sum and fp_sub");
+// a carry pass keeps a digit's low byte and adds its neighbour's high part
+static_assert(255 + ((1LL << 24) - 1) / 256 < EXACT, "carry.pass");
+// the fold columns: at most 54 RED rows of digits <= 255 times digits <= 256
+static_assert(54 * SEMI * 255 + SEMI < EXACT, "reduce.sum");
+// the products: operands are semi-strict digits or sums of two
+static_assert(2 * SEMI < EXACT, "mul.operand");
+static_assert(NL * (2 * SEMI) * (2 * SEMI) < EXACT, "mul.column");
+// canon: the Barrett columns (4 products of strict digits and a carry),
+// the q p columns (3 products), the ripples' differences
+static_assert(4 * 255 * 255 + (4 * 255 * 255) / 256 < (1LL << 18), "canon.barrett");
+static_assert(3 * 255 * 255 < (1LL << 18), "canon.qp");
+static_assert(3 * 255 * 255 <= (1LL << 18) - 1 && 255 + 255 + 1 <= (1LL << 9) - 1,
+              "canon.ripple: q p's columns at bound 18, the differences at bound 9");
+
+#ifdef LC_BOUND_AUDIT
+#ifdef __CUDACC__
+#error "LC_BOUND_AUDIT is the g++ host build's audit mode"
+#endif
+// the least and largest value each obligation reached since reset()
+inline long long lo[COUNT];
+inline long long hi[COUNT];
+inline void reset() {
+  for (int i = 0; i < COUNT; ++i) {
+    lo[i] = 1LL << 62;
+    hi[i] = -(1LL << 62);
+  }
+}
+inline void note(Id id, long long v) {
+  if (v < lo[id]) lo[id] = v;
+  if (v > hi[id]) hi[id] = v;
+}
+#define LC_BOUND(ID, V) ::lfc::lcb::note(::lfc::lcb::ID, (long long)(V))
+#define LC_BOUND_FOLD(BITS, V) ::lfc::lcb::note(::lfc::lcb::fold_input<BITS>(), (long long)(V))
+#else
+#define LC_BOUND(ID, V) ((void)0)
+#define LC_BOUND_FOLD(BITS, V) ((void)0)
+#endif
+
+}  // namespace lcb
+
 // -- one warp's steps ---------------------------------------------------------
 
 // One carry pass src -> dst over w digits; the top carry is dropped.
 LC_HD void carry(const int* src, int* dst, int w) {
-  LC_LANE_FOR(i, w) dst[i] = i == 0 ? (src[0] & 255) : (src[i] & 255) + (src[i - 1] >> 8);
+  LC_LANE_FOR(i, w) {
+    dst[i] = i == 0 ? (src[0] & 255) : (src[i] & 255) + (src[i - 1] >> 8);
+    LC_BOUND(CARRY_PASS, dst[i]);
+  }
   LC_SYNC_WARP();
 }
 
@@ -235,15 +337,22 @@ LC_HD void reduce(const int* x, int* out, int* S, const int* K) {
       y += h * red[l];
       if (j2 < NL) y2 += h * red[j2];
     }
+    LC_BOUND(REDUCE_SUM, y);
     y0[l] = y;
-    if (j2 < NL + 2) y0[j2] = y2;
+    if (j2 < NL + 2) {
+      LC_BOUND(REDUCE_SUM, y2);
+      y0[j2] = y2;
+    }
   }
   LC_SYNC_WARP();
   for (int p = 0; p + 1 < PASSES_OUT; p += 2) {
     carry(y0, y1, NL + 2);
     carry(y1, y0, NL + 2);
   }
-  LC_LANE_FOR(j, NL) out[j] = j == 0 ? (y0[0] & 255) : (y0[j] & 255) + (y0[j - 1] >> 8);
+  LC_LANE_FOR(j, NL) {
+    out[j] = j == 0 ? (y0[0] & 255) : (y0[j] & 255) + (y0[j - 1] >> 8);
+    LC_BOUND(CARRY_PASS, out[j]);
+  }
   LC_SYNC_WARP();
 }
 
@@ -284,7 +393,9 @@ LC_STEP void fold(Lin in, int* out, int* S, const int* K) {
   int* b = S + X1;
   LC_LANE_FOR(i, W2) {
     const int v = in.digit<W>(i, K);
+    LC_BOUND_FOLD(BITS, v);
     a[i] = i == 0 ? (v & 255) : (v & 255) + (in.digit<W>(i - 1, K) >> 8);
+    LC_BOUND(CARRY_PASS, a[i]);
   }
   LC_SYNC_WARP();
   for (int p = 1; p < PASSES; ++p) {
@@ -309,6 +420,8 @@ LC_STEP void mul(const int* a, const int* a2, const int* b, const int* b2, int* 
   LC_LANE_FOR(j, NL) {
     if (a2) S[SA + j] = a[j] + a2[j];
     const int bj = b2 ? b[j] + b2[j] : b[j];
+    LC_BOUND(MUL_OPERAND, a2 ? S[SA + j] : a[j]);
+    LC_BOUND(MUL_OPERAND, bj);
     S[SB + j] = bj;
     S[SB + NL + j] = bj;
   }
@@ -336,6 +449,12 @@ LC_STEP void mul(const int* a, const int* a2, const int* b, const int* b2, int* 
         else
           hi2 += t2;
       }
+    }
+    LC_BOUND(MUL_COLUMN, lo);
+    LC_BOUND(MUL_COLUMN, hi);
+    if (k2 < NL) {
+      LC_BOUND(MUL_COLUMN, lo2);
+      LC_BOUND(MUL_COLUMN, hi2);
     }
     x[l] = lo;
     x[NL + l] = hi;
@@ -1063,7 +1182,11 @@ struct Buf {
 // dropped.
 template <int W, class In>
 LC_HD void carry_from(In in, int* dst) {
-  LC_LANE_FOR(i, W) dst[i] = (in(i) & 255) + (i == 0 ? 0 : in(i - 1) >> 8);
+  LC_LANE_FOR(i, W) {
+    LC_BOUND(CANON_RIPPLE, in(i));
+    dst[i] = (in(i) & 255) + (i == 0 ? 0 : in(i - 1) >> 8);
+    LC_BOUND(CARRY_PASS, dst[i]);
+  }
   LC_SYNC_WARP();
 }
 
@@ -1113,11 +1236,19 @@ LC_HD void carry_bits(In in, int* dst, int* S) {
     if (l < NP) {
       if (LAST) {
         const int xa = in(a);
+        LC_BOUND(CANON_RIPPLE, xa);
         va = (xa & 255) + (a == 0 ? 0 : in(a - 1) >> 8);
-        if (b < W) vb = (in(b) & 255) + (xa >> 8);
+        if (b < W) {
+          LC_BOUND(CANON_RIPPLE, in(b));
+          vb = (in(b) & 255) + (xa >> 8);
+        }
       } else {
         va = in(a);
-        if (b < W) vb = in(b);
+        LC_BOUND(CANON_RIPPLE, va);
+        if (b < W) {
+          vb = in(b);
+          LC_BOUND(CANON_RIPPLE, vb);
+        }
       }
       v[a] = va;
       v[b] = vb;
@@ -1226,6 +1357,7 @@ LC_HD void canon_row(const float* in, float* out, int row, const int* K, const i
     int z = carry;
     for (int i = 0; i < 4; ++i)
       if (k - i >= 0 && k - i < 6) z += r.x[47 + i] * mu[k - i];
+    LC_BOUND(CANON_BARRETT, z);
     if (k == 6) q0 = z & 255;
     if (k == 7) q1 = z & 255;
     if (k == 8) q2 = z & 255;
@@ -1236,6 +1368,7 @@ LC_HD void canon_row(const float* in, float* out, int row, const int* K, const i
     if (k < 48) q += q0 * p48[k];
     if (k >= 1 && k - 1 < 48) q += q1 * p48[k - 1];
     if (k >= 2 && k - 2 < 48) q += q2 * p48[k - 2];
+    LC_BOUND(CANON_QP, q);
     r.qc[k] = q;
   }
   LC_SYNC_WARP();

@@ -7,7 +7,8 @@
 // one host copy of their shared-memory layout at the kernels' warp and row
 // counts, filled with -1 before each block so that a read of a value the
 // block did not write shows; the hop walks its grid's threads.  Built with
-// g++ by tests/test_torch_kernel_host.py; not part of the device path.
+// g++ by tests/test_torch_kernel_host.py (and, with -DLC_BOUND_AUDIT, by
+// the analysis layer's bound audit); not part of the device path.
 
 #include <algorithm>
 #include <memory>
@@ -54,6 +55,21 @@ LF_HOST_COOP(tower_fq2_sqr, TowerFq2SqrBlock)
 LF_HOST_COOP(tower_fq6_mul, TowerFq6MulBlock)
 LF_HOST_COOP(tower_fq12_mul, TowerFq12MulBlock)
 LF_HOST_COOP(library_fq2_mul, LibFq2MulBlock)
+
+#ifdef LC_BOUND_AUDIT
+// The audit build's record of the 2^24 obligations (field_coop.cuh's
+// lcb): reset it, run bodies, then read each obligation's name and the
+// least and largest value it reached (lo > hi: not reached).
+extern "C" int host_bound_count() { return lfc::lcb::COUNT; }
+extern "C" const char* host_bound_name(int i) { return lfc::lcb::NAMES[i]; }
+extern "C" void host_bound_reset() { lfc::lcb::reset(); }
+extern "C" void host_bound_read(long long* lo, long long* hi) {
+  for (int i = 0; i < lfc::lcb::COUNT; ++i) {
+    lo[i] = lfc::lcb::lo[i];
+    hi[i] = lfc::lcb::hi[i];
+  }
+}
+#endif
 
 // The ring hop: launch_ring_hop's plan for these pointers, every thread of
 // its grid in turn (backwards under -DLC_HOST_REVERSED), the same index

@@ -4,7 +4,8 @@
 //
 // Every launcher is extern "C" with a plain interface for ctypes: input
 // and output pointer arrays, the row count, the int32 constant table, the
-// stream.  It returns cudaGetLastError() of the launch.
+// stream.  It returns cudaGetLastError() of the launch.  attrs_NAME reads
+// the kernel's function attributes (lf_func_attrs).
 
 #pragma once
 
@@ -23,6 +24,22 @@ static Ptrs make_ptrs(void* const* ins, int nin, void* const* outs, int nout) {
   for (int i = 0; i < nin; ++i) p.in[i] = static_cast<const float*>(ins[i]);
   for (int i = 0; i < nout; ++i) p.out[i] = static_cast<float*>(outs[i]);
   return p;
+}
+
+// A kernel's cudaFuncGetAttributes into out: registers a thread, local
+// (spill) bytes a thread, static shared bytes, the most threads a block,
+// the most dynamic shared bytes (the analysis layer's launch-resource
+// audit holds them against the launch configuration).
+static int lf_func_attrs(const void* fn, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  return 0;
 }
 
 }  // namespace
@@ -56,4 +73,7 @@ static Ptrs make_ptrs(void* const* ins, int nin, void* const* outs, int nout) {
   }                                                                               \
   extern "C" int smem_bytes_##NAME() { return static_cast<int>(sizeof(NAME##_layout)); } \
   extern "C" int rows_per_block_##NAME() { return NAME##_layout::ROWS; }          \
-  extern "C" int threads_per_block_##NAME() { return NAME##_layout::THREADS; }
+  extern "C" int threads_per_block_##NAME() { return NAME##_layout::THREADS; }    \
+  extern "C" int attrs_##NAME(int* out) {                                         \
+    return lf_func_attrs(reinterpret_cast<const void*>(NAME##_k), out);           \
+  }

@@ -31,6 +31,7 @@
 
 #ifdef LF_KERNEL_ring_hop
 
+#include "launchers.cuh"
 #include "ring_hop.cuh"
 
 namespace {
@@ -62,6 +63,18 @@ extern "C" int launch_ring_hop(const void* src, void* dst, long long n, void* st
                                                                                p.items);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ring_hop_k's function attributes for the plan's three instances
+// (variant 0: one block, one item a thread; 1: 32-bit indices; 2: 64-bit),
+// as launchers.cuh's attrs_NAME (lf_func_attrs).
+extern "C" int attrs_ring_hop(int variant, int* out) {
+  const void* fn = variant == 0   ? reinterpret_cast<const void*>(ring_hop_k<int, 1>)
+                   : variant == 1 ? reinterpret_cast<const void*>(ring_hop_k<int, lr::ITEMS>)
+                                  : reinterpret_cast<const void*>(ring_hop_k<long long, lr::ITEMS>);
+  return lf_func_attrs(fn, out);
+}
+
+extern "C" int ring_hop_threads() { return lr::THREADS; }
 
 extern "C" int launch_empty(void* stream) {
   empty_k<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();

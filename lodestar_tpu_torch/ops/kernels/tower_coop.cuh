@@ -47,6 +47,15 @@
 
 namespace lfc {
 
+// The 2^24 obligations of the tower bodies are field_coop.cuh's (lcb):
+// their steps are its t_mul and t_fold, on semi-strict inputs (the tower
+// kernels fold nothing on entry), with the fold inputs below.
+static_assert(2 * lcb::SEMI <= (1LL << 10) - 1, "fold.input<10>: k_fp_add, mul_by_xi's sum");
+static_assert(lcb::SEMI + lcb::PAD_HI <= (1LL << 13) - 1 && lcb::PAD_LO - lcb::SEMI >= 0,
+              "fold.input<13>: k_fp_sub, mul_by_xi's difference");
+static_assert(NL * lcb::SEMI * lcb::SEMI < lcb::EXACT,
+              "mul.column: every tower product's operands are folded first");
+
 constexpr int TOWER_FQ12_WARPS = LF_TOWER_FQ12_WARPS;
 constexpr int TOWER_FQ2_WARPS = LF_TOWER_FQ2_WARPS;
 constexpr int TOWER_FQ2_ROWS = LF_TOWER_FQ2_ROWS;

@@ -50,6 +50,16 @@ COUNTERS = ("dispatches", "sets_verified", "padding_wasted", "pack_rejected",
             "pack_cache_hits", "pack_cache_misses")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tests here run a verifier's programs' plain versions: one intra-op
+    thread, as the other program-running files pin it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def raw_sets():
     """10 interop-key sets as raw (public key, message, signature) bytes."""

@@ -23,7 +23,9 @@ counts, for both programs and both modes, and so does the sharded tier's
 per-bucket program over 2 logical shards; two batches in flight read
 their own verdicts; a dispatch after ``warmup`` calls no kernel wrapper;
 a failed capture raises, and nothing runs in its place.  One profile
-window over one pool flush names the ten fused kernels.
+window over one pool flush names the ten fused kernels.  The analysis
+layer's card halves: the kernels' launch resources, the child that
+launches all sixteen, the default program's graph audit on the card.
 ``tests/kernel_build_variants.py`` holds builds of the same sources that
 the port does not run to the same check."""
 
@@ -475,3 +477,24 @@ def test_a_failed_capture_raises_and_no_batch_runs_eagerly(card):
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                           text=True, timeout=300)
     assert proc.stdout.strip() == "raised [False, True] {} {'cuda:0': 0}", proc.stderr
+
+
+def test_launch_resources_and_the_launch_all_child_on_the_card(card):
+    """The kernel audit's card half: every kernel's attributes within its
+    launch configuration (the ladder kernels at their measured spill, no
+    more), and the child the sanitizer watches launches all sixteen."""
+    from lodestar_tpu_torch.analysis import kernel_audit
+
+    rows = kernel_audit.launch_resources()
+    assert len(rows) == 15 + 3
+    assert kernel_audit.check_resources(rows) == []
+    res = kernel_audit.launch_all(kernel_audit.PARTIAL_ROWS)
+    assert sorted(res) == sorted(list(fc.KERNELS) + ["ring_hop"])
+    assert all(r["max_abs_err"] == 0 for r in res.values())
+
+
+def test_the_graph_audit_of_the_default_program_on_the_card(card):
+    from lodestar_tpu_torch.analysis import graph_audit
+
+    assert graph_audit.audit_programs((128,), "cuda", ["fused_verify.miller_product_fused"],
+                                      twice=False) == []

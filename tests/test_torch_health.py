@@ -65,6 +65,18 @@ from tools.chaos_campaign import load_tool, stub_verifier
 BUCKET = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The real requeue runs a whole device program's plain versions: one
+    intra-op thread, as the other program-running files pin it (under
+    several test workers, a pool of spinning threads each multiplies the
+    test's wall)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _clean(tmp_path, monkeypatch):
     """Both packages' fault planes, tracers, in-flight tables and

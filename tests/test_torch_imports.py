@@ -95,6 +95,33 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+ANALYSIS = ("__init__", "__main__", "report", "ast_lint", "metrics_coverage", "lock_audit",
+            "limb_interval", "graph_audit", "kernel_audit", "test_cost")
+
+
+def test_analysis_modules_import_no_jax_and_nothing_of_the_jax_package():
+    """The port's analysis layer is its own copy of the JAX package's: no
+    module of lodestar_tpu_torch/analysis/ imports jax or lodestar_tpu, at
+    the top or inside a function, and each imports with both blocked."""
+    root = os.path.join(PORT, "analysis")
+    files = sorted(f[:-3] for f in os.listdir(root) if f.endswith(".py"))
+    assert files == sorted(ANALYSIS)
+    bad = [(name, mod) for name in ANALYSIS
+           for mod in _absolute_imports(os.path.join(root, f"{name}.py"))
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'lodestar_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            + "".join(f"import lodestar_tpu_torch.analysis.{n}\n" for n in ANALYSIS
+                      if n not in ("__init__", "__main__"))
+            + "from lodestar_tpu_torch.analysis import run_all\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from lodestar_tpu_torch import resolve_device
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier

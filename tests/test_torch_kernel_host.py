@@ -28,27 +28,30 @@ AddressSanitizer and UndefinedBehaviorSanitizer: the source reads no
 memory out of bounds and overflows no int."""
 
 import ctypes
-import hashlib
 import os
 import re
 import shutil
 import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from lodestar_tpu_torch.analysis import kernel_audit as ka
+from lodestar_tpu_torch.analysis.report import format_report
 from lodestar_tpu_torch.ops import fused_core as fc
 from lodestar_tpu_torch.ops import fused_ladder  # noqa: F401 - registers lad1..3
 from lodestar_tpu_torch.ops import library_fuse  # noqa: F401 - registers library_fq2_mul
 from lodestar_tpu_torch.ops import tower_kernels  # noqa: F401 - registers the tower kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KDIR = os.path.join(REPO, "lodestar_tpu_torch", "ops", "kernels")
+KDIR = ka.KDIR
 ROWS = 8
+COOP = ka.COOP  # the cooperative bodies of field_coop.cuh and tower_coop.cuh
+PARTIAL_ROWS = ka.PARTIAL_ROWS  # rows that leave a partial last block for every rows-a-block count
+run_host = ka.run_host
 
 
 def _gxx() -> str:
@@ -58,77 +61,19 @@ def _gxx() -> str:
     return gxx
 
 
-HOST_SOURCES = ("field.cuh", "field_coop.cuh", "tower_coop.cuh", "ring_hop.cuh", "host_shim.cpp")
-
-
 def _host_build(flags, mutation=None) -> str:
-    """host_shim.cpp built with g++ and flags into build/, keyed by the
-    sources, the flags and ``mutation``: (file, text, replacement), applied
-    to a copy of the sources in a temporary directory, for a mutant build."""
-    gxx = _gxx()
-    h = hashlib.sha256(" ".join(flags).encode() + repr(mutation).encode())
-    for name in HOST_SOURCES:
-        with open(os.path.join(KDIR, name), "rb") as f:
-            h.update(f.read())
-    out_dir = os.path.join(REPO, "build", "lodestar_tpu_torch_host")
-    os.makedirs(out_dir, exist_ok=True)
-    key = h.hexdigest()[:16]
-    lib = os.path.join(out_dir, f"host_shim_{key}.so")
-    if not os.path.exists(lib):
-        src_dir = KDIR
-        if mutation is not None:
-            src_dir = tempfile.mkdtemp(prefix="mutant_")
-            for name in HOST_SOURCES:
-                with open(os.path.join(KDIR, name), encoding="utf-8") as f:
-                    text = f.read()
-                if name == mutation[0]:
-                    assert text.count(mutation[1]) == 1, f"the mutation's text is not in {name} once"
-                    text = text.replace(mutation[1], mutation[2])
-                with open(os.path.join(src_dir, name), "w", encoding="utf-8") as f:
-                    f.write(text)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        subprocess.run(
-            [gxx, "-std=c++17", *flags, "-shared", "-fPIC", "-o", tmp,
-             os.path.join(src_dir, "host_shim.cpp")],
-            check=True, capture_output=True, timeout=300,
-        )
-        os.replace(tmp, lib)
-        if src_dir != KDIR:
-            shutil.rmtree(src_dir)
-    return lib
-
-
-COOP = chip_smoke.COOP  # the cooperative bodies of field_coop.cuh and tower_coop.cuh
-PARTIAL_ROWS = 37  # rows that leave a partial last block for every rows-a-block count
-
-
-def run_host(lib, name: str, ins) -> list:
-    """Kernel ``name``'s row body from the host library on the CPU rows
-    ``ins``; each output has one guard row past the last, which must stay
-    unwritten.  Returns the outputs' rows."""
-    k = fc.KERNELS[name]
-    rows = ins[0].shape[0]
-    outs = [torch.full((rows + 1,) + k.tail, -7.0) for _ in range(k.n_out)]
-    ins_arr = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in ins))  # null-terminated
-    outs_arr = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in outs))
-    fn = getattr(lib, f"host_{name}")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    assert fn(ins_arr, outs_arr, rows, fc._CONST_TABLE.ctypes.data) == 0
-    for got in outs:
-        assert bool((got[rows] == -7.0).all()), f"{name} wrote past its last row"
-    return [got[:rows] for got in outs]
+    """``kernel_audit.host_build`` (host_shim.cpp built with g++ into
+    build/; ``mutation``: (file, text, replacement) for a mutant build)."""
+    _gxx()
+    return ka.host_build(flags, mutation)
 
 
 def run_rows(lib, name: str, rows: int, seed: int, edge: bool = False) -> None:
     """Kernel ``name``'s row body from the host library against its plain
-    version on ``rows`` seeded rows (``edge``: rows at the digit bounds)."""
-    k = fc.KERNELS[name]
-    rng = np.random.default_rng(seed)
-    ins = (chip_smoke.edge_inputs if edge else chip_smoke.kernel_inputs)(k, rows, rng, "cpu")
-    for got, want in zip(run_host(lib, name, ins), k.plain(*ins)):
-        assert torch.equal(got, want), name
-        assert float(got.max()) <= 256
+    version on ``rows`` seeded rows (``edge``: rows at the digit bounds):
+    equal, and no digit above 256."""
+    off = ka.rows_off(lib, name, rows, seed, edge)
+    assert off == [], f"{name}: {off}"
 
 
 @pytest.fixture(scope="module")
@@ -146,18 +91,19 @@ def test_host_built_row_body_equals_plain_version_bitwise(name, host_lib):
     run_rows(host_lib, name, ROWS, 7)
 
 
-@pytest.mark.parametrize("order", ["forward", "reversed"])
-@pytest.mark.parametrize("rows", [ROWS, PARTIAL_ROWS])
+@pytest.mark.parametrize("order", list(ka.WALK_ORDERS))
+@pytest.mark.parametrize("rows", ka.WALK_ROWS)
 @pytest.mark.parametrize("name", COOP)
-def test_cooperative_ladder_bodies_equal_plain_versions_bitwise(name, rows, order, host_lib,
-                                                               host_lib_reversed):
+def test_cooperative_ladder_bodies_equal_plain_versions_bitwise(name, rows, order):
     """The cooperative bodies one step a warp, blocks, rows, lanes and
     warps walked forwards and backwards: a lane reading what another lane
     writes in the same step, or a warp what another warp (of its row or of
-    another row) writes in the same stage, would differ."""
-    lib = host_lib if order == "forward" else host_lib_reversed
-    run_rows(lib, name, rows, rows)
-    run_rows(lib, name, rows, rows + 1, edge=True)
+    another row) writes in the same stage, would differ.  These cases are
+    the host half of the kernel audit's ``cuda-smem-race`` rule
+    (``kernel_audit.audit_host_walks``, one walk a case)."""
+    _gxx()
+    vs = ka.audit_host_walks(kernels=(name,), rows=(rows,), orders=(order,))
+    assert vs == [], format_report(vs)
 
 
 @pytest.mark.parametrize("name", COOP)
@@ -318,8 +264,8 @@ def test_host_test_catches_a_broken_ripple(mutant):
     lib = ctypes.CDLL(_host_build(["-O2"], RIPPLE_MUTANTS[mutant]))
     k = fc.K_CANON
     rng = np.random.default_rng(5)
-    inputs = [chip_smoke.kernel_inputs(k, PARTIAL_ROWS, rng, "cpu")[0],
-              chip_smoke.edge_inputs(k, PARTIAL_ROWS, rng, "cpu")[0],
+    inputs = [ka.kernel_inputs(k, PARTIAL_ROWS, rng, "cpu")[0],
+              ka.edge_inputs(k, PARTIAL_ROWS, rng, "cpu")[0],
               *(chip_smoke.canon_edge_rows(case, 0) for case in CANON_EDGES)]
     differ = sum(int((run_host(lib, "canon", [x])[0] != k.plain(x)[0]).any(dim=1).sum())
                  for x in inputs)
@@ -379,7 +325,7 @@ def _mutant_rows_differ(mutation, name: str, rows: int) -> int:
     k = fc.KERNELS[name]
     rng = np.random.default_rng(9)
     differ = 0
-    for make in (chip_smoke.kernel_inputs, chip_smoke.edge_inputs):
+    for make in (ka.kernel_inputs, ka.edge_inputs):
         ins = make(k, rows, rng, "cpu")
         differ += sum(int((g != w).reshape(rows, -1).any(1).sum())
                       for g, w in zip(run_host(lib, name, ins), k.plain(*ins)))

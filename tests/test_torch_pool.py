@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
 from lodestar_tpu_torch.crypto.bls.api import interop_secret_key
@@ -27,6 +28,16 @@ from lodestar_tpu_torch.crypto.bls.verifier import (
     SingleSignatureSet,
     VerificationDroppedError,
 )
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tests here run a verifier's programs' plain versions: one intra-op
+    thread, as the other program-running files pin it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 _SETS = {}
 
