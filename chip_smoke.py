@@ -254,9 +254,28 @@ histograms of phases 3, 6 and 11 are read from that record.
     the ladder kernels' spill held at its measured bytes, are logged as
     open, apart from the count.  Logged per kernel: registers, local and
     shared bytes, and each tool's result.
+17. chain: the beacon chain through the card's verifier.  A split fused
+    ``TorchBlsVerifier`` on ``cuda:0`` at buckets 4, 16 and 128, its graphs
+    warmed first; ``DevChain`` (minimal preset, 128 interop validators,
+    Altair at epoch 1, Bellatrix at epoch 2, pre-merge) runs 50 slots
+    through the port's ``BlsBatchPool``: every block's signature sets one
+    job on the block-proposal lane, one batch.  It must reach Bellatrix
+    with justified epoch >= 4, finalized epoch >= 3 and >= 50 dispatches,
+    and give the head, head state root and checkpoints of the same 50
+    slots run meanwhile in a host process over ``FastBlsVerifier`` (and
+    its batches' set counts).  Range sync: slots 1-16 replayed on a fresh
+    chain by ``process_chain_segment`` are one batch, import 16 blocks and
+    reach the producer's block 16; with block 9's signature replaced by
+    block 10's, the replay imports 8 blocks and raises ``BlockError``.
+    Logged: blocks/s of the chain and of the segment, per block the state
+    transition, the pool wait and the verifier's stage seconds, the
+    buckets used, each bucket graph's launch record, and the ten fused
+    kernels' launches over the chain and over the two segment replays
+    (``launches_by_path``'s ``chain`` and ``segment``).
 
-Signatures are made by a pool of host processes (the bigint oracle is
-pure Python); the pool is closed before the end.
+Signatures are made by a pool of host processes (each signs in the
+port's C library, ``native/fastbls``), which also run the CPU references
+and phase 17's host chain; the pool is closed before the end.
 
 The last lines: the paths side by side, the whole run's wall, the
 ``kernels`` JSON object, the card's name and power limit, and
@@ -268,13 +287,14 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --store-only
     python3 chip_smoke.py --observatory-only
     python3 chip_smoke.py --analysis-only
+    python3 chip_smoke.py --chain-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
 cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), phases 1 and 14, phases 1 and 15 (signing its 256 sets
-itself), or phases 1 and 16, and end with the card line and ``{"ok": true, ...}`` without the
-``kernels`` object.
+itself), phases 1 and 16, or phases 1 and 17, and end with the card line
+and ``{"ok": true, ...}`` without the ``kernels`` object.
 """
 
 from __future__ import annotations
@@ -679,7 +699,7 @@ def _sign(job) -> bytes:
 
 def make_sets(pool, keys, tag: bytes):
     """One valid single-key signature set per key, over messages that
-    ``tag`` makes new; the signing (pure Python) spread over ``pool``."""
+    ``tag`` makes new; the signing spread over ``pool``."""
     from lodestar_tpu_torch.crypto.bls import SingleSignatureSet
 
     msgs = [b"chip smoke %s %d" % (tag, i) for i in range(len(keys))]
@@ -2215,7 +2235,7 @@ def main(argv) -> int:
     mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split",
             ("--fused-only",): "fused", ("--store-only",): "store",
             ("--observatory-only",): "observatory",
-            ("--analysis-only",): "analysis"}.get(tuple(argv))
+            ("--analysis-only",): "analysis", ("--chain-only",): "chain"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2255,7 +2275,9 @@ def main(argv) -> int:
             run_store(dev, card, make_sets(pool, keys[:STORE_BUCKET], b"store"), build)
         if mode == "observatory":
             run_observatory(dev, card, pool, keys)
-        if mode not in ("sharded", "store", "observatory"):
+        if mode == "chain":
+            run_chain(dev, card, pool)
+        if mode not in ("sharded", "store", "observatory", "chain"):
             with Phase("2 kernels"):
                 registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
@@ -2275,7 +2297,7 @@ def main(argv) -> int:
                 f"dispatch [{card}]")
         if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
-        if mode not in ("store", "observatory"):
+        if mode not in ("store", "observatory", "chain"):
             t0 = time.perf_counter()
             sets256 = make_sets(pool, keys, b"sharded slice")
             log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes "
@@ -2289,7 +2311,7 @@ def main(argv) -> int:
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
-        if mode not in ("sharded", "store", "observatory"):
+        if mode not in ("sharded", "store", "observatory", "chain"):
             split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
@@ -2304,13 +2326,14 @@ def main(argv) -> int:
         if mode == "all":
             run_store(dev, card, sets, build)
             run_observatory(dev, card, pool, keys, sets256)
+            chain = run_chain(dev, card, pool)
     audit = run_analysis(card) if mode == "all" else None
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
         phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
                   "fused": "1-5, 2b, 11, 12", "store": "1, 14",
-                  "observatory": "1, 15"}[mode]
+                  "observatory": "1, 15", "chain": "1, 17"}[mode]
         print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
@@ -2322,7 +2345,9 @@ def main(argv) -> int:
                 "sharded_xla": sharded_xla_launches[name],
                 "split": split["launches"][name], "split_xla": split["xla_launches"][name],
                 "split_sharded": split["sharded_launches"][name],
-                "pool": pooled["launches"][name]}
+                "pool": pooled["launches"][name],
+                "chain": chain["chain"]["launches"].get(name, 0),
+                "segment": chain["segment"]["launches"].get(name, 0)}
 
     # each kernel's launches from its own path: the fused kernels' phase 3,
     # the tower kernels' phase 6, the library kernel's registry run, the
@@ -2378,6 +2403,243 @@ def main(argv) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+# -- phase 17: the beacon chain on the card --------------------------------------------
+
+CHAIN_VALIDATORS = 128  # 4 committees x 4 members x 8 slots: every minimal committee full
+CHAIN_SLOTS = 6 * 8 + 2  # six epochs and two slots: Altair at epoch 1, Bellatrix at 2
+SEGMENT_SLOTS = 16  # the range-sync segment, slots 1-16 of the chain
+BAD_BLOCK = 8  # the segment's block whose signature phase 17 alters (slot 9)
+CHAIN_BUCKETS = (4, 16, 128)  # a block's job (2-7 sets), the segment's (~100)
+
+
+def chain_config():
+    """tests/test_fork_transition.py's schedule at CHAIN_VALIDATORS, pre-merge."""
+    from lodestar_tpu_torch.config.chain_config import ChainConfig
+
+    return ChainConfig(PRESET_BASE="minimal", SHARD_COMMITTEE_PERIOD=0, MIN_GENESIS_TIME=0,
+                       MIN_GENESIS_ACTIVE_VALIDATOR_COUNT=CHAIN_VALIDATORS,
+                       ALTAIR_FORK_EPOCH=1, BELLATRIX_FORK_EPOCH=2)
+
+
+def chain_outcome(chain) -> dict:
+    """What two runs of one chain must agree on: the head, its state's
+    root, the justified and finalized checkpoints, the fork."""
+    from lodestar_tpu_torch.state_transition.upgrade import state_fork_name, state_types
+
+    state = chain.head_state()
+    return dict(head=chain.head_root.hex(),
+                state_root=state_types(chain.p, state).BeaconState.hash_tree_root(state).hex(),
+                justified=[int(state.current_justified_checkpoint.epoch),
+                           bytes(state.current_justified_checkpoint.root).hex()],
+                finalized=[int(state.finalized_checkpoint.epoch),
+                           bytes(state.finalized_checkpoint.root).hex()],
+                fork=str(state_fork_name(state).value))
+
+
+async def drive_chain(dev, n_slots: int) -> list:
+    """``DevChain.run``'s loop, keeping each slot's block root."""
+    roots = []
+    for slot in range(1, n_slots + 1):
+        roots.append(await dev.advance_slot(slot))
+        await dev.chain.prepare_scheduler.prepare(slot + 1)
+    return roots
+
+
+class RecordingFast:
+    """The host C verifier, recording each batch's set count."""
+
+    def __init__(self):
+        from lodestar_tpu_torch.crypto.bls.native_verifier import FastBlsVerifier
+
+        self.base, self.batches = FastBlsVerifier(), []
+
+    def verify_signature_sets(self, sets):
+        self.batches.append(len(sets))
+        return self.base.verify_signature_sets(sets)
+
+
+def host_chain() -> dict:
+    """Phase 17's chain on the host, in a pool process: the same slots over
+    the port's ``FastBlsVerifier`` (C), for the card's run to equal."""
+    torch.set_num_threads(1)
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.node.dev_chain import DevChain
+    from lodestar_tpu_torch.params import MINIMAL
+
+    async def run():
+        verifier = RecordingFast()
+        pool = BlsBatchPool(verifier, max_buffer_wait=0.005)
+        dev = DevChain(MINIMAL, chain_config(), CHAIN_VALIDATORS, pool)
+        t0 = time.perf_counter()
+        await drive_chain(dev, CHAIN_SLOTS)
+        wall = time.perf_counter() - t0
+        pool.close()
+        return dict(chain_outcome(dev.chain), wall=wall, batches=verifier.batches)
+
+    return asyncio.run(run())
+
+
+def chain_launches(names) -> dict:
+    from lodestar_tpu_torch.ops import fused_core
+
+    return {name: fused_core.COUNTED[name].launches for name in names}
+
+
+def run_chain(dev, card: str, pool) -> dict:
+    """Phase 17: ``DevChain``'s block import and range sync through the
+    port's ``BlsBatchPool`` over the card's split fused verifier, held
+    against the same chain on the host; each fused kernel's launches over
+    the chain and over the two segment imports."""
+    from lodestar_tpu_torch.chain.beacon_chain import BlockError
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.node.dev_chain import DevChain
+    from lodestar_tpu_torch.ops import fused_core
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.ssz import Fields
+
+    out = {}
+    with Phase("17 chain"):
+        host = pool.apply_async(host_chain)
+        verifier = TorchBlsVerifier(device=dev, buckets=CHAIN_BUCKETS,
+                                    rng=np.random.default_rng(SEED + 170))
+        if not (verifier.fused and verifier.host_final_exp):
+            raise AssertionError("chain: the verifier is not the split fused default")
+        warm = verifier.warmup()
+        log(f"chain: split fused graphs at buckets {CHAIN_BUCKETS} warmed in {warm:.2f} s")
+
+        # every block's job, its bucket, and the chain's wait on it
+        jobs = []
+        enqueue = verifier.verify_signature_sets_async
+
+        def recording(sets, deadline=None):
+            jobs.append(len(sets))
+            return enqueue(sets, deadline=deadline)
+
+        verifier.verify_signature_sets_async = recording
+
+        def timed_waits(chain, waits):
+            verify = chain._verify_block_sets
+
+            async def timed(sets):
+                t0 = time.perf_counter()
+                try:
+                    return await verify(sets)
+                finally:
+                    waits.append(time.perf_counter() - t0)
+
+            chain._verify_block_sets = timed
+
+        async def card_chain():
+            metrics = TallyMetrics()
+            bls = BlsBatchPool(verifier, max_buffer_wait=0.005)
+            chain_dev = DevChain(MINIMAL, chain_config(), CHAIN_VALIDATORS, bls, metrics=metrics)
+            waits = []
+            timed_waits(chain_dev.chain, waits)
+            stages0, d0 = dict(verifier.stage_seconds), verifier.dispatches
+            fused_core.reset_launch_counts()
+            sync_all()
+            t0 = time.perf_counter()
+            roots = await drive_chain(chain_dev, CHAIN_SLOTS)
+            wall = time.perf_counter() - t0
+            launches = chain_launches(FUSED)
+            bls.close()
+            stages = {k: verifier.stage_seconds[k] - stages0.get(k, 0.0)
+                      for k in verifier.stage_seconds if k != "warmup"}
+            return chain_dev, roots, dict(
+                wall=wall, blocks_per_s=CHAIN_SLOTS / wall, dispatches=verifier.dispatches - d0,
+                state_transition_s=metrics.state_transition_seconds.sum / CHAIN_SLOTS,
+                block_processing_s=metrics.block_processing_seconds.sum / CHAIN_SLOTS,
+                epoch_transition_s=metrics.epoch_transition_seconds.sum,
+                pool_wait_s=sum(waits) / len(waits),
+                stage_seconds_per_block={k: v / CHAIN_SLOTS for k, v in stages.items()},
+                launches=launches)
+
+        chain_dev, roots, run = asyncio.run(card_chain())
+        got = chain_outcome(chain_dev.chain)
+        buckets = {}
+        for n in jobs:
+            buckets[verifier._bucket(n)] = buckets.get(verifier._bucket(n), 0) + 1
+        run.update(got, jobs=len(jobs), sets=sum(jobs), buckets=buckets,
+                   set_counts=sorted(set(jobs)))
+        log("chain: " + json.dumps({k: v for k, v in run.items() if k != "launches"}))
+        log(f"chain: {CHAIN_SLOTS} slots at {CHAIN_VALIDATORS} validators in {run['wall']:.2f} s "
+            f"= {run['blocks_per_s']:.3f} blocks/s; per block: state transition "
+            f"{run['state_transition_s']:.4f} s, pool wait {run['pool_wait_s']:.4f} s, "
+            f"import {run['block_processing_s']:.4f} s; buckets {buckets} [{card}]")
+        if (got["fork"] != "bellatrix" or got["justified"][0] < 4 or got["finalized"][0] < 3
+                or run["dispatches"] < CHAIN_SLOTS):
+            raise AssertionError(f"chain: fork {got['fork']}, justified {got['justified'][0]}, "
+                                 f"finalized {got['finalized'][0]}, dispatches "
+                                 f"{run['dispatches']}")
+        idle = [name for name in FUSED if run["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"chain: kernels never launched {idle}")
+        for bucket in CHAIN_BUCKETS:
+            program = verifier.programs[(verifier.device, bucket, True, True)]
+            log(f"chain: bucket {bucket} graph's launch record (rows: launches) "
+                + json.dumps({n: dict(sorted(program.launch_rows.get(n, {}).items()))
+                              for n in FUSED}))
+
+        # the host's run of the same slots (C verifier, a pool process)
+        ref = host.get(timeout=900)
+        log(f"chain: host run {ref['wall']:.2f} s = {CHAIN_SLOTS / ref['wall']:.3f} blocks/s "
+            f"(FastBlsVerifier in a pool process), {len(ref['batches'])} batches")
+        if {k: ref[k] for k in got} != got:
+            raise AssertionError(f"chain: the card's chain {got} is not the host's "
+                                 f"{ {k: ref[k] for k in got} }")
+        if ref["batches"] != jobs:
+            raise AssertionError(f"chain: the host's batches {ref['batches']} are not the "
+                                 f"card's {jobs}")
+        out["chain"] = run
+
+        # range sync: slots 1-16 replayed on fresh chains
+        seg = [chain_dev.chain.get_block_by_root(r) for r in roots[:SEGMENT_SLOTS]]
+
+        async def replay(blocks):
+            bls = BlsBatchPool(verifier, max_buffer_wait=0.005)
+            consumer = DevChain(MINIMAL, chain_config(), CHAIN_VALIDATORS, bls)
+            d0, n0, j0 = verifier.dispatches, verifier.sets_verified, len(jobs)
+            t0 = time.perf_counter()
+            error, n = None, None
+            try:
+                n = await consumer.chain.process_chain_segment(blocks)
+            except BlockError as e:
+                error = str(e)
+            wall = time.perf_counter() - t0
+            bls.close()
+            imported = sum(consumer.chain.fork_choice.has_block(r) for r in roots[:SEGMENT_SLOTS])
+            return dict(n=n, imported=imported, error=error, wall=wall,
+                        dispatches=verifier.dispatches - d0, jobs=jobs[j0:],
+                        sets_verified=verifier.sets_verified - n0,
+                        head=consumer.chain.head_root.hex())
+
+        fused_core.reset_launch_counts()
+        good = asyncio.run(replay(seg))
+        good["blocks_per_s"] = SEGMENT_SLOTS / good["wall"]
+        log("segment: " + json.dumps(good))
+        if (good["n"] != SEGMENT_SLOTS or good["dispatches"] != 1 or good["error"]
+                or good["head"] != roots[SEGMENT_SLOTS - 1].hex()):
+            raise AssertionError(f"segment: {good}")
+        log(f"segment: {SEGMENT_SLOTS} blocks in one batch of {good['jobs'][0]} sets, "
+            f"{good['wall']:.2f} s = {good['blocks_per_s']:.3f} blocks/s [{card}]")
+        bad = list(seg)
+        bad[BAD_BLOCK] = Fields(message=seg[BAD_BLOCK].message,
+                                signature=bytes(seg[BAD_BLOCK + 1].signature))
+        altered = asyncio.run(replay(bad))
+        log("segment, block 9's signature altered: " + json.dumps(altered))
+        if altered["error"] is None or altered["imported"] != BAD_BLOCK:
+            raise AssertionError(f"segment: the altered segment gave {altered}")
+        out["segment"] = dict(good=good, altered=altered, launches=chain_launches(FUSED))
+        idle = [name for name in FUSED if out["segment"]["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"segment: kernels never launched {idle}")
+        log("chain: launches over the chain " + json.dumps(run["launches"])
+            + "; over the two segments " + json.dumps(out["segment"]["launches"]))
+        verifier.close()
+    return out
+
 
 # -- phase 16: the analysis layer on the card ---------------------------------------
 

@@ -1,9 +1,13 @@
 """lodestar_tpu_torch — the PyTorch/CUDA port of lodestar_tpu's batched BLS
-signature-set verification, for NVIDIA Hopper (H100, sm_90a).
+signature-set verification, for NVIDIA Hopper (H100, sm_90a), and of the
+beacon chain that feeds it.
 
 Layout mirrors the JAX package: ``crypto/bls`` holds the bigint oracle and
 the verifier boundary, ``ops`` the fused field/point/pairing modules over
-the hand-written CUDA kernels in ``ops/kernels``.  A tensor on the CPU
+the hand-written CUDA kernels in ``ops/kernels``; ``node/dev_chain`` and
+``chain/beacon_chain`` drive the state transition, fork choice and
+database (``state_transition``, ``fork_choice``, ``ssz``, ``db``) and send
+each block's signature sets through ``chain/bls_pool``.  A tensor on the CPU
 takes each kernel's plain PyTorch version; a CUDA tensor takes the kernel.
 """
 

@@ -13,7 +13,8 @@ The counterpart of ``lodestar_tpu/analysis/``, as the port's own copy (no
   device program's plain versions (``torch-test-threads``: pinned to one
   intra-op thread), the counterpart of ``compile_cost``;
 - ``lock_audit``      instrumented locks and guarded state over
-  ``BlsBatchPool`` -> ``TorchBlsVerifier`` with stubbed programs
+  ``BlsBatchPool`` -> ``TorchBlsVerifier`` with stubbed programs, and
+  over the chain's SQLite database controller
   (``lock-unguarded-mutation``, ``lock-order-inversion``);
 - ``limb_interval``   interval proofs of the digit bounds over the plain
   versions' aten graphs, and the kernel headers' named 2^24 obligations
@@ -33,6 +34,7 @@ adds the halves that run on the card, as ``chip_smoke.py`` phase 16 does.
 Suppression: ``# lint: disable=<rule>`` on the flagged line.
 """
 
+import os
 from typing import List, Optional, Sequence
 
 from .report import Violation, format_report  # noqa: F401
@@ -82,9 +84,13 @@ def run_all(repo: Optional[str] = None, device: str = "cpu", skip: Sequence[str]
         return audit_test_cost(repo)
 
     def locks():
-        from .lock_audit import audit_bls_pipeline
+        import tempfile
 
-        return audit_bls_pipeline()
+        from .lock_audit import audit_bls_pipeline, audit_db_controller
+
+        with tempfile.TemporaryDirectory(prefix="lock-audit-") as tmp:
+            db = audit_db_controller(os.path.join(tmp, "audit.sqlite"))
+        return audit_bls_pipeline() + db
 
     def limbs():
         from .limb_interval import audit_limb_overflow

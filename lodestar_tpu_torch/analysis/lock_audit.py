@@ -18,6 +18,13 @@ flagged on its first execution; the threads exist to drive every path and
 to feed the lock-order recorder, which reports cycles (rules
 ``lock-unguarded-mutation`` and ``lock-order-inversion``).
 
+``audit_db_controller`` does the same for the chain's SQLite database
+(``db/controller.SqliteDbController``): its one connection is shared by
+the threads that import blocks and archive them (``check_same_thread``
+off), so every statement and commit must run under the controller's
+lock; worker threads drive its reads, writes, batches and range scans,
+through ``BeaconDb`` and ``MeteredDbController`` as the chain does.
+
 ``audit_bls_pipeline`` is the harness: a real ``TorchBlsVerifier`` over two
 CPU executors and a 2-shard mesh (buckets 2 and 4, the mesh from 4) whose
 programs do no arithmetic: the per-card program's entry and the mesh
@@ -534,4 +541,106 @@ def audit_bls_pipeline(
             continue
         seen.add(key)
         out.append(viol)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the chain's database
+# ---------------------------------------------------------------------------
+
+
+class _GuardedConnection:
+    """A sqlite3 connection whose statements and commits check that the
+    thread holds the controller's lock."""
+
+    def __init__(self, conn, auditor: LockAuditor, lock: AuditLock, target: str):
+        self._conn, self._aud = conn, (auditor, lock, target)
+
+    def _check(self, what: str) -> None:
+        auditor, lock, target = self._aud
+        if not lock.held_by_current_thread():
+            auditor.unguarded(target, what, lock.name)
+
+    def execute(self, *args):
+        self._check("execute")
+        return self._conn.execute(*args)
+
+    def executemany(self, *args):
+        self._check("executemany")
+        return self._conn.executemany(*args)
+
+    def commit(self):
+        self._check("commit")
+        return self._conn.commit()
+
+    def close(self):
+        self._check("close")
+        return self._conn.close()
+
+
+def audit_db_controller(path: str, threads: int = 4, rounds: int = 20,
+                        controller_mutator=None) -> List[Violation]:
+    """Drive an instrumented ``SqliteDbController`` at ``path`` from
+    ``threads`` barrier-synced workers (puts, gets, deletes, batch writes
+    and deletes, range scans; half of them through ``MeteredDbController``
+    and ``BeaconDb``'s repositories) and return every lock-discipline
+    violation.  ``controller_mutator`` (tests): called with the controller
+    after instrumentation, to strip its lock and prove the audit red."""
+    from ..db.beacon import BeaconDb
+    from ..db.controller import MeteredDbController, SqliteDbController
+    from ..metrics import create_metrics
+    from ..params import MINIMAL
+
+    auditor = LockAuditor()
+    db = SqliteDbController(path)
+    lock = AuditLock(auditor, "SqliteDbController._lock")
+    db._lock = lock
+    db._conn = _GuardedConnection(db._conn, auditor, lock, "SqliteDbController._conn")
+    if controller_mutator is not None:
+        controller_mutator(db)
+    metered = MeteredDbController(db, create_metrics())
+    beacon = BeaconDb(MINIMAL, metered)
+    barrier = threading.Barrier(threads)
+    errors: List[BaseException] = []
+
+    def worker(wid: int):
+        try:
+            ctl = metered if wid % 2 else db
+            barrier.wait(timeout=30)
+            for r in range(rounds):
+                key = b"audit" + bytes([wid, r])
+                ctl.put(key, b"v" * (r + 1))
+                ctl.get(key)
+                ctl.batch_put([(key + b"a", b"1"), (key + b"b", b"2")])
+                list(ctl.entries(gte=b"audit" + bytes([wid]), lt=b"audit" + bytes([wid + 1])))
+                ctl.batch_delete([key + b"a"])
+                ctl.delete(key + b"b")
+                beacon.deposit_data_root.put(key, key)
+                beacon.deposit_data_root.get(key)
+        except BaseException as e:  # noqa: BLE001 - report, don't hang
+            errors.append(e)
+
+    old_interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        ts = [threading.Thread(target=worker, args=(i,), name=f"db-audit-{i}")
+              for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        if errors or any(t.is_alive() for t in ts):
+            auditor.record("lock-audit-error", "harness",
+                           f"worker raised: {errors[0]!r}" if errors
+                           else "a worker did not finish")
+    finally:
+        sys.setswitchinterval(old_interval)
+        db.close()
+    seen = set()
+    out: List[Violation] = []
+    for viol in auditor.all_violations():
+        key = (viol.rule, viol.path, viol.message.split(" on thread ")[0])
+        if key not in seen:
+            seen.add(key)
+            out.append(viol)
     return out

@@ -1,9 +1,16 @@
-"""BLS signature objects (ETH2 proof-of-possession ciphersuite), pure Python.
+"""BLS signature API (ETH2 proof-of-possession ciphersuite): the port's
+copy of ``lodestar_tpu/crypto/bls/api.py``'s surface.
 
-The port's trimmed copy of the key and signature surface: signing is the
-plain bigint ladder ``sk * H(msg)`` (variable time — for test and interop
-keys only), points are serialized in the ZCash compressed format, and
-``verify`` / ``verify_multiple_signatures`` check with the bigint pairing
+Keys, signing and aggregation run in the port's native C library
+(``native/fastbls``: ``sk_to_pk``, ``sign`` / ``sign_ct``,
+``sign_aggregate``, ``aggregate_sigs``, ``aggregate_pks``) and give the
+bytes of the bigint ladder; the library is built and self-tested at first
+use, and a failed build raises (the JAX package falls back to the bigint
+ladder instead).  Signing is constant time by default (``fb_sign_ct``);
+``variable_time=True`` takes the sliding ladder, for interop and test keys.
+Points are serialized in the ZCash compressed format, and ``verify``,
+``fast_aggregate_verify``, ``aggregate_verify`` and
+``verify_multiple_signatures`` check with the bigint pairing
 (``pairing.py``), the host verifier behind ``verifier.PyBlsVerifier``.
 """
 
@@ -13,7 +20,8 @@ import hashlib
 import secrets
 from typing import List, Optional, Sequence, Tuple
 
-from .curve import B2, G1_GEN, Point, g1_from_bytes, g1_to_bytes, g2_from_bytes, g2_to_bytes
+from ...native import fastbls as _native
+from .curve import B1, B2, G1_GEN, Point, g1_from_bytes, g1_to_bytes, g2_from_bytes, g2_to_bytes
 from .fields import Fq, Fq2, R
 from .hash_to_curve import hash_to_g2
 from .pairing import multi_pairing
@@ -37,12 +45,19 @@ class SecretKey:
         return self.value.to_bytes(32, "big")
 
     def to_public_key(self) -> "PublicKey":
-        return PublicKey(G1_GEN * self.value)
+        """sk * g1, as its compressed bytes (``fb_sk_to_pk``), decompressed
+        on first curve use."""
+        return PublicKey(raw=_native.sk_to_pk(self.to_bytes()))
 
-    def sign(self, msg: bytes) -> "Signature":
-        """sk * H(msg) by the bigint double-and-add ladder (not constant
-        time: interop and test keys only)."""
-        return Signature(hash_to_g2(msg) * self.value)
+    def sign(self, msg: bytes, variable_time: bool = False) -> "Signature":
+        """sk * H(msg), the bytes of the bigint ladder.  Constant time by
+        default (``fb_sign_ct``: a fixed-length double-and-always-add
+        ladder); ``variable_time=True`` takes the sliding ladder
+        (``fb_sign``), whose branches follow the key's bits, for interop
+        and test keys only."""
+        sk = self.to_bytes()
+        raw = _native.sign(sk, msg) if variable_time else _native.sign_ct(sk, msg)
+        return Signature(raw=raw)
 
 
 class PublicKey:
@@ -120,12 +135,45 @@ class Signature:
         return hash(("Signature", self.to_bytes()))
 
 
-def aggregate_pubkeys(pubkeys: List[PublicKey]) -> PublicKey:
-    """Jacobian sum of the keys (the host aggregation of an aggregated set)."""
-    acc = pubkeys[0].point
-    for pk in pubkeys[1:]:
+def sign_aggregate(sks: Sequence[SecretKey], msg: bytes) -> Signature:
+    """The aggregate signature of one message by many keys: one hash and
+    one scalar multiplication by the keys' sum (``fb_sign_aggregate``,
+    variable time: the whole-committee signing of dev chains and fixtures,
+    interop keys only).  Where the library refuses the keys (their sum is 0
+    mod r), each key signs and the signatures are aggregated, as in the JAX
+    package."""
+    raw = _native.sign_aggregate([sk.to_bytes() for sk in sks], msg)
+    if raw is not None:
+        return Signature(raw=raw)
+    return aggregate_signatures([sk.sign(msg, variable_time=True) for sk in sks])
+
+
+def aggregate_pubkeys(pubkeys: Sequence[PublicKey]) -> PublicKey:
+    """The keys' sum: in C (``fb_aggregate_pubkeys_c``) when every key is
+    still only its compressed bytes, else in jacobian coordinates (also
+    where the library rejects a key's bytes, so that decompressing it
+    raises as in the JAX package)."""
+    if pubkeys and all(pk._raw is not None and pk._point is None for pk in pubkeys):
+        out = _native.aggregate_pks([pk._raw for pk in pubkeys])
+        if out is not None:
+            return PublicKey(raw=out)
+    acc: Point[Fq] = Point.infinity(B1)
+    for pk in pubkeys:
         acc = acc + pk.point
     return PublicKey(acc)
+
+
+def aggregate_signatures(sigs: Sequence[Signature]) -> Signature:
+    """The signatures' sum: in C (``fb_aggregate_sigs``) when every one is
+    still only its compressed bytes, else in jacobian coordinates."""
+    if sigs and all(s._raw is not None and s._point is None for s in sigs):
+        out = _native.aggregate_sigs([s._raw for s in sigs])
+        if out is not None:
+            return Signature(raw=out)
+    acc: Point[Fq2] = Point.infinity(B2)
+    for s in sigs:
+        acc = acc + s.point
+    return Signature(acc)
 
 
 def verify(pk: PublicKey, msg: bytes, sig: Signature) -> bool:
@@ -133,6 +181,24 @@ def verify(pk: PublicKey, msg: bytes, sig: Signature) -> bool:
     if pk.point.is_infinity() or sig.point.is_infinity():
         return False
     return multi_pairing([(-G1_GEN, sig.point), (pk.point, hash_to_g2(msg))]).is_one()
+
+
+def fast_aggregate_verify(pks: Sequence[PublicKey], msg: bytes, sig: Signature) -> bool:
+    """One message, many signers (sync committees, aggregate attestations)."""
+    if not pks:
+        return False
+    return verify(aggregate_pubkeys(pks), msg, sig)
+
+
+def aggregate_verify(pks: Sequence[PublicKey], msgs: Sequence[bytes], sig: Signature) -> bool:
+    """Distinct messages, one aggregate signature."""
+    if not pks or len(pks) != len(msgs):
+        return False
+    if any(pk.point.is_infinity() for pk in pks) or sig.point.is_infinity():
+        return False
+    pairs: List[Tuple[Point[Fq], Point[Fq2]]] = [(-G1_GEN, sig.point)]
+    pairs += [(pk.point, hash_to_g2(m)) for pk, m in zip(pks, msgs)]
+    return multi_pairing(pairs).is_one()
 
 
 def verify_multiple_signatures(
@@ -161,3 +227,8 @@ def interop_secret_key(index: int) -> SecretKey:
     interop key derivation."""
     digest = hashlib.sha256(index.to_bytes(32, "little")).digest()
     return SecretKey(int.from_bytes(digest, "little") % R)
+
+
+def interop_pubkeys(count: int) -> List[bytes]:
+    """The compressed public keys of the first ``count`` interop keys."""
+    return [interop_secret_key(i).to_public_key().to_bytes() for i in range(count)]

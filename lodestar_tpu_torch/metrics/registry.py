@@ -90,9 +90,12 @@ class Metrics:
     """The JAX registry's metrics that the port reports: the batch pool's,
     the verifier's stages, executors, self-healing pool and pack caches,
     the device sampler's, the profile windows' attribution, the watchdog,
-    the recorder and the tracer.  Left out: the node's chain, network,
-    database and validator-monitor groups, and the degrade ladder's
-    counter (the port has no ladder).  The compile ledger
+    the recorder and the tracer; the chain's (block import, state
+    transition, state caches and regen, op pools, the next-slot
+    precompute, the clock), the database controller's and the validator
+    monitor's.  Left out: the network, sync and REST API groups (their
+    modules are not ported yet), and the degrade ladder's counter (the
+    port has no ladder).  The compile ledger
     (``observatory.compile_ledger``) observes ``bls_compile_seconds``."""
 
     def __init__(self):
@@ -351,6 +354,85 @@ class Metrics:
             "diagnostic bundles written, by trigger reason "
             "(watchdog/sigterm/sigusr2/crash-*/api)",
             labels=("reason",),
+        )
+        # the chain (chain/beacon_chain.py, chain/regen.py,
+        # chain/prepare_next_slot.py)
+        self.block_processing_seconds = r.histogram(
+            "lodestar_block_processing_seconds",
+            "verifyBlock+importBlock wall time",
+            buckets=(0.01, 0.05, 0.1, 0.5, 1, 5, 10),
+        )
+        self.head_slot = r.gauge("lodestar_head_slot", "fork-choice head slot")
+        self.finalized_epoch = r.gauge("lodestar_finalized_epoch", "finalized checkpoint epoch")
+        self.clock_slot = r.gauge("lodestar_clock_slot", "current wall-clock slot")
+        self.state_transition_seconds = r.histogram(
+            "lodestar_state_transition_seconds",
+            "per-block state transition wall time",
+            buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        self.epoch_transition_seconds = r.histogram(
+            "lodestar_epoch_transition_seconds",
+            "epoch transition wall time",
+            buckets=(0.01, 0.05, 0.1, 0.5, 1, 5, 30),
+        )
+        self.state_cache_size = r.gauge(
+            "lodestar_state_cache_size", "states held in the LRU state cache"
+        )
+        self.state_cache_hits_total = r.counter(
+            "lodestar_state_cache_hits_total", "state cache hits"
+        )
+        self.state_cache_misses_total = r.counter(
+            "lodestar_state_cache_misses_total",
+            "state cache misses (regen replay needed)",
+        )
+        self.regen_seconds = r.histogram(
+            "lodestar_regen_seconds",
+            "state regeneration latency (checkpoint load + replay)",
+            buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        self.regen_replays_total = r.counter(
+            "lodestar_regen_replayed_blocks_total",
+            "blocks replayed to regenerate a state on cache miss",
+        )
+        self.op_pool_size = r.gauge(
+            "lodestar_op_pool_size", "operations pooled", labels=("pool",)
+        )
+        self.prepare_next_slot_hits_total = r.counter(
+            "lodestar_prepare_next_slot_hits_total",
+            "block imports/productions served by the precomputed next-slot state",
+        )
+        # the database controller (db/controller.MeteredDbController)
+        self.db_op_seconds = r.histogram(
+            "lodestar_db_op_seconds",
+            "db controller operation latency",
+            buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5),
+            labels=("op",),
+        )
+        self.db_ops_total = r.counter(
+            "lodestar_db_ops_total", "db controller operations", labels=("op",)
+        )
+        # the validator monitor (metrics/validator_monitor.py)
+        self.monitor_proposals_total = r.counter(
+            "lodestar_validator_monitor_proposals_total",
+            "blocks proposed by registered validators",
+        )
+        self.monitor_attestation_hit_ratio = r.gauge(
+            "lodestar_validator_monitor_attestation_hit_ratio",
+            "fraction of registered validators attesting per epoch",
+        )
+        self.monitor_inclusion_delay = r.histogram(
+            "lodestar_validator_monitor_inclusion_delay_slots",
+            "attestation inclusion delay of registered validators",
+            buckets=(1, 2, 3, 4, 8, 16, 32),
+        )
+        self.monitor_sync_committee_hit_ratio = r.gauge(
+            "lodestar_validator_monitor_sync_committee_hit_ratio",
+            "fraction of registered sync-committee duties fulfilled per epoch",
+        )
+        self.monitor_timely_total = r.counter(
+            "lodestar_validator_monitor_timely_total",
+            "registered validators' attestation timeliness flags",
+            labels=("flag",),
         )
 
 

@@ -1,6 +1,8 @@
 """ctypes binding for the port's copy of ``fastbls.c`` (native BLS12-381 in
-portable C): the host final exponentiation of the split dispatch, and the
-batch verification behind ``crypto/bls/native_verifier.FastBlsVerifier``.
+portable C): the host final exponentiation of the split dispatch, the
+batch verification behind ``crypto/bls/native_verifier.FastBlsVerifier``,
+and the key surface of ``crypto/bls/api.py`` (signing, public keys,
+aggregation).
 
 The counterpart of ``lodestar_tpu/native/fastbls.py``, over the copies of
 ``fastbls.c`` and ``fastbls_consts.h`` beside this file.  At first use the
@@ -40,31 +42,37 @@ _lib: Optional[ctypes.CDLL] = None
 _error: Optional[Exception] = None
 
 
-def library_path(cc: Optional[str] = None) -> str:
+def library_path(cc: Optional[str] = None, stem: str = "fastbls",
+                 sources: Sequence[str] = SOURCES) -> str:
+    """Where ``build`` puts the library of ``sources`` (the C file first,
+    then the headers it includes) built by ``cc``: named by a hash of the
+    compiler, the flags and the sources."""
     h = hashlib.sha256(" ".join((cc or CC,) + CFLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
         with open(os.path.join(_HERE, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libfastbls_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(cc: Optional[str] = None) -> str:
-    """Compile the library with ``cc`` (default ``CC``) unless one of these
-    sources exists; return its path.  Raises with the compiler's output
-    when the compiler fails or is missing."""
+def build(cc: Optional[str] = None, stem: str = "fastbls",
+          sources: Sequence[str] = SOURCES) -> str:
+    """Compile the library of ``sources`` (default: this module's) with
+    ``cc`` (default ``CC``) unless one of these sources exists; return its
+    path.  Raises with the compiler's output when the compiler fails or is
+    missing.  ``native/hashtree.py`` builds its library here too."""
     cc = cc or CC
-    out = library_path(cc)
+    out = library_path(cc, stem, sources)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cc, *CFLAGS, "-o", tmp, os.path.join(_HERE, "fastbls.c")]
+    cmd = [cc, *CFLAGS, "-o", tmp, os.path.join(_HERE, sources[0])]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except OSError as e:
-        raise RuntimeError(f"fastbls: cannot run the C compiler {cc!r}: {e}") from e
+        raise RuntimeError(f"{stem}: cannot run the C compiler {cc!r}: {e}") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"fastbls: {' '.join(cmd)} failed:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{stem}: {' '.join(cmd)} failed:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -94,6 +102,22 @@ def load() -> ctypes.CDLL:
                 ctypes.c_char_p,
                 ctypes.POINTER(ctypes.c_uint64),
             ]
+            lib.fb_sign.restype = ctypes.c_int
+            lib.fb_sign.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                                    ctypes.c_size_t]
+            lib.fb_sign_ct.restype = ctypes.c_int
+            lib.fb_sign_ct.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                                       ctypes.c_size_t]
+            lib.fb_sk_to_pk.restype = ctypes.c_int
+            lib.fb_sk_to_pk.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+            lib.fb_sign_aggregate.restype = ctypes.c_int
+            lib.fb_sign_aggregate.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t,
+                                              ctypes.c_char_p, ctypes.c_size_t]
+            lib.fb_aggregate_sigs.restype = ctypes.c_int
+            lib.fb_aggregate_sigs.argtypes = [ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p]
+            lib.fb_aggregate_pubkeys_c.restype = ctypes.c_int
+            lib.fb_aggregate_pubkeys_c.argtypes = [ctypes.c_size_t, ctypes.c_char_p,
+                                                   ctypes.c_char_p]
             if lib.fb_selftest() != 1:
                 raise RuntimeError("fastbls: fb_selftest failed; the library is not used")
         except (OSError, RuntimeError) as e:
@@ -148,3 +172,73 @@ def batch_verify(sets: Sequence[Tuple[List[bytes], bytes, bytes]],
         return False
     c_arr = (ctypes.c_uint64 * n)(*[c & 0xFFFFFFFFFFFFFFFF for c in coeffs])
     return lib.fb_batch_verify(n, pk_blob, counts, msgs, sigs, c_arr) == 1
+
+
+def _sk(sk32: bytes) -> bytes:
+    if len(sk32) != 32:
+        raise ValueError(f"fastbls: a secret key is 32 bytes, got {len(sk32)}")
+    return sk32
+
+
+def sign(sk32: bytes, msg: bytes) -> bytes:
+    """sk * H(msg) as a compressed 96-byte signature by the variable-time
+    sliding ladder (``fb_sign``: its branches follow the key's bits; for
+    interop and test keys).  Raises for a scalar outside [1, r)."""
+    out = ctypes.create_string_buffer(96)
+    if load().fb_sign(out, _sk(sk32), msg, len(msg)) != 1:
+        raise ValueError("fastbls: fb_sign refused the secret key")
+    return out.raw
+
+
+def sign_ct(sk32: bytes, msg: bytes) -> bytes:
+    """The same bytes as ``sign`` by the fixed-length double-and-always-add
+    ladder (``fb_sign_ct``: one operation sequence for every key)."""
+    out = ctypes.create_string_buffer(96)
+    if load().fb_sign_ct(out, _sk(sk32), msg, len(msg)) != 1:
+        raise ValueError("fastbls: fb_sign_ct refused the secret key")
+    return out.raw
+
+
+def sign_aggregate(sks: Sequence[bytes], msg: bytes) -> Optional[bytes]:
+    """One signature by n keys over one message (``fb_sign_aggregate``:
+    one hash, one scalar multiplication by the keys' sum; variable time).
+    None when the library refuses the keys: none given, one outside
+    [1, r), or a sum of 0 mod r."""
+    blob = b"".join(_sk(sk) for sk in sks)
+    out = ctypes.create_string_buffer(96)
+    if not sks or load().fb_sign_aggregate(out, blob, len(sks), msg, len(msg)) != 1:
+        return None
+    return out.raw
+
+
+def sk_to_pk(sk32: bytes) -> bytes:
+    """sk * g1 as a compressed 48-byte public key (``fb_sk_to_pk``)."""
+    out = ctypes.create_string_buffer(48)
+    if load().fb_sk_to_pk(out, _sk(sk32)) != 1:
+        raise ValueError("fastbls: fb_sk_to_pk refused the secret key")
+    return out.raw
+
+
+def aggregate_sigs(sigs: Sequence[bytes]) -> Optional[bytes]:
+    """The sum of compressed signatures, compressed (``fb_aggregate_sigs``);
+    None when the library rejects one of them as no point of E2."""
+    blob = b"".join(sigs)
+    if len(blob) != 96 * len(sigs):
+        raise ValueError("fastbls: a compressed signature is 96 bytes")
+    out = ctypes.create_string_buffer(96)
+    if load().fb_aggregate_sigs(len(sigs), blob, out) != 1:
+        return None
+    return out.raw
+
+
+def aggregate_pks(pks: Sequence[bytes]) -> Optional[bytes]:
+    """The sum of compressed public keys, compressed
+    (``fb_aggregate_pubkeys_c``); None when the library rejects one of them
+    as no point of E1."""
+    blob = b"".join(pks)
+    if len(blob) != 48 * len(pks):
+        raise ValueError("fastbls: a compressed public key is 48 bytes")
+    out = ctypes.create_string_buffer(48)
+    if load().fb_aggregate_pubkeys_c(len(pks), blob, out) != 1:
+        return None
+    return out.raw

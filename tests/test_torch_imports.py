@@ -16,6 +16,25 @@ PORT = os.path.join(REPO, "lodestar_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "lodestar_tpu"}
 
 
+#: the beacon chain's modules and what they import, copies of the JAX
+#: package's at the same relative paths
+CHAIN_MODULES = (
+    "params/__init__", "params/presets", "config/__init__", "config/chain_config",
+    "config/fork_config", "ssz/__init__", "ssz/core", "native/hashtree", "types/__init__",
+    "types/schemas", "utils/logger", *(f"state_transition/{m}" for m in (
+        "__init__", "misc", "shuffle", "domain", "epoch_context", "validator_ops", "genesis",
+        "block", "epoch", "altair", "bellatrix", "upgrade", "signature_sets",
+        "state_transition")),
+    "eth1/__init__", "eth1/tracker", "fork_choice/__init__", "fork_choice/proto_array",
+    "fork_choice/fork_choice", "db/__init__", "db/schema", "db/controller", "db/repository",
+    "db/beacon", *(f"chain/{m}" for m in (
+        "emitter", "clock", "seen_cache", "op_pools", "regen", "beacon_proposer_cache",
+        "validation", "sync_committee_pools", "prepare_next_slot", "beacon_chain")),
+    "execution/__init__", "execution/engine", "metrics/validator_monitor", "node/__init__",
+    "node/dev_chain",
+)
+
+
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
@@ -46,7 +65,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "aot/__init__", "aot/store", "observatory/__init__",
                    "observatory/compile_ledger", "crypto/bls/bucket_program",
                    "observatory/attribution", "observatory/device_sampler",
-                   "observatory/xprof", "crypto/bls/native_verifier", "cli"):
+                   "observatory/xprof", "crypto/bls/native_verifier", "cli",
+                   *CHAIN_MODULES):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -85,7 +105,11 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.observatory.attribution\n"
         "import lodestar_tpu_torch.crypto.bls.native_verifier\n"
         "import lodestar_tpu_torch.cli\n"
-        "import chip_smoke\n"
+        "import lodestar_tpu_torch.chain.beacon_chain\n"
+        "import lodestar_tpu_torch.node.dev_chain\n"
+        + "".join(f"import lodestar_tpu_torch.{m.replace('/__init__', '').replace('/', '.')}\n"
+                  for m in CHAIN_MODULES)
+        + "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
     )
