@@ -253,7 +253,9 @@ histograms of phases 3, 6 and 11 are read from that record.
     alone).  Zero violations, or the run fails.  The known violations,
     the ladder kernels' spill held at its measured bytes, are logged as
     open, apart from the count.  Logged per kernel: registers, local and
-    shared bytes, and each tool's result.
+    shared bytes, and each tool's result.  In the full run it runs in a
+    host process of the pool beside phase 9 (bitwise checks; its seconds
+    are only logged) and ends before phase 10 times anything.
 17. chain: the beacon chain through the card's verifier.  A split fused
     ``TorchBlsVerifier`` on ``cuda:0`` at buckets 4, 16 and 128, its graphs
     warmed first; ``DevChain`` (minimal preset, 128 interop validators,
@@ -272,10 +274,40 @@ histograms of phases 3, 6 and 11 are read from that record.
     buckets used, each bucket graph's launch record, and the ten fused
     kernels' launches over the chain and over the two segment replays
     (``launches_by_path``'s ``chain`` and ``segment``).
+18. network: the node's network face, every pool on one split fused
+    ``TorchBlsVerifier`` on ``cuda:0`` at buckets 4, 16 and 128, warmed
+    first; 128 interop validators, minimal preset, phase0.  18a: node A
+    runs 20 slots alone over the host's C verifier, node B (its pool on
+    the card) connects over the loopback, handshakes, pings, reads A's
+    metadata and range-syncs to A's head (``RangeSync.run_to_head``, one
+    pool job a segment): B's head must be A's, synced.  18b: three nodes
+    in the line A-B-C (validators 0-42, 43-85, 86-127), manual clocks, 26
+    slots; every block and every single-bit attestation crosses the wire
+    (``GossipHandlers.on_attestation`` -> the gossip lane of each node's
+    pool): every slot's head must agree across the nodes, every node's
+    attestation pool must hold every vote, every foreign vote must verify,
+    justification must advance, and the heads and final checkpoints must
+    equal the same sim run meanwhile in a host process over
+    ``FastBlsVerifier``.  18c: ``python -m lodestar_tpu_torch.cli dev``
+    (128 validators, ``--slots 0``) as a child process on card 0; once its
+    REST head passes slot 40, ``... beacon --connect`` as another; over
+    REST the beacon node must report synced, its head header must be the
+    dev node's of that root, each must have one connected peer, nonzero
+    pack, device and final-exponentiation seconds, its card executor
+    healthy and (where ``prometheus_client`` is installed) the gossip,
+    req/resp, sync and API metric families; both stop on SIGINT with exit
+    code 0 and no traceback.  Logged: range sync's blocks/s, segments and
+    buckets; the sim's slots/s, per node the gossip attestations verified
+    and their receipt-to-verdict wait (p50, p95), the pool's batches by
+    lane and bucket, per block the pool wait and the state transition; the
+    children's warmup, the dev node's blocks/s, the beacon node's range
+    sync, each REST route's latency; the ten fused kernels' launches over
+    18a and 18b (``launches_by_path``'s ``range_sync`` and ``gossip``).
 
 Signatures are made by a pool of host processes (each signs in the
 port's C library, ``native/fastbls``), which also run the CPU references
-and phase 17's host chain; the pool is closed before the end.
+and phase 17's host chain and phase 18's host sim; the pool is closed
+before the end.
 
 The last lines: the paths side by side, the whole run's wall, the
 ``kernels`` JSON object, the card's name and power limit, and
@@ -288,13 +320,15 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --observatory-only
     python3 chip_smoke.py --analysis-only
     python3 chip_smoke.py --chain-only
+    python3 chip_smoke.py --network-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
 cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), phases 1 and 14, phases 1 and 15 (signing its 256 sets
-itself), phases 1 and 16, or phases 1 and 17, and end with the card line
-and ``{"ok": true, ...}`` without the ``kernels`` object.
+itself), phases 1 and 16, phases 1 and 17, or phases 1 and 18, and end
+with the card line and ``{"ok": true, ...}`` without the ``kernels``
+object.
 """
 
 from __future__ import annotations
@@ -2235,7 +2269,8 @@ def main(argv) -> int:
     mode = {(): "all", ("--sharded-only",): "sharded", ("--split-only",): "split",
             ("--fused-only",): "fused", ("--store-only",): "store",
             ("--observatory-only",): "observatory",
-            ("--analysis-only",): "analysis", ("--chain-only",): "chain"}.get(tuple(argv))
+            ("--analysis-only",): "analysis", ("--chain-only",): "chain",
+            ("--network-only",): "network"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2277,7 +2312,9 @@ def main(argv) -> int:
             run_observatory(dev, card, pool, keys)
         if mode == "chain":
             run_chain(dev, card, pool)
-        if mode not in ("sharded", "store", "observatory", "chain"):
+        if mode == "network":
+            run_network(dev, card, pool)
+        if mode not in ("sharded", "store", "observatory", "chain", "network"):
             with Phase("2 kernels"):
                 registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
@@ -2297,21 +2334,30 @@ def main(argv) -> int:
                 f"dispatch [{card}]")
         if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
-        if mode not in ("store", "observatory", "chain"):
+        if mode not in ("store", "observatory", "chain", "network"):
             t0 = time.perf_counter()
             sets256 = make_sets(pool, keys, b"sharded slice")
             log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes "
                 f"in {time.perf_counter() - t0:.1f} s")
         tiers = None
         if mode in ("all", "sharded"):
+            # the full run's phase 16 runs in a host process of the pool
+            # beside phase 9, whose checks are bitwise and whose seconds are
+            # only logged; it ends before phase 10 times anything
+            analysis = pool.apply_async(analysis_in_child, (card,)) if mode == "all" else None
             verifier, sharded_launches, sharded_xla_launches, tiers = run_sharded(
                 dev, card, sets256, cpu_ref)
+            if analysis is not None:
+                t0 = time.perf_counter()
+                audit = analysis.get(timeout=1200)
+                log(f"phase 16 beside phase 9: waited {time.perf_counter() - t0:.1f} s for it "
+                    f"after phase 9")
             times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
             log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
-        if mode not in ("sharded", "store", "observatory", "chain"):
+        if mode not in ("sharded", "store", "observatory", "chain", "network"):
             split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
@@ -2327,13 +2373,13 @@ def main(argv) -> int:
             run_store(dev, card, sets, build)
             run_observatory(dev, card, pool, keys, sets256)
             chain = run_chain(dev, card, pool)
-    audit = run_analysis(card) if mode == "all" else None
+            network = run_network(dev, card, pool)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         print(card)
         phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
                   "fused": "1-5, 2b, 11, 12", "store": "1, 14",
-                  "observatory": "1, 15", "chain": "1, 17"}[mode]
+                  "observatory": "1, 15", "chain": "1, 17", "network": "1, 18"}[mode]
         print(json.dumps({"ok": True, "phases": phases,
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
@@ -2347,7 +2393,9 @@ def main(argv) -> int:
                 "split_sharded": split["sharded_launches"][name],
                 "pool": pooled["launches"][name],
                 "chain": chain["chain"]["launches"].get(name, 0),
-                "segment": chain["segment"]["launches"].get(name, 0)}
+                "segment": chain["segment"]["launches"].get(name, 0),
+                "gossip": network["gossip"]["launches"].get(name, 0),
+                "range_sync": network["range_sync"]["launches"].get(name, 0)}
 
     # each kernel's launches from its own path: the fused kernels' phase 3,
     # the tower kernels' phase 6, the library kernel's registry run, the
@@ -2519,24 +2567,12 @@ def run_chain(dev, card: str, pool) -> dict:
 
         verifier.verify_signature_sets_async = recording
 
-        def timed_waits(chain, waits):
-            verify = chain._verify_block_sets
-
-            async def timed(sets):
-                t0 = time.perf_counter()
-                try:
-                    return await verify(sets)
-                finally:
-                    waits.append(time.perf_counter() - t0)
-
-            chain._verify_block_sets = timed
-
         async def card_chain():
             metrics = TallyMetrics()
             bls = BlsBatchPool(verifier, max_buffer_wait=0.005)
             chain_dev = DevChain(MINIMAL, chain_config(), CHAIN_VALIDATORS, bls, metrics=metrics)
             waits = []
-            timed_waits(chain_dev.chain, waits)
+            timed_block_waits(chain_dev.chain, waits)
             stages0, d0 = dict(verifier.stage_seconds), verifier.dispatches
             fused_core.reset_launch_counts()
             sync_all()
@@ -2641,7 +2677,648 @@ def run_chain(dev, card: str, pool) -> dict:
     return out
 
 
+# -- phase 18: the node's network face on the card -------------------------------------
+
+NET_VALIDATORS = 128  # the chain phase's size: every minimal committee full
+NET_SYNC_SLOTS = 2 * 8 + 4  # tests/test_network_sync.py's two epochs and four slots
+NET_SIM_SLOTS = 3 * 8 + 2  # tests/test_sim_multinode.py's: justification from epoch 2
+NET_BUCKETS = CHAIN_BUCKETS  # a gossip batch (1-16 sets), a block's job, a segment's
+NET_SIM_SPLIT = 3  # the line A-B-C, the validators split in three
+NET_WAIT_S = 120.0  # bound on every wait for a message to cross the loopback
+CLI_DEV_HEAD = 40  # the dev child's head slot at which the beacon child starts
+
+
+def net_config(n_validators: int):
+    """The sims' schedule: phase0 throughout (their attestations are
+    phase0 single-bit ones)."""
+    from lodestar_tpu_torch.config.chain_config import ChainConfig
+
+    return ChainConfig(PRESET_BASE="minimal", SHARD_COMMITTEE_PERIOD=0, MIN_GENESIS_TIME=0,
+                       MIN_GENESIS_ACTIVE_VALIDATOR_COUNT=n_validators,
+                       ALTAIR_FORK_EPOCH=2**64 - 1, BELLATRIX_FORK_EPOCH=2**64 - 1)
+
+
+def sim_split(n_validators: int):
+    """The validators of the three nodes: 0-42, 43-85, 86-127 at 128."""
+    edges = [-(-i * n_validators // NET_SIM_SPLIT) for i in range(NET_SIM_SPLIT + 1)]
+    return [range(edges[i], edges[i + 1]) for i in range(NET_SIM_SPLIT)]
+
+
+def percentiles(xs) -> dict:
+    if not xs:
+        return dict(n=0, p50=None, p95=None)
+    a = np.sort(np.asarray(xs, float))
+    return dict(n=len(a), p50=float(np.percentile(a, 50)), p95=float(np.percentile(a, 95)))
+
+
+class PoolBatches:
+    """A pool's merged batches: each batch's lanes and set count, read
+    where the pool drains its queue."""
+
+    def __init__(self, pool):
+        from lodestar_tpu_torch.crypto.bls.verifier import SignatureSetPriority
+
+        self.batches = []
+        drain = pool._queue.drain_batch
+
+        def recording(*a, **kw):
+            drained = drain(*a, **kw)
+            if drained:
+                lanes = sorted({SignatureSetPriority(d[3]).name.lower() for d in drained})
+                self.batches.append(("+".join(lanes), sum(len(d[0]) for d in drained)))
+            return drained
+
+        pool._queue.drain_batch = recording
+
+    def by_lane_and_bucket(self, bucket_of) -> dict:
+        out = {}
+        for lanes, n in self.batches:
+            key = f"{lanes}@{bucket_of(n)}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+def timed_block_waits(chain, waits) -> None:
+    """Each block's (or segment's) wait on the pool, appended to ``waits``."""
+    verify = chain._verify_block_sets
+
+    async def timed(sets):
+        t0 = time.perf_counter()
+        try:
+            return await verify(sets)
+        finally:
+            waits.append(time.perf_counter() - t0)
+
+    chain._verify_block_sets = timed
+
+
+async def wait_until(pred, what: str, timeout: float = NET_WAIT_S) -> float:
+    """Poll ``pred`` until it holds; raises after ``timeout`` seconds.
+    Returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"network: {what} not reached in {timeout:.0f} s")
+        await asyncio.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+async def sync_pair(verifier, n_validators: int = NET_VALIDATORS,
+                    n_slots: int = NET_SYNC_SLOTS, on_start=None) -> dict:
+    """18a (tests/test_network_sync.py's first case): node A runs
+    ``n_slots`` alone over the host's C verifier; node B, whose pool runs
+    ``verifier``, connects over the loopback, handshakes, pings, reads
+    A's metadata and range-syncs to A's head.  ``on_start`` is called just
+    before B's sync (phase 18 zeroes the launch counts there)."""
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.chain.handlers import GossipHandlers
+    from lodestar_tpu_torch.crypto.bls.native_verifier import FastBlsVerifier
+    from lodestar_tpu_torch.network import Network
+    from lodestar_tpu_torch.node.dev_chain import DevChain
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.sync import RangeSync, SyncState
+
+    cfg = net_config(n_validators)
+    pool_a = BlsBatchPool(FastBlsVerifier(), max_buffer_wait=0.005)
+    pool_b = BlsBatchPool(verifier, max_buffer_wait=0.005)
+    batches = PoolBatches(pool_b)
+    a = DevChain(MINIMAL, cfg, n_validators, pool_a)
+    b = DevChain(MINIMAL, cfg, n_validators, pool_b)
+    t0 = time.perf_counter()
+    await a.run(n_slots)
+    produce_s = time.perf_counter() - t0
+    net_a = Network(MINIMAL, a.chain, GossipHandlers(a.chain))
+    net_b = Network(MINIMAL, b.chain, GossipHandlers(b.chain))
+    try:
+        port = await net_a.listen(0)
+        peer = await asyncio.wait_for(net_b.connect("127.0.0.1", port), NET_WAIT_S)
+        if peer.status is None or peer.status.head_slot != a.chain.head_state().slot:
+            raise AssertionError(f"sync: handshake gave {peer.status}")
+        if await asyncio.wait_for(peer.reqresp.ping(7), NET_WAIT_S) != 7:
+            raise AssertionError("sync: ping")
+        md = await asyncio.wait_for(peer.reqresp.metadata(), NET_WAIT_S)
+        waits = []
+        timed_block_waits(b.chain, waits)
+        sync = RangeSync(MINIMAL, b.chain, net_b.peer_manager)
+        if on_start is not None:
+            on_start()
+        t0 = time.perf_counter()
+        imported = await asyncio.wait_for(sync.run_to_head(), 10 * NET_WAIT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        await net_b.close()
+        await net_a.close()
+        pool_a.close()
+        pool_b.close()
+    out = dict(slots=n_slots, produce_s=produce_s, imported=imported, wall=wall,
+               blocks_per_s=imported / wall if wall else None, metadata_seq=int(md.seq_number),
+               synced=sync.state == SyncState.synced, head=b.chain.head_root.hex(),
+               want_head=a.chain.head_root.hex(), segments=len(waits),
+               segment_wait_s=waits, batches=batches.batches)
+    if not out["synced"] or imported != n_slots or out["head"] != out["want_head"]:
+        raise AssertionError(f"sync: {out}")
+    return out
+
+
+class SimNode:
+    """A node of the three-node sim: its own validators, pool, dev chain
+    (a manual clock) and network; every gossip attestation's wait from
+    receipt to verdict and every block's pool wait are kept."""
+
+    def __init__(self, index: int, owned, n_validators: int, verifier, metrics=None):
+        from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+        from lodestar_tpu_torch.chain.handlers import GossipHandlers
+        from lodestar_tpu_torch.network import Network
+        from lodestar_tpu_torch.node.dev_chain import DevChain
+        from lodestar_tpu_torch.params import MINIMAL
+
+        self.index, self.owned = index, set(owned)
+        self.pool = BlsBatchPool(verifier, max_buffer_wait=0.01)
+        self.batches = PoolBatches(self.pool)
+        self.metrics = metrics
+        self.dev = DevChain(MINIMAL, net_config(n_validators), n_validators, self.pool,
+                            metrics=metrics)
+        self.chain = self.dev.chain
+        self.handlers = GossipHandlers(self.chain)
+        self.att_waits, self.att_failed, self.block_waits, self.own_votes = [], 0, [], 0
+        on_attestation = self.handlers.on_attestation
+
+        async def timed(attestation, subnet=None):
+            t0 = time.perf_counter()
+            try:
+                out = await on_attestation(attestation, subnet)
+            except BaseException:
+                self.att_failed += 1
+                raise
+            self.att_waits.append(time.perf_counter() - t0)
+            return out
+
+        self.handlers.on_attestation = timed
+        timed_block_waits(self.chain, self.block_waits)
+        self.net = Network(MINIMAL, self.chain, self.handlers)
+
+    async def close(self):
+        await self.net.close()
+        self.pool.close()
+
+
+def attest_subset(node: SimNode, slot: int):
+    """Single-bit attestations of the node's own validators at ``slot``
+    (tests/test_sim_multinode.py's ``_attest_subset``): [(attestation,
+    subnet)]."""
+    from lodestar_tpu_torch.params import DOMAIN_BEACON_ATTESTER, MINIMAL
+    from lodestar_tpu_torch.params.presets import ATTESTATION_SUBNET_COUNT
+    from lodestar_tpu_torch.ssz import Fields
+    from lodestar_tpu_torch.state_transition import (
+        clone_state, compute_epoch_at_slot, compute_start_slot_at_epoch, process_slots)
+    from lodestar_tpu_torch.state_transition.domain import compute_signing_root, get_domain
+    from lodestar_tpu_torch.types import get_types
+
+    t = get_types(MINIMAL).phase0
+    head_root = node.chain.head_root
+    state = clone_state(MINIMAL, node.chain.head_state())
+    ctx = process_slots(MINIMAL, node.chain.cfg, state, max(slot, state.slot))
+    epoch = compute_epoch_at_slot(MINIMAL, slot)
+    boundary_slot = compute_start_slot_at_epoch(MINIMAL, epoch)
+    if boundary_slot >= state.slot:
+        target_root = head_root
+    else:
+        target_root = bytes(state.block_roots[boundary_slot % MINIMAL.SLOTS_PER_HISTORICAL_ROOT])
+    domain = get_domain(MINIMAL, state, DOMAIN_BEACON_ATTESTER, epoch)
+    committees = ctx.get_committee_count_per_slot(epoch)
+    out = []
+    for index in range(committees):
+        committee = ctx.get_beacon_committee(slot, index)
+        data = Fields(slot=slot, index=index, beacon_block_root=head_root,
+                      source=state.current_justified_checkpoint,
+                      target=Fields(epoch=epoch, root=target_root))
+        root = compute_signing_root(MINIMAL, t.AttestationData, data, domain)
+        subnet = (committees * (slot % MINIMAL.SLOTS_PER_EPOCH) + index) % ATTESTATION_SUBNET_COUNT
+        for pos, vi in enumerate(committee):
+            if int(vi) not in node.owned:
+                continue
+            bits = [False] * len(committee)
+            bits[pos] = True
+            out.append((Fields(aggregation_bits=bits, data=data,
+                               signature=node.dev.keys[int(vi)].sign(root).to_bytes()), subnet))
+    return out
+
+
+def pool_votes(node: SimNode, slot: int) -> int:
+    return sum(len(g.bits_and_sigs)
+               for g in node.chain.att_pool._by_slot.get(slot, {}).values())
+
+
+async def three_node_sim(verifiers, n_validators: int = NET_VALIDATORS,
+                         n_slots: int = NET_SIM_SLOTS, metrics=None, on_start=None) -> dict:
+    """18b (tests/test_sim_multinode.py's three nodes): the line A-B-C,
+    every block and every single-bit attestation over the wire, each
+    node's pool over ``verifiers[i]`` (one verifier may serve all three),
+    manual clocks.  Every slot's head must agree across the nodes and every
+    node's attestation pool must hold every vote of the slot; each wait is
+    bounded.  ``metrics``: a registry per node (or None)."""
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.ssz import Fields
+    from lodestar_tpu_torch.state_transition import (
+        clone_state, compute_epoch_at_slot, process_slots)
+
+    split = sim_split(n_validators)
+    nodes = [SimNode(i, split[i], n_validators, verifiers[i],
+                     metrics=metrics[i] if metrics else None) for i in range(NET_SIM_SPLIT)]
+    try:
+        p0 = await nodes[0].net.listen(0)
+        p1 = await nodes[1].net.listen(0)
+        await asyncio.wait_for(nodes[1].net.connect("127.0.0.1", p0), NET_WAIT_S)
+        await asyncio.wait_for(nodes[2].net.connect("127.0.0.1", p1), NET_WAIT_S)
+        if on_start is not None:
+            on_start()
+        heads, votes, head_wait, vote_wait = [], 0, [], []
+        t0 = time.perf_counter()
+        for slot in range(1, n_slots + 1):
+            for n in nodes:
+                n.dev.clock.set_slot(slot)
+            state = clone_state(MINIMAL, nodes[0].chain.head_state())
+            ctx = process_slots(MINIMAL, nodes[0].chain.cfg, state, slot)
+            proposer = ctx.get_beacon_proposer(slot)
+            owner = next(n for n in nodes if proposer in n.owned)
+            att_slot = slot - MINIMAL.MIN_ATTESTATION_INCLUSION_DELAY
+            aggs = []
+            if att_slot >= 1:
+                for data_root in list(owner.chain.att_pool._by_slot.get(att_slot, {})):
+                    agg = owner.chain.att_pool.get_aggregate(att_slot, data_root)
+                    if agg is not None:
+                        aggs.append(agg)
+            epoch = compute_epoch_at_slot(MINIMAL, slot)
+            randao = owner.dev._sign_randao(state, proposer, epoch)
+            block, _ = owner.chain.produce_block(slot, randao,
+                                                 attestations=aggs[:MINIMAL.MAX_ATTESTATIONS])
+            signed = Fields(message=block, signature=owner.dev._sign_block(state, block, proposer))
+            root = await owner.chain.process_block(signed)
+            await owner.net.publish_block(signed)
+            head_wait.append(await wait_until(
+                lambda: all(n.chain.head_root == root for n in nodes),
+                f"every node's head at slot {slot}"))
+            heads.append(root.hex())
+            expected = 0
+            for n in nodes:
+                for att, subnet in attest_subset(n, slot):
+                    n.chain.att_pool.add(att)
+                    await n.net.publish_attestation(att, subnet=subnet)
+                    n.own_votes += 1
+                    expected += 1
+            votes += expected
+            vote_wait.append(await wait_until(
+                lambda: all(pool_votes(n, slot) >= expected for n in nodes),
+                f"every node's pool holding the {expected} votes of slot {slot}"))
+        wall = time.perf_counter() - t0
+    finally:
+        for n in nodes:
+            await n.close()
+    outcomes = [dict(head=n.chain.head_root.hex(),
+                     justified=[int(n.chain.head_state().current_justified_checkpoint.epoch),
+                                bytes(n.chain.head_state().current_justified_checkpoint.root).hex()],
+                     finalized=[int(n.chain.head_state().finalized_checkpoint.epoch),
+                                bytes(n.chain.head_state().finalized_checkpoint.root).hex()])
+                for n in nodes]
+    if any(o != outcomes[0] for o in outcomes) or outcomes[0]["justified"][0] < 1:
+        raise AssertionError(f"sim: the nodes end at {outcomes}")
+    for n in nodes:
+        # every vote of the other two nodes crossed the wire and verified
+        if n.att_failed or len(n.att_waits) != votes - n.own_votes:
+            raise AssertionError(f"sim: node {n.index} validated {len(n.att_waits)} gossip "
+                                 f"attestations ({n.att_failed} failed) of "
+                                 f"{votes - n.own_votes}")
+    per_node = []
+    for n in nodes:
+        per_node.append(dict(
+            validators=[min(n.owned), max(n.owned)], own_votes=n.own_votes,
+            att_validated=len(n.att_waits),
+            att_failed=n.att_failed, att_wait_s=percentiles(n.att_waits),
+            blocks=len(n.block_waits), block_pool_wait_s=percentiles(n.block_waits),
+            batches=n.batches.batches,
+            state_transition_s=(n.metrics.state_transition_seconds.sum
+                                / max(1, n.metrics.state_transition_seconds.count))
+            if n.metrics is not None else None))
+    return dict(outcome=outcomes[0], heads=heads, slots=n_slots, votes=votes, wall=wall,
+                slots_per_s=n_slots / wall, head_wait_s=percentiles(head_wait),
+                vote_wait_s=percentiles(vote_wait), nodes=per_node)
+
+
+def host_sim(n_validators: int = NET_VALIDATORS, n_slots: int = NET_SIM_SLOTS) -> dict:
+    """18b on the host, in a pool process: the same sim over the port's
+    ``FastBlsVerifier`` (C) for the card's run to equal."""
+    torch.set_num_threads(1)
+    from lodestar_tpu_torch.crypto.bls.native_verifier import FastBlsVerifier
+
+    verifier = FastBlsVerifier()
+    return asyncio.run(three_node_sim([verifier] * NET_SIM_SPLIT, n_validators, n_slots))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rest_get(port: int, path: str, timeout: float = 30.0):
+    """GET a child's REST route: (status, body bytes, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def rest_json(port: int, path: str) -> dict:
+    status, body, _ = rest_get(port, path)
+    if status != 200:
+        raise AssertionError(f"cli: GET {path} on port {port} gave {status}: {body[:200]!r}")
+    return json.loads(body)
+
+
+def poll_rest(port: int, path: str, pred, what: str, timeout: float, proc) -> dict:
+    """Poll a child's route until ``pred(json)`` holds; raises when the
+    child exits or ``timeout`` passes."""
+    import urllib.error
+
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"cli: the child exited ({proc.returncode}) before {what}")
+        try:
+            doc = rest_json(port, path)
+            if pred(doc):
+                return doc
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"cli: {what} not reached in {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def log_seconds(path: str, needle: str):
+    """The time of the first stderr log line holding ``needle`` (the
+    command's text format: ``YYYY-MM-DD HH:MM:SS,mmm LEVEL ...``)."""
+    import datetime
+
+    with open(path, errors="replace") as f:
+        for line in f:
+            if needle in line:
+                stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+                return stamp.timestamp(), line.rstrip()
+    return None, None
+
+
+CLI_FAMILIES = ("lodestar_peers", "lodestar_gossip_", "lodestar_reqresp_",
+                "lodestar_range_sync_", "lodestar_api_")
+
+
+def cli_child(cmd: str, flags, out_dir: str, name: str) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    argv = [sys.executable, "-m", "lodestar_tpu_torch.cli", cmd, *flags]
+    log(f"cli: starting {name}: {' '.join(argv[1:])}")
+    return subprocess.Popen(argv, cwd=REPO, env=env, stdout=open(os.path.join(out_dir, f"{name}.out"), "w"),
+                   stderr=open(os.path.join(out_dir, f"{name}.err"), "w"))
+
+
+def check_node_routes(port: int, name: str, peers: int, card: bool = True) -> dict:
+    """The checks of 18c on one child's REST: one connected peer, the
+    verifier's stages, the card's executor healthy (``card``; a host
+    verifier has neither), the new metric families (when the child can
+    expose them); each route's latency."""
+    ms = {}
+    for path in ("/eth/v1/node/syncing", "/eth/v1/node/peer_count", "/eth/v1/lodestar/bls_stages",
+                 "/eth/v1/lodestar/health", "/eth/v1/lodestar/observatory", "/metrics",
+                 "/eth/v1/beacon/headers/head"):
+        status, body, dt = rest_get(port, path)
+        ms[path] = round(dt * 1e3, 3)
+        if status not in (200, 206):
+            raise AssertionError(f"cli: {name} {path} gave {status}: {body[:200]!r}")
+    count = rest_json(port, "/eth/v1/node/peer_count")["data"]
+    if int(count["connected"]) != peers:
+        raise AssertionError(f"cli: {name} has {count} peers, expected {peers} connected")
+    stages = rest_json(port, "/eth/v1/lodestar/bls_stages")["data"]
+    st = stages["stage_seconds"]
+    health = rest_json(port, "/eth/v1/lodestar/health")["data"]
+    execs = health.get("executors") or {}
+    if card:
+        if stages["verifier"] != "TorchBlsVerifier" or not (
+                st.get("pack", 0) > 0 and st.get("dispatch", 0) + st.get("sync", 0) > 0
+                and st.get("final_exp", 0) > 0):
+            raise AssertionError(f"cli: {name} bls_stages {stages}")
+        if not execs or any(h.get("state") != "healthy" for h in execs.values()):
+            raise AssertionError(f"cli: {name} executors {execs}")
+    elif stages["verifier"] != "FastBlsVerifier" or execs:
+        raise AssertionError(f"cli: {name} bls_stages {stages}, executors {execs}")
+    status, body, _ = rest_get(port, "/metrics")
+    text = body.decode(errors="replace")
+    try:
+        import prometheus_client  # noqa: F401
+        have_prom = True
+    except ImportError:
+        have_prom = False
+    if have_prom:
+        missing = [f for f in CLI_FAMILIES if f not in text]
+        if missing:
+            raise AssertionError(f"cli: {name} /metrics lacks {missing}")
+    observatory = rest_json(port, "/eth/v1/lodestar/observatory")["data"]
+    return dict(route_ms=ms, stages=st, executors=execs, dispatches=stages["dispatches"],
+                sets_verified=stages["sets_verified"], metrics_checked=have_prom,
+                metrics_bytes=len(body), compile_ledger=observatory["compile_ledger"]["by_entry"])
+
+
+def run_cli_pair(out_dir: str, validators: int = NET_VALIDATORS, dev_head: int = CLI_DEV_HEAD,
+                 host: bool = False, timeout: float = 600) -> dict:
+    """18c: the README's two-node sync with the port's commands, each a
+    child process on card 0 serving REST (``host``: both on
+    ``--bls-verifier native``, the CPU rehearsal's).  Each wait is bounded
+    by ``timeout`` seconds."""
+    import signal
+
+    os.makedirs(out_dir, exist_ok=True)
+    p2p, rest_dev, rest_beacon, p2p_beacon = (free_port() for _ in range(4))
+    common = ["--validators", str(validators), "--bls-buckets",
+              ",".join(map(str, NET_BUCKETS)), "--bls-warmup", "blocking", "--metrics"]
+    if host:
+        common += ["--bls-verifier", "native"]
+    out = {}
+    t_dev = time.perf_counter()
+    dev_proc = cli_child("dev", ["--slots", "0", "--listen-port", str(p2p), "--rest-port",
+                                 str(rest_dev), *common], out_dir, "dev")
+    beacon_proc = None
+    try:
+        poll_rest(rest_dev, "/eth/v1/node/syncing", lambda d: True, "the dev node's REST",
+                  timeout, dev_proc)
+        out["dev_rest_up_s"] = time.perf_counter() - t_dev
+        h0 = int(rest_json(rest_dev, "/eth/v1/node/syncing")["data"]["head_slot"])
+        t0 = time.perf_counter()
+        doc = poll_rest(rest_dev, "/eth/v1/node/syncing",
+                        lambda d: int(d["data"]["head_slot"]) > dev_head,
+                        f"the dev node's head past slot {dev_head}", timeout, dev_proc)
+        h1 = int(doc["data"]["head_slot"])
+        out["dev_blocks_per_s"] = (h1 - h0) / (time.perf_counter() - t0)
+        t_beacon = time.perf_counter()
+        beacon_proc = cli_child("beacon", ["--connect", f"127.0.0.1:{p2p}", "--listen-port",
+                                           str(p2p_beacon), "--rest-port", str(rest_beacon),
+                                           *common], out_dir, "beacon")
+        err = os.path.join(out_dir, "beacon.err")
+        deadline = time.perf_counter() + timeout
+        while log_seconds(err, "synced ")[0] is None:
+            if beacon_proc.poll() is not None:
+                raise AssertionError(f"cli: the beacon child exited ({beacon_proc.returncode})")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"cli: the beacon child did not sync in {timeout:.0f} s")
+            time.sleep(0.2)
+        out["beacon_synced_after_s"] = time.perf_counter() - t_beacon
+        t_up, up_line = log_seconds(err, "beacon node: p2p port")
+        t_sync, sync_line = log_seconds(err, "synced ")
+        n_synced = int(sync_line.split("synced ")[1].split()[0])
+        out["beacon_range_sync"] = dict(blocks=n_synced, seconds=t_sync - t_up,
+                                        blocks_per_s=n_synced / (t_sync - t_up))
+        for name, path in (("dev", os.path.join(out_dir, "dev.err")), ("beacon", err)):
+            _, warm = log_seconds(path, "bls warmup:")
+            out[f"{name}_warmup_line"] = warm
+        syncing = rest_json(rest_beacon, "/eth/v1/node/syncing")["data"]
+        if syncing["is_syncing"]:
+            raise AssertionError(f"cli: the beacon node reports syncing {syncing}")
+        head = rest_json(rest_beacon, "/eth/v1/beacon/headers/head")["data"]
+        slot = int(head["header"]["message"]["slot"])
+        # the dev chain has one producer: its block of that root is its
+        # block of that slot
+        dev_at = rest_json(rest_dev, f"/eth/v1/beacon/headers/{head['root']}")["data"]
+        if dev_at["header"] != head["header"] or slot < dev_head:
+            raise AssertionError(f"cli: the beacon node's head {head} is not the dev node's "
+                                 f"{dev_at}")
+        out["beacon_head"] = dict(slot=slot, root=head["root"])
+        out["dev"] = check_node_routes(rest_dev, "dev", 1, card=not host)
+        out["beacon"] = check_node_routes(rest_beacon, "beacon", 1, card=not host)
+    finally:
+        for proc in (beacon_proc, dev_proc):
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+        codes = {}
+        for name, proc in (("beacon", beacon_proc), ("dev", dev_proc)):
+            if proc is not None:
+                try:
+                    codes[name] = proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    codes[name] = proc.wait()
+        out["exit_codes"] = codes
+    for name in codes:
+        with open(os.path.join(out_dir, f"{name}.err"), errors="replace") as f:
+            text = f.read()
+        if "Traceback" in text or codes[name] != 0:
+            raise AssertionError(f"cli: the {name} child exited {codes[name]}; stderr tail "
+                                 f"{text[-2000:]}")
+    with open(os.path.join(out_dir, "dev.out")) as f:
+        out["dev_final"] = json.loads(f.read().strip().splitlines()[-1])
+    return out
+
+
+def run_network(dev, card: str, pool) -> dict:
+    """Phase 18: the node's network face with every pool on the card's
+    split fused verifier: range sync over the wire (18a), three nodes over
+    gossip held against the host's run of the same sim (18b), and the
+    ``dev`` / ``beacon`` commands as child processes (18c)."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import fused_core
+
+    out = {}
+    with Phase("18 network"):
+        host = pool.apply_async(host_sim)
+        verifier = TorchBlsVerifier(device=dev, buckets=NET_BUCKETS,
+                                    rng=np.random.default_rng(SEED + 180))
+        if not (verifier.fused and verifier.host_final_exp):
+            raise AssertionError("network: the verifier is not the split fused default")
+        warm = verifier.warmup()
+        log(f"network: split fused graphs at buckets {NET_BUCKETS} warmed in {warm:.2f} s")
+
+        def zero():
+            fused_core.reset_launch_counts()
+            sync_all()
+
+        # 18a: range sync over the wire
+        d0, stages0 = verifier.dispatches, dict(verifier.stage_seconds)
+        rs = asyncio.run(sync_pair(verifier, on_start=zero))
+        rs["launches"] = chain_launches(FUSED)
+        rs["dispatches"] = verifier.dispatches - d0
+        rs["stage_seconds"] = {k: verifier.stage_seconds[k] - stages0.get(k, 0.0)
+                               for k in verifier.stage_seconds if k != "warmup"}
+        rs["buckets"] = {}
+        for _, n in rs["batches"]:
+            b = verifier._bucket(n)
+            rs["buckets"][b] = rs["buckets"].get(b, 0) + 1
+        log("range sync: " + json.dumps({k: v for k, v in rs.items() if k != "launches"}))
+        log(f"range sync: {rs['imported']} blocks at {NET_VALIDATORS} validators over the "
+            f"loopback in {rs['wall']:.3f} s = {rs['blocks_per_s']:.3f} blocks/s, "
+            f"{rs['segments']} segments, buckets {rs['buckets']} [{card}]")
+        idle = [name for name in FUSED if rs["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"range sync: kernels never launched {idle}")
+        out["range_sync"] = rs
+
+        # 18b: three nodes over gossip, one verifier for the three pools
+        metrics = [TallyMetrics() for _ in range(NET_SIM_SPLIT)]
+        d0, stages0 = verifier.dispatches, dict(verifier.stage_seconds)
+        sim = asyncio.run(three_node_sim([verifier] * NET_SIM_SPLIT, metrics=metrics,
+                                         on_start=zero))
+        sim["launches"] = chain_launches(FUSED)
+        sim["dispatches"] = verifier.dispatches - d0
+        sim["stage_seconds"] = {k: verifier.stage_seconds[k] - stages0.get(k, 0.0)
+                                for k in verifier.stage_seconds if k != "warmup"}
+        for node in sim["nodes"]:
+            by = {}
+            for lanes, n in node["batches"]:
+                key = f"{lanes}@{verifier._bucket(n)}"
+                by[key] = by.get(key, 0) + 1
+            node["batches_by_lane_and_bucket"] = by
+            node["batch_count"] = len(node.pop("batches"))
+        log("gossip sim: " + json.dumps({k: v for k, v in sim.items()
+                                         if k not in ("launches", "heads")}))
+        log(f"gossip sim: {sim['slots']} slots, {sim['votes']} single-bit attestations over "
+            f"three nodes in {sim['wall']:.3f} s = {sim['slots_per_s']:.3f} slots/s; "
+            f"justified {sim['outcome']['justified'][0]}, finalized "
+            f"{sim['outcome']['finalized'][0]} [{card}]")
+        idle = [name for name in FUSED if sim["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"gossip sim: kernels never launched {idle}")
+        ref = host.get(timeout=900)
+        log(f"gossip sim: host run {ref['wall']:.3f} s = {ref['slots_per_s']:.3f} slots/s "
+            f"(FastBlsVerifier in a pool process)")
+        if ref["outcome"] != sim["outcome"] or ref["heads"] != sim["heads"]:
+            raise AssertionError(f"gossip sim: the card's outcome {sim['outcome']} is not the "
+                                 f"host's {ref['outcome']}")
+        out["gossip"] = sim
+        log("network: launches over range sync " + json.dumps(rs["launches"])
+            + "; over the gossip sim " + json.dumps(sim["launches"]))
+        verifier.close()
+
+        # 18c: the commands
+        torch.cuda.empty_cache()
+        cli = run_cli_pair(os.path.join(REPO, "chiprun_out", "chip_smoke_cli"))
+        log("cli: " + json.dumps(cli))
+        log(f"cli: dev node {cli['dev_blocks_per_s']:.3f} blocks/s; beacon node range-synced "
+            f"{cli['beacon_range_sync']['blocks']} blocks at "
+            f"{cli['beacon_range_sync']['blocks_per_s']:.3f} blocks/s; heads equal at slot "
+            f"{cli['beacon_head']['slot']} [{card}]")
+        out["cli"] = cli
+    return out
+
+
 # -- phase 16: the analysis layer on the card ---------------------------------------
+
+
+def analysis_in_child(card: str) -> dict:
+    """Phase 16 in a host process of the pool: the kernels line's
+    columns (the report stays in the child)."""
+    return {"kernels": run_analysis(card)["kernels"]}
 
 
 def run_analysis(card: str) -> dict:

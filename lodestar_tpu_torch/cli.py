@@ -1,14 +1,21 @@
-"""The port's command-line part: the BLS verifier's flags, the verifier and
-pool they make, and the observability they turn on (the port's copy of
-the BLS and observability part of the JAX package's ``cli.py``).
+"""The port's command line: the node's ``dev`` and ``beacon`` commands,
+and the BLS verifier's flags, the verifier and pool they make, and the
+observability they turn on (the port's copy of the JAX package's
+``cli.py``).
+
+Entry: ``python -m lodestar_tpu_torch.cli dev|beacon [flags]``.  Both
+commands verify through ``BlsBatchPool`` over ``TorchBlsVerifier`` on the
+card by default; ``--bls-verifier native`` runs them on the host's C
+verifier.  The ``validator``, ``lightclient``, ``account`` and ``init``
+commands are not registered yet: asking for one is argparse's "invalid
+choice" error.
 
 ``add_bls_flags(parser)`` adds the JAX CLI's verifier, pool, tracing,
 forensics, profile and telemetry flags under their names and defaults,
 with three changes: the ``--bls-verifier`` choice ``tpu`` is ``torch``,
 ``--jax-profile`` is ``--torch-profile``, and ``--bls-cache-dir`` (the
-JAX compilation cache) is gone.  A node's commands (``dev``, ``beacon``,
-``validator``) wait for the chain modules they drive; a program that
-verifies signature sets builds on these helpers::
+JAX compilation cache) is gone.  A program that verifies signature sets
+builds on these helpers, as the node's commands do::
 
     ap = argparse.ArgumentParser(); add_bls_flags(ap); args = ap.parse_args()
     configure_tracing(args)
@@ -27,13 +34,14 @@ store cannot serve raises ``AotStoreMiss``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import logging
 import os
 import sys
 from typing import Optional
 
-logger = logging.getLogger(__name__)
+logger = logging.getLogger("lodestar_tpu_torch.cli")
 
 
 def add_bls_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -222,6 +230,8 @@ def make_verifier(args, device=None):
     blocking), and a ``--bls-warmup-load-only`` warmup raises
     ``AotStoreMiss`` when the store cannot serve the library."""
     choice = getattr(args, "bls_verifier", "auto")
+    if getattr(args, "tpu_bls", False):
+        choice = "torch"
     if choice in ("auto", "torch"):
         from .aot import AOT_STORE
         from .crypto.bls.torch_verifier import TorchBlsVerifier
@@ -437,3 +447,329 @@ def dump_trace(path) -> None:
     tracing.write_chrome_trace(tracing.TRACER, path)
     logger.info("wrote %d spans (%d dropped) to %s", len(tracing.TRACER),
                 tracing.TRACER.dropped, path)
+
+
+# -- the node's commands ---------------------------------------------------------
+
+
+def _hex_bytes(value: str, length: int, flag: str) -> bytes:
+    """A CLI hex argument (0x optional), refused at start-up when it is not
+    hex or not ``length`` bytes long."""
+    raw = value[2:] if value.startswith("0x") else value
+    try:
+        out = bytes.fromhex(raw)
+    except ValueError:
+        raise SystemExit(f"{flag}: not valid hex: {value!r}")
+    if len(out) != length:
+        raise SystemExit(
+            f"{flag}: expected {length} bytes ({length * 2} hex chars), got {len(out)}"
+        )
+    return out
+
+
+def _preset(name: str):
+    from .params import MAINNET, MINIMAL
+
+    return {"mainnet": MAINNET, "minimal": MINIMAL}[name]
+
+
+def _chain_config(args):
+    from .config.chain_config import ChainConfig
+
+    kw = dict(
+        PRESET_BASE=args.preset,
+        MIN_GENESIS_TIME=0,
+        SHARD_COMMITTEE_PERIOD=0 if args.preset == "minimal" else 256,
+        MIN_GENESIS_ACTIVE_VALIDATOR_COUNT=args.validators or 16,
+    )
+    if args.altair_epoch is not None:
+        kw["ALTAIR_FORK_EPOCH"] = args.altair_epoch
+    if args.bellatrix_epoch is not None:
+        kw["BELLATRIX_FORK_EPOCH"] = args.bellatrix_epoch
+    return ChainConfig(**kw)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The ``dev`` and ``beacon`` commands with the JAX CLI's flags (the
+    BLS and observability ones from ``add_bls_flags``)."""
+    ap = argparse.ArgumentParser(prog="lodestar-tpu-torch", description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def common(p):
+        p.add_argument("--preset", choices=["mainnet", "minimal"], default="minimal")
+        p.add_argument("--db", help="sqlite db path (default: in-memory)")
+        p.add_argument("--rest-port", type=int, default=9596)
+        p.add_argument("--metrics", action="store_true")
+        p.add_argument("--listen-port", type=int, default=9000)
+        p.add_argument("--connect", action="append", default=[],
+                       help="peer host:port to dial (repeatable)")
+        p.add_argument("--altair-epoch", type=int, default=None)
+        p.add_argument("--bellatrix-epoch", type=int, default=None)
+        p.add_argument("--validators", type=int, default=16)
+        p.add_argument("--config", help="JSON rc file of persisted flag values "
+                       "(explicit CLI flags win)")
+        add_bls_flags(p)
+
+    dev = sub.add_parser("dev", help="single-process interop chain (cmds/dev)")
+    common(dev)
+    dev.add_argument("--slots", type=int, default=32, help="slots to run (0 = forever)")
+    dev.add_argument("--tpu-bls", action="store_true",
+                     help="alias for --bls-verifier torch (the JAX CLI's flag)")
+
+    beacon = sub.add_parser("beacon", help="beacon node (cmds/beacon)")
+    common(beacon)
+    beacon.add_argument("--genesis-state", help="SSZ genesis state file")
+    beacon.add_argument("--discovery-port", type=int, default=None,
+                        help="UDP discovery port (0 = ephemeral; omit to disable)")
+    beacon.add_argument("--bootnode", action="append", default=[],
+                        help="discovery bootstrap host:udp_port (repeatable)")
+    beacon.add_argument(
+        "--checkpoint-sync-url",
+        help="trusted beacon REST URL to fetch the finalized state from "
+        "(initBeaconState.ts:104-136); backfill then earns history backwards",
+    )
+    beacon.add_argument("--execution-url",
+                        help="Engine API JSON-RPC endpoint (execution/engine/http.ts)")
+    beacon.add_argument("--jwt-secret",
+                        help="file holding the hex-encoded engine jwt secret")
+    beacon.add_argument("--builder-url",
+                        help="MEV builder REST endpoint (execution/builder/http.ts)")
+    beacon.add_argument("--builder-pubkey",
+                        help="hex BLS pubkey pinning the builder identity; "
+                        "bids signed by any other key are refused")
+    beacon.add_argument("--suggested-fee-recipient", default="0x" + "00" * 20,
+                        help="node-default fee recipient when a proposer sent "
+                        "no preparation")
+    return ap
+
+
+async def run_dev(args) -> int:
+    """A single-process interop chain that produces a block a slot, with
+    the network listener and the REST API; prints the head as JSON when
+    ``--slots`` ends it (or SIGINT, with ``--slots 0``)."""
+    from .api import RestApiServer
+    from .chain.handlers import GossipHandlers
+    from .chain.light_client import LightClientServer
+    from .db.beacon import BeaconDb
+    from .db.controller import MemoryDbController, SqliteDbController
+    from .metrics import create_metrics
+    from .network import Network
+    from .node.dev_chain import DevChain
+
+    preset = _preset(args.preset)
+    cfg = _chain_config(args)
+    configure_tracing(args)
+    metrics = create_metrics() if args.metrics else None
+    pool = make_pool(args, metrics=metrics)
+    configure_forensics(args, metrics=metrics, pool=pool)
+    controller = SqliteDbController(args.db) if args.db else MemoryDbController()
+    db = BeaconDb(preset, controller)
+    dev = DevChain(preset, cfg, args.validators, pool, db=db)
+    handlers = GossipHandlers(dev.chain)
+    lc_server = LightClientServer(preset, dev.chain)
+    network = Network(preset, dev.chain, handlers)
+    await network.listen(args.listen_port)
+    for target in args.connect:
+        host, _, port = target.partition(":")
+        await network.connect(host, int(port))
+    rest = RestApiServer(preset, dev.chain, network=network,
+                         metrics_registry=metrics.reg if metrics else None)
+    rest.gossip_handlers = handlers
+    rest.light_client_server = lc_server
+    await rest.listen(args.rest_port)
+    logger.info("dev chain: %d validators, %s preset; p2p port %s, rest port %s",
+                args.validators, args.preset, network.port, rest.port)
+    n = args.slots if args.slots else 1 << 62
+    try:
+        await dev.run(n)
+    except asyncio.CancelledError:
+        # SIGINT on a node that runs forever: report the head and close
+        logger.info("dev chain stopped")
+    state = dev.chain.head_state()
+    print(
+        json.dumps(
+            {
+                "head_slot": int(state.slot),
+                "justified_epoch": int(state.current_justified_checkpoint.epoch),
+                "finalized_epoch": int(state.finalized_checkpoint.epoch),
+            }
+        ),
+        flush=True,
+    )
+    await network.close()
+    await rest.close()
+    pool.close()
+    return 0
+
+
+async def run_beacon(args) -> int:
+    """A (non-producing) beacon node: a db-resumed, checkpoint or genesis
+    state, the network listener and the REST API; it range-syncs from its
+    peers, then follows gossip until SIGINT.  Reference:
+    cmds/beacon/handler.ts + initBeaconState.ts:104-136."""
+    from .api import RestApiServer
+    from .chain.beacon_chain import BeaconChain
+    from .chain.handlers import GossipHandlers
+    from .db.beacon import BeaconDb
+    from .db.controller import MemoryDbController, SqliteDbController
+    from .network import Network
+    from .state_transition import interop_genesis_state
+    from .sync import RangeSync
+
+    preset = _preset(args.preset)
+    cfg = _chain_config(args)
+    configure_tracing(args)
+    controller = SqliteDbController(args.db) if args.db else MemoryDbController()
+    db = BeaconDb(preset, controller)
+    anchor_block_root = None
+    if args.checkpoint_sync_url:
+        from .node.checkpoint_sync import fetch_checkpoint_state
+
+        genesis, anchor_block, anchor_block_root = await fetch_checkpoint_state(
+            preset, cfg, args.checkpoint_sync_url
+        )
+        db.block.put(anchor_block_root, anchor_block)
+        db.archive_block(anchor_block, anchor_block_root)
+    elif args.genesis_state:
+        from .types import get_types
+
+        with open(args.genesis_state, "rb") as f:
+            raw = f.read()
+        genesis = get_types(preset).phase0.BeaconState.deserialize(raw)
+    else:
+        resumed = db.last_archived_state()
+        genesis = resumed or interop_genesis_state(preset, cfg, args.validators, 1)
+    from .metrics import create_metrics
+
+    metrics = create_metrics()
+    pool = make_pool(args, metrics=metrics)
+    configure_forensics(args, metrics=metrics, pool=pool)
+    execution_engine = None
+    if args.execution_url:
+        from urllib.parse import urlparse as _urlparse
+
+        from .execution.engine import ExecutionEngineHttp, jwt_supplier_from_secret
+
+        jwt_supplier = None
+        if args.jwt_secret:
+            with open(args.jwt_secret) as f:
+                secret = f.read().strip().replace("0x", "")
+            jwt_supplier = jwt_supplier_from_secret(bytes.fromhex(secret))
+        eu = _urlparse(args.execution_url)
+        execution_engine = ExecutionEngineHttp(
+            eu.hostname or "127.0.0.1", eu.port or 8551, jwt_supplier=jwt_supplier
+        )
+    builder = None
+    if args.builder_url:
+        from urllib.parse import urlparse as _urlparse
+
+        from .execution.builder import ExecutionBuilderHttp
+
+        bu = _urlparse(args.builder_url)
+        builder = ExecutionBuilderHttp(
+            bu.hostname or "127.0.0.1", bu.port or 18550,
+            pubkey=_hex_bytes(args.builder_pubkey, 48, "--builder-pubkey")
+            if args.builder_pubkey else None,
+        )
+    chain = BeaconChain(
+        preset, cfg, genesis, pool, db=db, metrics=metrics,
+        execution_engine=execution_engine, builder=builder,
+        default_fee_recipient=_hex_bytes(
+            args.suggested_fee_recipient, 20, "--suggested-fee-recipient"
+        ),
+    )
+    handlers = GossipHandlers(chain)
+    network = Network(preset, chain, handlers, metrics=metrics)
+    await network.listen(args.listen_port)
+    for target in args.connect:
+        host, _, port = target.partition(":")
+        peer = await network.connect(host, int(port))
+        logger.info("connected to %s (head slot %s)", target, peer.status.head_slot)
+    rest = RestApiServer(preset, chain, network=network,
+                         metrics_registry=metrics.reg, metrics=metrics)
+    rest.gossip_handlers = handlers
+    await rest.listen(args.rest_port)
+    logger.info("beacon node: p2p port %s, rest port %s", network.port, rest.port)
+    if args.discovery_port is not None:
+        import secrets as _secrets
+
+        from .crypto.bls.api import SecretKey as _SK
+        from .crypto.bls.fields import R as _R
+
+        identity = _SK.from_bytes(
+            (int.from_bytes(_secrets.token_bytes(32), "big") % (_R - 1) + 1).to_bytes(32, "big")
+        )
+        boots = []
+        for b in args.bootnode:
+            bh, _, bp = b.partition(":")
+            boots.append((bh, int(bp)))
+        await network.enable_discovery(identity, args.discovery_port, bootstrap=boots)
+    backfill_task = None
+    if anchor_block_root is not None:
+        from .sync.backfill import BackfillSync
+
+        backfill = BackfillSync(
+            preset, cfg, db, pool, genesis, anchor_block_root,
+            network.peer_manager, metrics=metrics,
+        )
+        backfill_task = asyncio.create_task(backfill.run())
+    sync = RangeSync(
+        preset, chain, network.peer_manager, metrics=metrics,
+        report_peer=network.report_peer,
+    )
+    try:
+        imported = await sync.run_to_head()
+        if backfill_task is not None:
+            stored = await backfill_task
+            logger.info("backfill stored %d historical blocks", stored)
+        logger.info("synced %d blocks; following gossip (ctrl-c to stop)", imported)
+        while True:
+            await asyncio.sleep(3600)
+    except (KeyboardInterrupt, asyncio.CancelledError):
+        logger.info("beacon node stopped")
+    await network.close()
+    await rest.close()
+    pool.close()
+    return 0
+
+
+def _apply_config_file(args, argv) -> None:
+    """Overlay persisted rc values: an rc value applies unless the same
+    flag was given on the command line."""
+    path = getattr(args, "config", None)
+    if not path:
+        return
+    with open(path) as f:
+        persisted = json.load(f)
+    explicit = set()
+    for tok in argv or sys.argv[1:]:
+        if tok.startswith("--"):
+            explicit.add(tok[2:].split("=", 1)[0].replace("-", "_"))
+    for key, value in persisted.items():
+        if key in ("cmd", "out", "config") or key in explicit:
+            continue
+        if hasattr(args, key):
+            setattr(args, key, value)
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        _apply_config_file(args, argv)
+    except (OSError, ValueError) as e:
+        print(f"bad --config file: {e}", file=sys.stderr)
+        return 2
+    run = {"dev": run_dev, "beacon": run_beacon}[args.cmd]
+    if getattr(args, "log_format", None) is None:
+        _set_log_format("text")
+    try:
+        return asyncio.run(run(args))
+    finally:
+        # in the finally: a SIGINT on a node that runs forever still
+        # writes the trace and the merged profile
+        dump_trace(getattr(args, "trace_dump", None))
+        finalize_profile(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -93,9 +93,9 @@ class Metrics:
     the recorder and the tracer; the chain's (block import, state
     transition, state caches and regen, op pools, the next-slot
     precompute, the clock), the database controller's and the validator
-    monitor's.  Left out: the network, sync and REST API groups (their
-    modules are not ported yet), and the degrade ladder's counter (the
-    port has no ladder).  The compile ledger
+    monitor's; the network's (peers, gossip, req/resp), range sync's and
+    backfill's, and the REST API server's.  Left out: the degrade
+    ladder's counter (the port has no ladder).  The compile ledger
     (``observatory.compile_ledger``) observes ``bls_compile_seconds``."""
 
     def __init__(self):
@@ -410,6 +410,67 @@ class Metrics:
         )
         self.db_ops_total = r.counter(
             "lodestar_db_ops_total", "db controller operations", labels=("op",)
+        )
+        # the network (network/metrics.ts): peers, gossip, req/resp
+        self.peers = r.gauge("lodestar_peers", "connected peers")
+        self.gossip_messages_total = r.counter(
+            "lodestar_gossip_messages_total", "gossip messages", labels=("dir",)
+        )
+        self.gossip_queue_dropped_total = r.counter(
+            "lodestar_gossip_queue_dropped_total", "dropped gossip jobs", labels=("topic",)
+        )
+        self.gossip_mesh_peers = r.gauge(
+            "lodestar_gossip_mesh_peers", "mesh degree per topic", labels=("topic",)
+        )
+        self.gossip_peer_score = r.histogram(
+            "lodestar_gossip_peer_score",
+            "gossip peer score distribution at heartbeat",
+            buckets=(-100, -10, -1, 0, 1, 10, 100),
+        )
+        self.gossip_control_total = r.counter(
+            "lodestar_gossip_control_total",
+            "gossipsub control records",
+            labels=("kind", "dir"),
+        )
+        self.gossip_validation_total = r.counter(
+            "lodestar_gossip_validation_total",
+            "gossip validation verdicts",
+            labels=("topic", "verdict"),
+        )
+        self.reqresp_request_seconds = r.histogram(
+            "lodestar_reqresp_request_seconds",
+            "outbound req/resp round-trip latency",
+            buckets=(0.01, 0.05, 0.1, 0.5, 1, 5, 10),
+            labels=("method",),
+        )
+        self.reqresp_errors_total = r.counter(
+            "lodestar_reqresp_errors_total",
+            "req/resp failures",
+            labels=("method", "reason"),
+        )
+        # sync (sync/range_sync.py, sync/backfill.py)
+        self.sync_batches_total = r.counter(
+            "lodestar_range_sync_batches_total", "range sync batches imported"
+        )
+        self.sync_blocks_total = r.counter(
+            "lodestar_range_sync_blocks_total", "blocks imported via range sync"
+        )
+        self.sync_batch_seconds = r.histogram(
+            "lodestar_range_sync_batch_seconds",
+            "range sync per-batch import wall time (download excluded)",
+            buckets=(0.1, 0.5, 1, 5, 10, 30),
+        )
+        self.backfill_blocks_total = r.counter(
+            "lodestar_backfill_blocks_total", "blocks imported via backfill sync"
+        )
+        # the REST API server (api/rest.py)
+        self.api_requests_total = r.counter(
+            "lodestar_api_requests_total", "REST API requests", labels=("status",)
+        )
+        self.api_response_seconds = r.histogram(
+            "lodestar_api_response_seconds",
+            "REST API handler latency",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5),
         )
         # the validator monitor (metrics/validator_monitor.py)
         self.monitor_proposals_total = r.counter(

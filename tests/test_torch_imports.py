@@ -35,6 +35,18 @@ CHAIN_MODULES = (
 )
 
 
+#: the node's network face and its commands' closure (utils, network,
+#: sync, api, the gossip handlers, the light-client server, the builder,
+#: checkpoint sync), copies of the JAX package's at the same relative paths
+NETWORK_MODULES = (
+    "utils/bytes", "utils/retry", "utils/snappy", *(f"network/{m}" for m in (
+        "__init__", "wire", "peer", "reqresp", "subnets", "gossip", "network", "discovery")),
+    "chain/handlers", "chain/light_client", "sync/__init__", "sync/range_sync",
+    "sync/unknown_block", "sync/backfill", "api/__init__", "api/serde", "api/rest", "api/client",
+    "execution/builder", "state_transition/weak_subjectivity", "node/checkpoint_sync",
+)
+
+
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
@@ -66,7 +78,7 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "observatory/compile_ledger", "crypto/bls/bucket_program",
                    "observatory/attribution", "observatory/device_sampler",
                    "observatory/xprof", "crypto/bls/native_verifier", "cli",
-                   *CHAIN_MODULES):
+                   *CHAIN_MODULES, *NETWORK_MODULES):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -108,7 +120,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.chain.beacon_chain\n"
         "import lodestar_tpu_torch.node.dev_chain\n"
         + "".join(f"import lodestar_tpu_torch.{m.replace('/__init__', '').replace('/', '.')}\n"
-                  for m in CHAIN_MODULES)
+                  for m in CHAIN_MODULES + NETWORK_MODULES)
         + "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
