@@ -112,8 +112,9 @@ histograms of phases 3, 6 and 11 are read from that record.
    ``warmup_sharded`` of ``TorchBlsVerifier(devices=[cuda:0] * n,
    sharded=True, sharded_min_batch=256)`` at 256 over 2 and 4 shards, in
    the full-device and the split mode, of the ring combine over 2, and of
-   the XLA-graph flavour at bucket 16 over 2 shards in both modes (each
-   program's eager run, capture and instantiation seconds, device memory
+   the XLA-graph flavour at bucket 16 over 2 shards in both modes (the
+   full run: the full-device mode only, the split one in
+   ``--sharded-only``; each program's eager run, capture and instantiation seconds, device memory
    and launches a replay); each program's replay against the eager
    ``ShardedProgram`` on one batch (256 valid, 150 live over 4 shards, 16
    valid), every launch counter 0 before each: outputs bitwise equal,
@@ -303,11 +304,46 @@ histograms of phases 3, 6 and 11 are read from that record.
     children's warmup, the dev node's blocks/s, the beacon node's range
     sync, each REST route's latency; the ten fused kernels' launches over
     18a and 18b (``launches_by_path``'s ``range_sync`` and ``gossip``).
+19. validator: the validator client, the node's pool on one split fused
+    ``TorchBlsVerifier`` on ``cuda:0`` at buckets 4, 16 and 128, warmed
+    first.  19a: a node (``DevChain``'s chain over the interop genesis of
+    128 validators, minimal preset, Altair at epoch 1, Bellatrix at 2,
+    pre-merge, a manual clock set to each slot, no producer of its own)
+    behind ``RestApiServer`` with ``GossipHandlers`` on the loopback; the
+    port's ``ValidatorClient`` with keys 0-127, a ``SlashingProtection``
+    persisted to a file and a ``ChainHeaderTracker`` drives 24 slots of
+    duties over HTTP (proposals, attestations, aggregates, sync messages
+    and contributions, signed under three fork versions); then ``python -m
+    lodestar_tpu_torch.flare self-slash-proposer`` and
+    ``self-slash-attester`` for one index each, and slot 25, whose block
+    must carry both slashings.  The same run goes on in a host process
+    over ``FastBlsVerifier``: every slot's head, the checkpoints and each
+    Altair block's sync participation (above zero) must equal the host
+    run's, every validator's vote must be in a block, both indices must be
+    slashed in the head state, and a second vote for a signed slot with
+    another root must raise ``SlashingError`` before a signature leaves
+    the store.  19b: the port's ``LightClient`` bootstraps over REST from
+    the first Altair block and follows the node's updates; its optimistic
+    and finalized headers must equal the host run's.  19c: the README's
+    validator flow as child processes: ``account create`` and ``account
+    list``; ``init`` writes an rc file and ``beacon --config`` (128
+    validators, no fork flags) starts from it on card 0; ``validator
+    --interop-indices 0..127 --slashing-protection-db F`` drives it; once
+    the node's head passes slot 8 both stop on SIGINT with exit code 0 and
+    no traceback, the head block must carry attestations, the node nonzero
+    pack, device and final-exponentiation seconds and a healthy card
+    executor, and ``F`` must be EIP-3076 interchange JSON that
+    ``SlashingProtection`` imports.  Logged: slots/s, the pool's batches by
+    lane and bucket, per slot the pool wait of the block and of the
+    duties, the children's logs in ``chiprun_out/chip_smoke_validator_cli/``,
+    and the ten fused kernels' launches over 19a (``launches_by_path``'s
+    ``validator``).  The full run runs 19c in a thread beside phase 9 (as
+    phase 16), so its rates there are taken beside phase 9.
 
 Signatures are made by a pool of host processes (each signs in the
 port's C library, ``native/fastbls``), which also run the CPU references
-and phase 17's host chain and phase 18's host sim; the pool is closed
-before the end.
+and phase 17's host chain, phase 18's host sim and phase 19's host run;
+the pool is closed before the end.
 
 The last lines: the paths side by side, the whole run's wall, the
 ``kernels`` JSON object, the card's name and power limit, and
@@ -321,19 +357,21 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --analysis-only
     python3 chip_smoke.py --chain-only
     python3 chip_smoke.py --network-only
+    python3 chip_smoke.py --validator-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
 cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), phases 1 and 14, phases 1 and 15 (signing its 256 sets
-itself), phases 1 and 16, phases 1 and 17, or phases 1 and 18, and end
-with the card line and ``{"ok": true, ...}`` without the ``kernels``
-object.
+itself), phases 1 and 16, phases 1 and 17, phases 1 and 18, or phases 1
+and 19, and end with ``{"phases": ...}``, the card line and ``{"ok": true,
+"device": {...}}`` without the ``kernels`` object.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import ctypes
 import dataclasses
 import json
@@ -1488,9 +1526,11 @@ def corrupt(sets, i: int, j: int):
     return bad
 
 
-def run_sharded(dev, card: str, sets, cpu_ref):
+def run_sharded(dev, card: str, sets, cpu_ref, xla_modes=(True, False)):
     """Phase 9: every sharded batch a replay of the verifier's per-bucket
-    ``MeshProgram``.  Returns (the full-device fused verifier over 2
+    ``MeshProgram``.  ``xla_modes``: the XLA-graph flavour's modes, each a
+    ``host_final_exp`` (the full run keeps only the full-device one, whose
+    launches are counted).  Returns (the full-device fused verifier over 2
     shards, its counted batch's launches, the XLA-graph flavour's, the
     split verifiers over 2 and 4 shards for phase 11)."""
     from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
@@ -1555,12 +1595,13 @@ def run_sharded(dev, card: str, sets, cpu_ref):
                                                                 "ring combine", card)
         hold_mesh(ring, valid, "ring combine, 2 shards, 256 valid")
 
-        # the XLA-graph flavour at bucket 16 over 2 shards, both modes: the
-        # split mode's eager run is the full mode's reference too (its
-        # final exponentiation added), the eager tier costing ~20-30 s a run
+        # the XLA-graph flavour at bucket 16 over 2 shards, in each of
+        # ``xla_modes``: the split mode's eager run is the full mode's
+        # reference too (its final exponentiation added), the eager tier
+        # costing ~20-30 s a run
         small, bad16 = sets[:XLA_SHARDED_BUCKET], corrupt(sets[:XLA_SHARDED_BUCKET], 3, 4)
         xla_launches, ref, packed16 = None, None, verifier.pack(small)
-        for host_final_exp in (True, False):
+        for host_final_exp in xla_modes:
             name = f"xla {'split' if host_final_exp else 'full-device'}, 2 shards"
             xla = tier(logical, 6 + 30 * host_final_exp, fused=False,
                        sharded_min_batch=XLA_SHARDED_BUCKET, host_final_exp=host_final_exp)
@@ -2270,7 +2311,7 @@ def main(argv) -> int:
             ("--fused-only",): "fused", ("--store-only",): "store",
             ("--observatory-only",): "observatory",
             ("--analysis-only",): "analysis", ("--chain-only",): "chain",
-            ("--network-only",): "network"}.get(tuple(argv))
+            ("--network-only",): "network", ("--validator-only",): "validator"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2293,11 +2334,7 @@ def main(argv) -> int:
     if mode == "analysis":
         run_analysis(card)
         log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
-        print(card)
-        print(json.dumps({"ok": True, "phases": "1, 16",
-                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}}))
-        return 0
+        return ok_lines(card, "1, 16")
     keys = make_keys(SHARDED_BUCKET)
     procs = min(8, os.cpu_count() or 1)
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
@@ -2314,7 +2351,9 @@ def main(argv) -> int:
             run_chain(dev, card, pool)
         if mode == "network":
             run_network(dev, card, pool)
-        if mode not in ("sharded", "store", "observatory", "chain", "network"):
+        if mode == "validator":
+            run_validator_phase(dev, card, pool)
+        if mode not in ("sharded", "store", "observatory", "chain", "network", "validator"):
             with Phase("2 kernels"):
                 registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
@@ -2334,7 +2373,7 @@ def main(argv) -> int:
                 f"dispatch [{card}]")
         if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
-        if mode not in ("store", "observatory", "chain", "network"):
+        if mode not in ("store", "observatory", "chain", "network", "validator"):
             t0 = time.perf_counter()
             sets256 = make_sets(pool, keys, b"sharded slice")
             log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes "
@@ -2345,19 +2384,31 @@ def main(argv) -> int:
             # beside phase 9, whose checks are bitwise and whose seconds are
             # only logged; it ends before phase 10 times anything
             analysis = pool.apply_async(analysis_in_child, (card,)) if mode == "all" else None
+            # so does phase 19c, the validator flow's child processes, whose
+            # checks are exit codes, REST answers and files; its rates are
+            # logged as taken beside phase 9.  The full run leaves the
+            # XLA-graph flavour's split-mode mesh capture to --sharded-only
+            cli19 = (concurrent.futures.ThreadPoolExecutor(1).submit(
+                run_cli_validator, os.path.join(REPO, "chiprun_out", "chip_smoke_validator_cli"))
+                if mode == "all" else None)
             verifier, sharded_launches, sharded_xla_launches, tiers = run_sharded(
-                dev, card, sets256, cpu_ref)
+                dev, card, sets256, cpu_ref,
+                xla_modes=(False,) if mode == "all" else (True, False))
             if analysis is not None:
                 t0 = time.perf_counter()
                 audit = analysis.get(timeout=1200)
                 log(f"phase 16 beside phase 9: waited {time.perf_counter() - t0:.1f} s for it "
+                    f"after phase 9")
+                t0 = time.perf_counter()
+                cli19 = cli19.result(timeout=1200)
+                log(f"phase 19c beside phase 9: waited {time.perf_counter() - t0:.1f} s for it "
                     f"after phase 9")
             times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
             log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
-        if mode not in ("sharded", "store", "observatory", "chain", "network"):
+        if mode not in ("sharded", "store", "observatory", "chain", "network", "validator"):
             split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
@@ -2374,16 +2425,13 @@ def main(argv) -> int:
             run_observatory(dev, card, pool, keys, sets256)
             chain = run_chain(dev, card, pool)
             network = run_network(dev, card, pool)
+            validator = run_validator_phase(dev, card, pool, cli=cli19)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
-        print(card)
-        phases = {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
-                  "fused": "1-5, 2b, 11, 12", "store": "1, 14",
-                  "observatory": "1, 15", "chain": "1, 17", "network": "1, 18"}[mode]
-        print(json.dumps({"ok": True, "phases": phases,
-                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}}))
-        return 0
+        return ok_lines(card, {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
+                               "fused": "1-5, 2b, 11, 12", "store": "1, 14",
+                               "observatory": "1, 15", "chain": "1, 17", "network": "1, 18",
+                               "validator": "1, 19"}[mode])
 
     def by_path(name):
         return {"registry": registry_launches[name], "fused": fused_launches[name],
@@ -2395,7 +2443,8 @@ def main(argv) -> int:
                 "chain": chain["chain"]["launches"].get(name, 0),
                 "segment": chain["segment"]["launches"].get(name, 0),
                 "gossip": network["gossip"]["launches"].get(name, 0),
-                "range_sync": network["range_sync"]["launches"].get(name, 0)}
+                "range_sync": network["range_sync"]["launches"].get(name, 0),
+                "validator": validator["validator"]["launches"].get(name, 0)}
 
     # each kernel's launches from its own path: the fused kernels' phase 3,
     # the tower kernels' phase 6, the library kernel's registry run, the
@@ -2446,6 +2495,14 @@ def main(argv) -> int:
         **audit["kernels"]["ring_hop"],
     })
     print(json.dumps({"kernels": line}))
+    return ok_lines(card)
+
+
+def ok_lines(card: str, phases: str = None) -> int:
+    """The last lines of every mode: the phases a ``-only`` mode ran, the
+    card's name and power limit, and the contract's last line."""
+    if phases is not None:
+        print(json.dumps({"phases": phases}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2461,12 +2518,12 @@ BAD_BLOCK = 8  # the segment's block whose signature phase 17 alters (slot 9)
 CHAIN_BUCKETS = (4, 16, 128)  # a block's job (2-7 sets), the segment's (~100)
 
 
-def chain_config():
-    """tests/test_fork_transition.py's schedule at CHAIN_VALIDATORS, pre-merge."""
+def chain_config(n_validators: int = CHAIN_VALIDATORS):
+    """tests/test_fork_transition.py's schedule, pre-merge."""
     from lodestar_tpu_torch.config.chain_config import ChainConfig
 
     return ChainConfig(PRESET_BASE="minimal", SHARD_COMMITTEE_PERIOD=0, MIN_GENESIS_TIME=0,
-                       MIN_GENESIS_ACTIVE_VALIDATOR_COUNT=CHAIN_VALIDATORS,
+                       MIN_GENESIS_ACTIVE_VALIDATOR_COUNT=n_validators,
                        ALTAIR_FORK_EPOCH=1, BELLATRIX_FORK_EPOCH=2)
 
 
@@ -3308,6 +3365,475 @@ def run_network(dev, card: str, pool) -> dict:
             f"{cli['beacon_range_sync']['blocks']} blocks at "
             f"{cli['beacon_range_sync']['blocks_per_s']:.3f} blocks/s; heads equal at slot "
             f"{cli['beacon_head']['slot']} [{card}]")
+        out["cli"] = cli
+    return out
+
+
+# -- phase 19: the validator client on the card ----------------------------------------
+
+VAL_VALIDATORS = 128  # the chain phase's size: every minimal committee full
+VAL_SLOTS = 3 * 8  # epochs 0-2: phase0, Altair, Bellatrix, so three fork versions
+VAL_BUCKETS = CHAIN_BUCKETS  # a duty's job (1-2 sets), a block's (2-10)
+VAL_HEAD_WAIT_S = 2.0  # the validator command's wait for the head: a third of a slot
+VAL_CLI_HEAD = 8  # the node's head slot at which 19c stops its children
+
+
+class PoolWaits:
+    """Each job's wait on a pool, summed by slot: the block's (the
+    block-proposal lane) and the duties' (every other lane)."""
+
+    def __init__(self, pool):
+        from lodestar_tpu_torch.crypto.bls.verifier import SignatureSetPriority
+
+        self.slot, self.by_slot = 0, {}
+        verify = pool.verify_signature_sets
+
+        async def timed(sets, batchable=True, priority=None, deadline=None):
+            t0 = time.perf_counter()
+            try:
+                return await verify(sets, batchable=batchable, priority=priority,
+                                    deadline=deadline)
+            finally:
+                kind = "block" if priority == SignatureSetPriority.BLOCK_PROPOSAL else "duties"
+                row = self.by_slot.setdefault(self.slot, dict(block_s=0.0, block_jobs=0,
+                                                              duties_s=0.0, duty_jobs=0))
+                row[f"{kind}_s"] += time.perf_counter() - t0
+                row["block_jobs" if kind == "block" else "duty_jobs"] += 1
+
+        pool.verify_signature_sets = timed
+
+
+def included_votes(chain, duties, last_slot: int) -> dict:
+    """The attester duties of slots 1..``last_slot`` whose vote is in a
+    block of the head's chain: {"duties": n, "included": n, "missing": [...]}."""
+    seen = set()
+    root = chain.head_root
+    while True:
+        block = chain.get_block_by_root(root)
+        if block is None or int(block.message.slot) == 0:
+            break
+        for att in block.message.body.attestations:
+            for pos, bit in enumerate(att.aggregation_bits):
+                if bit:
+                    seen.add((int(att.data.slot), int(att.data.index), pos))
+        root = bytes(block.message.parent_root)
+    want = [(int(d["slot"]), int(d["committee_index"]), int(d["validator_committee_index"]),
+             int(d["validator_index"]))
+            for epoch_duties in duties.values() for d in epoch_duties
+            if 1 <= int(d["slot"]) <= last_slot]
+    missing = sorted(w[3] for w in want if w[:3] not in seen)
+    return dict(duties=len(want), included=len(want) - len(missing), missing=missing[:16])
+
+
+async def flare_child(port: int, *argv) -> float:
+    """``python -m lodestar_tpu_torch.flare <argv> --server ...`` as a
+    child, awaited without blocking the node's loop; returns its seconds."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "lodestar_tpu_torch.flare", *argv,
+        "--server", f"http://127.0.0.1:{port}", cwd=REPO, env=env,
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    out, err = await asyncio.wait_for(proc.communicate(), NET_WAIT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"validator: flare {argv} exited {proc.returncode}: "
+                             f"{err.decode(errors='replace')[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def header_of(header) -> dict:
+    return dict(slot=int(header.slot), state_root=bytes(header.state_root).hex(),
+                body_root=bytes(header.body_root).hex())
+
+
+async def validator_duties(verifier, n_validators: int = VAL_VALIDATORS,
+                           n_slots: int = VAL_SLOTS, protection_path: str = None,
+                           on_start=None, on_end=None) -> dict:
+    """19a and 19b: a node (``DevChain``'s chain over the interop genesis,
+    a manual clock set to each slot, no producer of its own) behind the
+    REST API with its gossip handlers and light-client server, its pool
+    over ``verifier``; the port's ``ValidatorClient`` with every key
+    drives ``n_slots`` slots of duties over HTTP, then ``flare`` slashes a
+    proposer and an attester and one more slot's block carries both; then
+    the port's ``LightClient`` bootstraps from the first Altair block and
+    follows the node's updates.  ``on_start`` / ``on_end`` are called just
+    before the first slot and just after the last one."""
+    from lodestar_tpu_torch.api import ApiClient, RestApiServer
+    from lodestar_tpu_torch.api.serde import from_json
+    from lodestar_tpu_torch.chain.bls_pool import BlsBatchPool
+    from lodestar_tpu_torch.chain.handlers import GossipHandlers
+    from lodestar_tpu_torch.chain.light_client import LightClientServer
+    from lodestar_tpu_torch.crypto.bls.api import interop_secret_key
+    from lodestar_tpu_torch.light_client import LightClient
+    from lodestar_tpu_torch.node.dev_chain import DevChain
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.ssz import Fields
+    from lodestar_tpu_torch.validator import (
+        ChainHeaderTracker, SlashingError, SlashingProtection, ValidatorClient, ValidatorStore)
+
+    cfg = chain_config(n_validators)
+    per_epoch = MINIMAL.SLOTS_PER_EPOCH
+    bls = BlsBatchPool(verifier, max_buffer_wait=0.005)
+    batches, waits = PoolBatches(bls), PoolWaits(bls)
+    node = DevChain(MINIMAL, cfg, n_validators, bls)
+    chain = node.chain
+    lc_server = LightClientServer(MINIMAL, chain)
+    rest = RestApiServer(MINIMAL, chain)
+    rest.gossip_handlers = GossipHandlers(chain)
+    rest.light_client_server = lc_server
+    port = await rest.listen(0)
+    api = ApiClient("127.0.0.1", port)
+    gvr = bytes(chain.genesis_state.genesis_validators_root)
+    protection = SlashingProtection(persist_path=protection_path)
+    # the interop keys are published: the variable-time ladder, as the
+    # command's --dev-signing
+    store = ValidatorStore(MINIMAL, cfg, {i: interop_secret_key(i) for i in range(n_validators)},
+                           protection, genesis_validators_root=gvr, dev_signing=True)
+    signed = [0]
+    sign = store._sign
+
+    def counted(index, root):
+        signed[0] += 1
+        return sign(index, root)
+
+    store._sign = counted
+    vc = ValidatorClient(MINIMAL, cfg, store, api)
+    tracker = ChainHeaderTracker(api)
+    tracker.start()
+    vc.header_tracker = tracker
+    heads, slot_s = [], []
+    try:
+        if on_start is not None:
+            on_start()
+        t0 = time.perf_counter()
+        for slot in range(1, n_slots + 1):
+            t_slot = time.perf_counter()
+            waits.slot = slot
+            node.clock.set_slot(slot)
+            await vc.run_slot(slot, head_wait_s=VAL_HEAD_WAIT_S)
+            heads.append(chain.head_root.hex())
+            slot_s.append(time.perf_counter() - t_slot)
+        wall = time.perf_counter() - t0
+        if on_end is not None:
+            on_end()
+        if len(set(heads)) != n_slots:
+            raise AssertionError(f"validator: {len(set(heads))} heads in {n_slots} slots")
+
+        # a second vote for a signed slot with another root: refused
+        # before any signature leaves the store
+        duty = vc._attester_duties[(n_slots - 1) // per_epoch][0]
+        resp = await api.get(f"/eth/v1/validator/attestation_data?slot={duty['slot']}"
+                             f"&committee_index={duty['committee_index']}")
+        data = from_json(resp["data"])
+        data.beacon_block_root = b"\x5a" * 32
+        n_signed = signed[0]
+        try:
+            store.sign_attestation(int(duty["validator_index"]), data)
+            refused = False
+        except SlashingError:
+            refused = signed[0] == n_signed
+
+        # flare slashes a proposer and an attester that do not propose the
+        # next slot, whose block must carry both slashings
+        last = n_slots + 1
+        epoch = last // per_epoch
+        proposer = int(next(d["validator_index"] for d in (await api.get(
+            f"/eth/v1/validator/duties/proposer/{epoch}"))["data"] if int(d["slot"]) == last))
+        slashed = [i for i in range(n_validators) if i != proposer][:2]
+        fork_epoch = (n_slots - 1) // per_epoch
+        flare_s = [
+            await flare_child(port, "self-slash-proposer", "--index-start", str(slashed[0]),
+                              "--count", "1", "--slot", str(fork_epoch * per_epoch)),
+            await flare_child(port, "self-slash-attester", "--index-start", str(slashed[1]),
+                              "--count", "1", "--epoch", str(fork_epoch))]
+        waits.slot = last
+        node.clock.set_slot(last)
+        await vc.run_slot(last, head_wait_s=VAL_HEAD_WAIT_S)
+        heads.append(chain.head_root.hex())
+        body = chain.get_block_by_root(chain.head_root).message.body
+        state = chain.head_state()
+        slashings = dict(proposer=len(body.proposer_slashings),
+                         attester=len(body.attester_slashings),
+                         slashed=[bool(state.validators[i].slashed) for i in slashed],
+                         indices=slashed, flare_s=flare_s)
+        if int(state.slot) != last or slashings["proposer"] != 1 or \
+                slashings["attester"] != 1 or not all(slashings["slashed"]):
+            raise AssertionError(f"validator: slot {last}'s block and state gave {slashings}")
+
+        # every validator's vote in a block; each Altair block's sync
+        # aggregate (the first one's signs the phase0 slot before it)
+        votes = included_votes(chain, vc._attester_duties, n_slots)
+        sync_bits = {}
+        root = chain.head_root
+        while True:
+            block = chain.get_block_by_root(root).message
+            if int(block.slot) <= per_epoch:
+                break
+            sync_bits[int(block.slot)] = sum(block.body.sync_aggregate.sync_committee_bits)
+            root = bytes(block.parent_root)
+        sync_bits = dict(sorted(sync_bits.items()))
+
+        # 19b: the light client over the node's REST
+        boot_root = heads[per_epoch - 1]
+        boot = await api.get(f"/eth/v1/beacon/light_client/bootstrap/0x{boot_root}")
+        lc = LightClient(MINIMAL, cfg, from_json(boot["data"]), gvr)
+        ups = await api.get("/eth/v1/beacon/light_client/updates?start_period=0&count=4")
+        for u in ups["data"]:
+            lc.process_update(from_json(u))
+        for route, process in (("finality_update", lc.process_finality_update),
+                               ("optimistic_update", lc.process_optimistic_update)):
+            status, body, _ = await asyncio.to_thread(
+                rest_get, port, f"/eth/v1/beacon/light_client/{route}")
+            if status == 200:
+                process(from_json(json.loads(body)["data"]))
+        light = dict(bootstrap_slot=per_epoch, updates=len(ups["data"]),
+                     optimistic=header_of(lc.optimistic_header),
+                     finalized=header_of(lc.finalized_header))
+    finally:
+        await tracker.stop()
+        protection.close()
+        await rest.close()
+        bls.close()
+    interchange = None
+    if protection_path:
+        with open(protection_path) as f:
+            raw = f.read()
+        back = SlashingProtection()
+        back.import_json(raw)
+        doc = json.loads(raw)
+        interchange = dict(bytes=len(raw), validators=len(doc["data"]),
+                           version=doc["metadata"]["interchange_format_version"])
+    per_slot = [dict(slot=k, **v) for k, v in sorted(waits.by_slot.items())]
+    return dict(outcome=chain_outcome(chain), heads=heads, slots=n_slots, wall=wall,
+                slots_per_s=n_slots / wall, slot_s=slot_s, pool_waits=per_slot,
+                batches=batches.batches, votes=votes, sync_bits=sync_bits,
+                slashings=slashings, refused=refused, light=light,
+                attested_on_event=vc.attested_on_event, head_events=tracker.events_seen,
+                interchange=interchange)
+
+
+def host_validator(n_validators: int = VAL_VALIDATORS, n_slots: int = VAL_SLOTS) -> dict:
+    """19a and 19b on the host, in a pool process: the same run over the
+    port's ``FastBlsVerifier`` (C) for the card's run to equal."""
+    torch.set_num_threads(1)
+    from lodestar_tpu_torch.crypto.bls.native_verifier import FastBlsVerifier
+
+    return asyncio.run(validator_duties(FastBlsVerifier(), n_validators, n_slots))
+
+
+def check_validator_run(got: dict, ref: dict, n_validators: int = VAL_VALIDATORS) -> None:
+    """What 19a and 19b must show, and what they must share with the host
+    run: every slot's head, the checkpoints, every vote, each Altair
+    block's sync participation, both slashings, the refused double vote
+    and the light client's headers."""
+    if got["heads"] != ref["heads"] or got["outcome"] != ref["outcome"]:
+        raise AssertionError(f"validator: the card's chain {got['outcome']} is not the host's "
+                             f"{ref['outcome']}")
+    if got["votes"]["missing"] or got["votes"]["duties"] < n_validators:
+        raise AssertionError(f"validator: votes {got['votes']}")
+    if got["sync_bits"] != ref["sync_bits"] or not all(got["sync_bits"].values()):
+        raise AssertionError(f"validator: sync participation {got['sync_bits']} against the "
+                             f"host's {ref['sync_bits']}")
+    if got["slashings"]["indices"] != ref["slashings"]["indices"] or not got["refused"]:
+        raise AssertionError(f"validator: slashings {got['slashings']}, double vote refused "
+                             f"{got['refused']}")
+    if got["light"] != ref["light"] or got["light"]["optimistic"]["slot"] <= 0:
+        raise AssertionError(f"validator: light client {got['light']} against the host's "
+                             f"{ref['light']}")
+
+
+def run_cli_validator(out_dir: str, validators: int = VAL_VALIDATORS,
+                      head: int = VAL_CLI_HEAD, host: bool = False,
+                      timeout: float = 600) -> dict:
+    """19c, the README's validator flow with the port's commands as child
+    processes: ``account create`` and ``account list``; ``init`` writes an
+    rc file, and ``beacon --config`` (no fork flags) starts from it on
+    card 0 (``host``: ``--bls-verifier native``); ``validator`` drives it
+    over REST with every interop key until the node's head passes ``head``;
+    both stop on SIGINT.  Each wait is bounded by ``timeout`` seconds."""
+    import shutil
+    import signal
+
+    from lodestar_tpu_torch.db.beacon import _fork_tagged_block_codec
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.validator import SlashingProtection
+
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    password = os.path.join(out_dir, "password.txt")
+    with open(password, "w") as f:
+        f.write("correct horse battery staple\n")
+    keystores = os.path.join(out_dir, "keystores")
+    shutil.rmtree(keystores, ignore_errors=True)  # a fresh directory: exactly --count files
+    for name, flags in (("account_create", ["create", "--count", "2", "--kdf", "pbkdf2",
+                                            "--out-dir", keystores, "--password-file", password]),
+                        ("account_list", ["list", "--keystores-dir", keystores])):
+        proc = cli_child("account", flags, out_dir, name)
+        if proc.wait(timeout=timeout) != 0:
+            raise AssertionError(f"cli: account {flags[0]} exited {proc.returncode}")
+    with open(os.path.join(out_dir, "account_list.out")) as f:
+        listed = sorted(line.split()[0][2:] for line in f if line.strip())
+    files = sorted(n for n in os.listdir(keystores) if n.endswith(".json"))
+    pubkeys = sorted(json.load(open(os.path.join(keystores, n)))["pubkey"] for n in files)
+    if len(files) != 2 or listed != pubkeys:
+        raise AssertionError(f"cli: account list gave {listed} for the keystores {pubkeys}")
+    out["accounts"] = pubkeys
+
+    rc = os.path.join(out_dir, "rc.json")
+    p2p, rest = free_port(), free_port()
+    flags = ["--validators", str(validators), "--bls-buckets", ",".join(map(str, VAL_BUCKETS)),
+             "--bls-warmup", "blocking", "--metrics", "--listen-port", str(p2p), "--rest-port",
+             str(rest), "--out", rc]
+    if host:
+        flags += ["--bls-verifier", "native"]
+    proc = cli_child("init", flags, out_dir, "init")
+    if proc.wait(timeout=timeout) != 0:
+        raise AssertionError(f"cli: init exited {proc.returncode}")
+    with open(rc) as f:
+        out["rc"] = {k: v for k, v in json.load(f).items()
+                     if k in ("validators", "bls_buckets", "rest_port", "bls_verifier")}
+    protection = os.path.join(out_dir, "slashing_protection.json")
+    beacon_proc = vc_proc = None
+    t0 = time.perf_counter()
+    try:
+        beacon_proc = cli_child("beacon", ["--config", rc], out_dir, "beacon")
+        poll_rest(rest, "/eth/v1/node/syncing", lambda d: True, "the beacon node's REST",
+                  timeout, beacon_proc)
+        out["beacon_rest_up_s"] = time.perf_counter() - t0
+        # the rc file's validator count: the last interop validator exists
+        rest_json(rest, f"/eth/v1/beacon/states/head/validators/{validators - 1}")
+        t1 = time.perf_counter()
+        vc_proc = cli_child("validator", ["--beacon-url", f"http://127.0.0.1:{rest}",
+                                          "--interop-indices", f"0..{validators - 1}",
+                                          "--slashing-protection-db", protection],
+                            out_dir, "validator")
+        doc = poll_rest(rest, "/eth/v1/node/syncing",
+                        lambda d: int(d["data"]["head_slot"]) > head,
+                        f"the beacon node's head past slot {head}", timeout, beacon_proc)
+        wall = time.perf_counter() - t1
+        if vc_proc.poll() is not None:
+            raise AssertionError(f"cli: the validator child exited ({vc_proc.returncode})")
+        out["head_slot"] = int(doc["data"]["head_slot"])
+        out["validator_slots_per_s"] = out["head_slot"] / wall
+        status, raw, _ = rest_get(rest, "/eth/v2/beacon/blocks/head")  # fork-tagged SSZ
+        if status != 200:
+            raise AssertionError(f"cli: GET the head block gave {status}")
+        block = _fork_tagged_block_codec(MINIMAL)[1](raw).message
+        out["head_attestations"] = len(block.body.attestations)
+        if not out["head_attestations"]:
+            raise AssertionError(f"cli: the head block at slot {block.slot} holds no "
+                                 f"attestations")
+        out["beacon"] = check_node_routes(rest, "beacon", 0, card=not host)
+    finally:
+        for p in (vc_proc, beacon_proc):
+            if p is not None and p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        codes = {}
+        for name, p in (("validator", vc_proc), ("beacon", beacon_proc)):
+            if p is not None:
+                try:
+                    codes[name] = p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    codes[name] = p.wait()
+        out["exit_codes"] = codes
+    for name in codes:
+        with open(os.path.join(out_dir, f"{name}.err"), errors="replace") as f:
+            text = f.read()
+        if "Traceback" in text or codes[name] != 0:
+            raise AssertionError(f"cli: the {name} child exited {codes[name]}; stderr tail "
+                                 f"{text[-2000:]}")
+    with open(protection) as f:
+        raw = f.read()
+    SlashingProtection().import_json(raw)
+    doc = json.loads(raw)
+    out["interchange"] = dict(bytes=len(raw), validators=len(doc["data"]),
+                              version=doc["metadata"]["interchange_format_version"])
+    # a validator has history once it signed: not those whose only duty
+    # fell before the first slot the client ran
+    if not 0 < len(doc["data"]) <= validators:
+        raise AssertionError(f"cli: the interchange file holds {len(doc['data'])} validators")
+    return out
+
+
+def run_validator_phase(dev, card: str, pool, cli=None) -> dict:
+    """Phase 19: the validator client's duties through the node's pool on
+    the card's split fused verifier, held against the same run on the host
+    (19a), the light client (19b), and the validator flow's commands as
+    child processes (19c; ``cli``: its result when it ran earlier, beside
+    phase 9)."""
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.ops import fused_core
+
+    out = {}
+    with Phase("19 validator"):
+        host = pool.apply_async(host_validator)
+        verifier = TorchBlsVerifier(device=dev, buckets=VAL_BUCKETS,
+                                    rng=np.random.default_rng(SEED + 190))
+        if not (verifier.fused and verifier.host_final_exp):
+            raise AssertionError("validator: the verifier is not the split fused default")
+        warm = verifier.warmup()
+        log(f"validator: split fused graphs at buckets {VAL_BUCKETS} warmed in {warm:.2f} s")
+        counts = {}
+
+        def zero():
+            fused_core.reset_launch_counts()
+            sync_all()
+
+        def read():
+            sync_all()
+            counts.update(chain_launches(FUSED))
+
+        d0, stages0 = verifier.dispatches, dict(verifier.stage_seconds)
+        out_dir = os.path.join(REPO, "chiprun_out", "chip_smoke_validator")
+        os.makedirs(out_dir, exist_ok=True)
+        run = asyncio.run(validator_duties(
+            verifier, protection_path=os.path.join(out_dir, "slashing_protection.json"),
+            on_start=zero, on_end=read))
+        run["launches"] = counts
+        run["dispatches"] = verifier.dispatches - d0
+        run["stage_seconds"] = {k: verifier.stage_seconds[k] - stages0.get(k, 0.0)
+                                for k in verifier.stage_seconds if k != "warmup"}
+        by = {}
+        for lanes, n in run["batches"]:
+            key = f"{lanes}@{verifier._bucket(n)}"
+            by[key] = by.get(key, 0) + 1
+        run["batches_by_lane_and_bucket"] = by
+        run["batch_count"] = len(run.pop("batches"))
+        blocks = [w["block_s"] for w in run["pool_waits"] if w["block_jobs"]]
+        duties = [w["duties_s"] for w in run["pool_waits"]]
+        run["block_pool_wait_s"] = percentiles(blocks)
+        run["duties_pool_wait_s"] = percentiles(duties)
+        log("validator: " + json.dumps({k: v for k, v in run.items()
+                                        if k not in ("launches", "heads")}))
+        log(f"validator: {run['slots']} slots of duties at {VAL_VALIDATORS} validators over "
+            f"HTTP in {run['wall']:.3f} s = {run['slots_per_s']:.3f} slots/s; per slot the "
+            f"block's pool wait p50 {run['block_pool_wait_s']['p50']:.4f} s, the duties' "
+            f"p50 {run['duties_pool_wait_s']['p50']:.4f} s; batches {by}; justified "
+            f"{run['outcome']['justified'][0]}, finalized {run['outcome']['finalized'][0]}; "
+            f"light client optimistic slot {run['light']['optimistic']['slot']}, finalized "
+            f"slot {run['light']['finalized']['slot']} [{card}]")
+        idle = [name for name in FUSED if run["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"validator: kernels never launched {idle}")
+        ref = host.get(timeout=900)
+        log(f"validator: host run {ref['wall']:.3f} s = {ref['slots_per_s']:.3f} slots/s "
+            f"(FastBlsVerifier in a pool process)")
+        check_validator_run(run, ref)
+        log("validator: launches over the duties " + json.dumps(run["launches"]))
+        out["validator"] = run
+        verifier.close()
+
+        # 19c: the commands
+        where = "beside phase 9"
+        if cli is None:
+            torch.cuda.empty_cache()
+            cli = run_cli_validator(os.path.join(REPO, "chiprun_out", "chip_smoke_validator_cli"))
+            where = "alone"
+        log("validator cli: " + json.dumps(cli))
+        log(f"validator cli ({where}): the validator child drove the beacon node to slot "
+            f"{cli['head_slot']} at {cli['validator_slots_per_s']:.3f} slots/s, the head "
+            f"block carries {cli['head_attestations']} attestations [{card}]")
         out["cli"] = cli
     return out
 

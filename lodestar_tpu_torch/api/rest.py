@@ -80,6 +80,8 @@ class RestApiServer:
         self.port: Optional[int] = None
         self.t = get_types(preset).phase0
         self._server: Optional[asyncio.AbstractServer] = None
+        # the connections being served, ended by close()
+        self._conns: set = set()
         self._routes: List[Tuple[str, re.Pattern, Callable]] = []
         self._register_routes()
 
@@ -92,13 +94,20 @@ class RestApiServer:
         return self.port
 
     async def close(self) -> None:
+        """Stop listening and end the open connections: an events stream
+        whose client went away would otherwise hold ``wait_closed`` until
+        its next keep-alive write fails."""
         if self._server is not None:
             self._server.close()
+            for task in list(self._conns):
+                task.cancel()
             await self._server.wait_closed()
 
     # -- http plumbing ---------------------------------------------------------
 
     async def _handle_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        task = asyncio.current_task()
+        self._conns.add(task)
         try:
             while True:
                 line = await reader.readline()
@@ -157,9 +166,10 @@ class RestApiServer:
                 await writer.drain()
                 if headers.get("connection", "").lower() == "close":
                     break
-        except (asyncio.IncompleteReadError, ConnectionError):
+        except (asyncio.IncompleteReadError, ConnectionError, asyncio.CancelledError):
             pass
         finally:
+            self._conns.discard(task)
             try:
                 writer.close()
             except Exception:

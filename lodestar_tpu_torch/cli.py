@@ -1,14 +1,15 @@
 """The port's command line: the node's ``dev`` and ``beacon`` commands,
-and the BLS verifier's flags, the verifier and pool they make, and the
+the ``validator`` client, the ``lightclient``, keystore management
+(``account create|list``) and ``init`` (an rc file of flag values), and
+the BLS verifier's flags, the verifier and pool they make, and the
 observability they turn on (the port's copy of the JAX package's
 ``cli.py``).
 
-Entry: ``python -m lodestar_tpu_torch.cli dev|beacon [flags]``.  Both
-commands verify through ``BlsBatchPool`` over ``TorchBlsVerifier`` on the
-card by default; ``--bls-verifier native`` runs them on the host's C
-verifier.  The ``validator``, ``lightclient``, ``account`` and ``init``
-commands are not registered yet: asking for one is argparse's "invalid
-choice" error.
+Entry: ``python -m lodestar_tpu_torch.cli <cmd> [flags]``.  ``dev`` and
+``beacon`` verify through ``BlsBatchPool`` over ``TorchBlsVerifier`` on
+the card by default; ``--bls-verifier native`` runs them on the host's C
+verifier.  ``validator`` and ``lightclient`` talk to a node over its REST
+API, and a ``validator``'s duties are verified by that node's verifier.
 
 ``add_bls_flags(parser)`` adds the JAX CLI's verifier, pool, tracing,
 forensics, profile and telemetry flags under their names and defaults,
@@ -490,8 +491,8 @@ def _chain_config(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The ``dev`` and ``beacon`` commands with the JAX CLI's flags (the
-    BLS and observability ones from ``add_bls_flags``)."""
+    """The JAX CLI's commands and flags (the BLS and observability ones of
+    ``dev``, ``beacon`` and ``init`` from ``add_bls_flags``)."""
     ap = argparse.ArgumentParser(prog="lodestar-tpu-torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -540,6 +541,54 @@ def build_parser() -> argparse.ArgumentParser:
     beacon.add_argument("--suggested-fee-recipient", default="0x" + "00" * 20,
                         help="node-default fee recipient when a proposer sent "
                         "no preparation")
+
+    vc = sub.add_parser("validator", help="validator client (cmds/validator)")
+    vc.add_argument("--beacon-url", default="http://127.0.0.1:9596")
+    vc.add_argument("--preset", choices=["mainnet", "minimal"], default="minimal")
+    vc.add_argument("--interop-indices", default="0..15",
+                    help="interop key range, e.g. 0..15")
+    vc.add_argument("--slashing-protection-db", help="EIP-3076 JSON path")
+    vc.add_argument("--keystores-dir",
+                    help="directory of EIP-2335 keystore-*.json files "
+                    "(overrides --interop-indices; cmds/account import flow)")
+    vc.add_argument("--keystores-password-file",
+                    help="file holding the shared keystore password")
+    vc.add_argument("--remote-signer-url",
+                    help="web3signer-compatible remote signer URL "
+                    "(validatorStore.ts SignerType.Remote)")
+    vc.add_argument("--fee-recipient", default="0x" + "00" * 20,
+                    help="suggested fee recipient, sent via "
+                    "prepareBeaconProposer each epoch")
+    vc.add_argument("--gas-limit", type=int, default=30_000_000)
+    vc.add_argument("--builder", action="store_true",
+                    help="prefer blinded (MEV builder) block production")
+    vc.add_argument("--dev-signing", action="store_true",
+                    help="DEV/INTEROP ONLY: use the variable-time native "
+                    "signing ladder (fb_sign) instead of the default "
+                    "constant-time-safe path — its timing leaks the key, "
+                    "acceptable only for published interop secrets")
+
+    init_cmd = sub.add_parser("init", help="persist flag values to an rc file (cmds/init)")
+    common(init_cmd)
+    init_cmd.add_argument("--out", default="lodestar-tpu.rc.json")
+
+    acct = sub.add_parser("account", help="keystore management (cmds/account)")
+    acct_sub = acct.add_subparsers(dest="account_cmd", required=True)
+    acct_create = acct_sub.add_parser("create", help="generate EIP-2335 keystores")
+    acct_create.add_argument("--out-dir", required=True)
+    acct_create.add_argument("--password-file", required=True)
+    acct_create.add_argument("--count", type=int, default=1)
+    acct_create.add_argument("--kdf", choices=("scrypt", "pbkdf2"), default="pbkdf2")
+    acct_list = acct_sub.add_parser("list", help="list keystore pubkeys")
+    acct_list.add_argument("--keystores-dir", required=True)
+
+    lc = sub.add_parser("lightclient", help="light client (cmds/lightclient)")
+    lc.add_argument("--beacon-url", default="http://127.0.0.1:9596")
+    lc.add_argument("--checkpoint-root", required=False,
+                    help="trusted block root (default: the node's finalized root)")
+    lc.add_argument("--preset", choices=["mainnet", "minimal"], default="minimal")
+    lc.add_argument("--poll-seconds", type=float, default=12.0)
+    lc.add_argument("--max-polls", type=int, default=0, help="0 = forever")
     return ap
 
 
@@ -733,6 +782,211 @@ async def run_beacon(args) -> int:
     return 0
 
 
+def _api_client(beacon_url: str):
+    """The REST client of ``--beacon-url`` (``http://host:port``)."""
+    from .api.client import ApiClient
+
+    url = beacon_url.rstrip("/")
+    host = url.split("//")[-1].split(":")[0]
+    port = int(url.rsplit(":", 1)[-1])
+    return ApiClient(host, port)
+
+
+def _command_config(args):
+    """The chain config of the ``validator`` and ``lightclient`` commands:
+    the JAX commands' (no fork epochs, so the default schedule)."""
+    from .config.chain_config import ChainConfig
+
+    return ChainConfig(PRESET_BASE=args.preset, MIN_GENESIS_TIME=0,
+                       SHARD_COMMITTEE_PERIOD=0,
+                       MIN_GENESIS_ACTIVE_VALIDATOR_COUNT=16)
+
+
+async def run_validator(args) -> int:
+    """The validator client: interop keys (or keystores, or a remote
+    signer) signing every duty through slashing protection, one slot after
+    the node's head at a time, until SIGINT, which stops the head tracker
+    and folds the protection's write-ahead log into its file.  Reference:
+    cmds/validator/handler.ts."""
+    from .crypto.bls.api import interop_secret_key
+    from .validator import ChainHeaderTracker, SlashingProtection, ValidatorClient, ValidatorStore
+
+    preset = _preset(args.preset)
+    cfg = _command_config(args)
+    api = _api_client(args.beacon_url)
+    pending_secrets = {}
+    if args.keystores_dir:
+        from .crypto.bls.api import SecretKey
+        from .validator.keystore import load_keystores_dir
+
+        password = ""
+        if args.keystores_password_file:
+            with open(args.keystores_password_file) as f:
+                password = f.read().strip()
+        loaded = load_keystores_dir(args.keystores_dir, password)
+        if not loaded:
+            logger.error("no keystores found in %s", args.keystores_dir)
+            return 1
+        # indices resolve over the API (services/indices.ts:17); a pubkey
+        # not active yet stays pending and is retried every 8 slots, so it
+        # signs from the slot it activates
+        keys = {}
+        pending_secrets = {pk: SecretKey.from_bytes(sec) for pk, sec in loaded.items()}
+
+        async def resolve_pending(store=None):
+            for pk in list(pending_secrets):
+                try:
+                    info = await api.get(f"/eth/v1/beacon/states/head/validators/0x{pk.hex()}")
+                    idx = int(info["data"]["index"])
+                except Exception:  # noqa: BLE001 - not active yet: retried
+                    continue
+                sk = pending_secrets.pop(pk)
+                keys[idx] = sk
+                if store is not None:
+                    store.keys[idx] = sk
+                    store.pubkeys[idx] = pk
+                logger.info("validator 0x%s... resolved to index %d", pk.hex()[:12], idx)
+
+        await resolve_pending()
+        if pending_secrets:
+            logger.warning("%d keystore pubkeys not yet active; will retry", len(pending_secrets))
+        logger.info("loaded %d keystore validators", len(keys))
+    else:
+        lo, _, hi = args.interop_indices.partition("..")
+        keys = {i: interop_secret_key(i) for i in range(int(lo), int(hi) + 1)}
+    # every accepted record goes to the write-ahead log before its
+    # signature leaves the store: a killed process loses no history
+    protection = SlashingProtection(persist_path=args.slashing_protection_db)
+    genesis = await api.get("/eth/v1/beacon/genesis")
+    gvr = bytes.fromhex(genesis["data"]["genesis_validators_root"][2:])
+    remote_signer, remote_keys = None, {}
+    if args.remote_signer_url:
+        from .validator.remote_signer import RemoteSignerClient
+
+        remote_signer = RemoteSignerClient(args.remote_signer_url)
+        for pk in remote_signer.public_keys():
+            try:
+                info = await api.get(f"/eth/v1/beacon/states/head/validators/0x{pk.hex()}")
+                remote_keys[int(info["data"]["index"])] = pk
+            except Exception:  # noqa: BLE001 - not active yet
+                logger.warning("remote key 0x%s... not yet active", pk.hex()[:12])
+        logger.info("remote signer: %d keys from %s", len(remote_keys), args.remote_signer_url)
+    store = ValidatorStore(preset, cfg, keys, protection, genesis_validators_root=gvr,
+                           remote_signer=remote_signer, remote_keys=remote_keys,
+                           dev_signing=args.dev_signing)
+    vc = ValidatorClient(preset, cfg, store, api,
+                         fee_recipient=_hex_bytes(args.fee_recipient, 20, "--fee-recipient"),
+                         gas_limit=args.gas_limit, builder_enabled=args.builder)
+    tracker = ChainHeaderTracker(api)
+    tracker.start()
+    vc.header_tracker = tracker
+    logger.info("validator client: %d keys against %s", len(keys), args.beacon_url)
+    slot = 1
+    try:
+        while True:
+            syncing = await api.get("/eth/v1/node/syncing")
+            slot = max(slot, int(syncing["data"]["head_slot"]) + 1)
+            if pending_secrets and slot % 8 == 0:
+                await resolve_pending(store)
+            # wait up to a third of a slot for the head event before attesting
+            await vc.run_slot(slot, head_wait_s=cfg.SECONDS_PER_SLOT / 3)
+            slot += 1
+    except (KeyboardInterrupt, asyncio.CancelledError):
+        logger.info("validator client stopped")
+    finally:
+        await tracker.stop()
+        protection.close()  # fold the write-ahead log into the interchange file
+    return 0
+
+
+async def run_lightclient(args) -> int:
+    """Follow the chain as a light client over the REST API, printing its
+    optimistic and finalized slots as JSON each poll
+    (cmds/lightclient/handler.ts)."""
+    import time
+
+    from .api.serde import from_json
+    from .light_client import LightClient
+
+    preset = _preset(args.preset)
+    cfg = _command_config(args)
+    api = _api_client(args.beacon_url)
+    genesis = await api.get("/eth/v1/beacon/genesis")
+    gvr = bytes.fromhex(genesis["data"]["genesis_validators_root"][2:])
+    genesis_time = int(genesis["data"].get("genesis_time", 0))
+    root = args.checkpoint_root
+    if not root:
+        fc = await api.get("/eth/v1/beacon/states/head/finality_checkpoints")
+        root = fc["data"]["finalized"]["root"]
+    boot = await api.get(f"/eth/v1/beacon/light_client/bootstrap/{root}")
+    client = LightClient(preset, cfg, from_json(boot["data"]), gvr)
+    logger.info("light client bootstrapped at slot %d", client.finalized_header.slot)
+    polls = 0
+    slots_per_period = preset.SLOTS_PER_EPOCH * preset.EPOCHS_PER_SYNC_COMMITTEE_PERIOD
+    while args.max_polls == 0 or polls < args.max_polls:
+        polls += 1
+        # the clock's per-period hook: the participation watermarks rotate
+        # even when no update crosses the period boundary
+        if genesis_time:
+            client.process_slot(max(0, int(time.time() - genesis_time) // cfg.SECONDS_PER_SLOT))
+        try:
+            # from the period of the finalized header, so the loop follows
+            # the chain instead of refetching period 0
+            period = int(client.finalized_header.slot) // slots_per_period
+            ups = await api.get(
+                f"/eth/v1/beacon/light_client/updates?start_period={period}&count=4")
+            for u in ups["data"]:
+                client.process_update(from_json(u))
+            print(json.dumps({"optimistic_slot": int(client.optimistic_header.slot),
+                              "finalized_slot": int(client.finalized_header.slot)}), flush=True)
+        except Exception as e:  # noqa: BLE001 - a failed poll is retried
+            logger.warning("update poll failed: %s", e)
+        if args.max_polls and polls >= args.max_polls:
+            break
+        await asyncio.sleep(args.poll_seconds)
+    return 0
+
+
+def run_account(args) -> int:
+    """Keystore management (cmds/account): ``create`` writes ``--count``
+    EIP-2335 keystores of fresh keys, ``list`` prints each keystore's
+    pubkey and file name."""
+    import secrets
+
+    from .crypto.bls.fields import R
+    from .validator.keystore import create_keystore
+
+    if args.account_cmd == "create":
+        with open(args.password_file) as f:
+            password = f.read().strip()
+        os.makedirs(args.out_dir, exist_ok=True)
+        for _ in range(args.count):
+            secret = (int.from_bytes(secrets.token_bytes(32), "big") % (R - 1) + 1).to_bytes(32, "big")
+            ks = create_keystore(secret, password, kdf=args.kdf)
+            path = os.path.join(args.out_dir, f"keystore-{ks['pubkey'][:12]}.json")
+            with open(path, "w") as f:
+                json.dump(ks, f, indent=2)
+            print(f"wrote {path}")
+        return 0
+    for name in sorted(os.listdir(args.keystores_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(args.keystores_dir, name)) as f:
+                ks = json.load(f)
+            print(f"0x{ks.get('pubkey', '?')}  {name}")
+    return 0
+
+
+def run_init(args) -> int:
+    """Write the resolved flag values to an rc file
+    (cmds/init/handler.ts persistOptionsAndConfig)."""
+    payload = {k: v for k, v in vars(args).items()
+               if k not in ("cmd", "out", "config") and not callable(v)}
+    with open(args.out, "w") as f:
+        json.dump(payload, f, indent=2, default=str)
+    print(f"wrote {args.out}")
+    return 0
+
+
 def _apply_config_file(args, argv) -> None:
     """Overlay persisted rc values: an rc value applies unless the same
     flag was given on the command line."""
@@ -759,7 +1013,12 @@ def main(argv: Optional[list] = None) -> int:
     except (OSError, ValueError) as e:
         print(f"bad --config file: {e}", file=sys.stderr)
         return 2
-    run = {"dev": run_dev, "beacon": run_beacon}[args.cmd]
+    if args.cmd == "account":
+        return run_account(args)
+    if args.cmd == "init":
+        return run_init(args)
+    run = {"dev": run_dev, "beacon": run_beacon, "validator": run_validator,
+           "lightclient": run_lightclient}[args.cmd]
     if getattr(args, "log_format", None) is None:
         _set_log_format("text")
     try:

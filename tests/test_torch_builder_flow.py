@@ -2,9 +2,10 @@
 (``tests/test_builder_flow.py``'s cases): the proposer cache, blinded and
 full bodies merkleizing alike and the unblind refusing a tampered payload,
 the mock builder's registration checks, and a blinded proposal through
-the chain (registrations signed directly under the builder domain; the
-JAX test signs them through its validator store, which the port has not
-yet).  Every outcome, the imported head root and the fee recipient in the
+the chain (registrations signed directly under the builder domain, as
+the JAX test's validator store signs them; the port's
+``ValidatorStore.sign_validator_registration`` is held to the JAX
+store's bytes in ``tests/test_torch_validator_store.py``).  Every outcome, the imported head root and the fee recipient in the
 payload included, equals the JAX package's."""
 
 import asyncio

@@ -47,6 +47,17 @@ NETWORK_MODULES = (
 )
 
 
+#: the validator client and what else remained: the validator client's
+#: modules, the light client, flare, the eth1 provider and the spec-test
+#: harness, copies of the JAX package's at the same relative paths
+VALIDATOR_MODULES = (
+    *(f"validator/{m}" for m in ("__init__", "slashing_protection", "keystore", "store",
+                                 "remote_signer", "header_tracker", "client", "keymanager")),
+    "light_client/__init__", "light_client/client", "flare", "eth1/provider",
+    *(f"spec_test_util/{m}" for m in ("__init__", "runner", "deposits", "perf_state")),
+)
+
+
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
@@ -78,7 +89,7 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "observatory/compile_ledger", "crypto/bls/bucket_program",
                    "observatory/attribution", "observatory/device_sampler",
                    "observatory/xprof", "crypto/bls/native_verifier", "cli",
-                   *CHAIN_MODULES, *NETWORK_MODULES):
+                   *CHAIN_MODULES, *NETWORK_MODULES, *VALIDATOR_MODULES):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -120,7 +131,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.chain.beacon_chain\n"
         "import lodestar_tpu_torch.node.dev_chain\n"
         + "".join(f"import lodestar_tpu_torch.{m.replace('/__init__', '').replace('/', '.')}\n"
-                  for m in CHAIN_MODULES + NETWORK_MODULES)
+                  for m in CHAIN_MODULES + NETWORK_MODULES + VALIDATOR_MODULES)
         + "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"

@@ -6,7 +6,8 @@ updates equal the JAX server's as JSON, and the best update's SSZ bytes
 equal too; the JAX package's light client bootstraps from the port's
 bootstrap, follows the port's updates (over the port's REST API as well)
 to a finalized header past genesis, and refuses the same tampered
-updates.  The light client itself is not ported yet (ROADMAP 3c)."""
+updates.  The port's light client is held against the JAX one in
+``tests/test_torch_light_client_client.py``."""
 
 import asyncio
 import importlib
