@@ -339,6 +339,39 @@ histograms of phases 3, 6 and 11 are read from that record.
     and the ten fused kernels' launches over 19a (``launches_by_path``'s
     ``validator``).  The full run runs 19c in a thread beside phase 9 (as
     phase 16), so its rates there are taken beside phase 9.
+20. operations: the port's harnesses in ``lodestar_tpu_torch/tools/``.
+    20a: ``firehose.run_firehose`` on the card's split fused pool
+    (``firehose.card_verifier``: buckets 4, 16 and 128, warmed first; the
+    firehose's real sets, interop keys reused), an at-SLO window (150
+    sets/s for 10 s) and an overload window (2,000 sets/s for 5 s, a
+    400 ms storm-lane deadline), each over a pool of its own
+    (``firehose.make_pool``, backpressure at 512 pending sets): both with
+    0 unaccounted sets, 0 stranded futures and every verified job True,
+    the overload run with intake shedding above 0 and the pool's pending
+    sets (read at every tick) within the bound backpressure sets
+    (``pending_sets_bound``).  Logged: achieved sets/s, queue wait and
+    end-to-end p50 / p99 overall, per lane and per duty, batches by lane
+    and bucket, the fused kernels' launches over both windows
+    (``launches_by_path``'s ``firehose``).  20b: ``python -m
+    lodestar_tpu_torch.tools.chaos_campaign --json`` (the card is its
+    default) in a
+    child: device_loss, device_wedge, compile_fault and sharded_loss on
+    the card's graphs (two executors of card 0 at bucket 4, the tier over
+    2 logical shards at bucket 4), the other four classes on the host;
+    every scenario holds with 0 verdicts lost, every bundle it names
+    passes the port's ``inspect_bundle`` here too; logged: time to
+    quarantine, to recover, the recovery ratio, and the launches the
+    child counted over the campaign's batches, its verifiers' warmups
+    left out (``chaos``, the ring hop's too).  20c: the prewarm farm
+    (``tools/prewarm``) fills an empty store for buckets 4 and 16 in a
+    child; a second, running while the first holds the farm lock, exits
+    3; ``--verify`` exits 0; a child with nvcc off its PATH loads the
+    library from that store under ``load_only``, warms bucket 4 and
+    verifies a valid and a corrupted batch (True, False) starting no
+    nvcc.  The children's output is in ``chiprun_out/chip_smoke_ops/``.
+    The full run runs 20c in a thread beside phase 9 (as 19c), 20b after
+    phase 10, alone (its recovery ratio compares two rates), and 20a
+    after phase 19, alone.
 
 Signatures are made by a pool of host processes (each signs in the
 port's C library, ``native/fastbls``), which also run the CPU references
@@ -358,13 +391,14 @@ The last lines: the paths side by side, the whole run's wall, the
     python3 chip_smoke.py --chain-only
     python3 chip_smoke.py --network-only
     python3 chip_smoke.py --validator-only
+    python3 chip_smoke.py --ops-only
 
 run phases 1 and 8-10 alone (on a machine with several cards, for the
 cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), phases 1 and 14, phases 1 and 15 (signing its 256 sets
-itself), phases 1 and 16, phases 1 and 17, phases 1 and 18, or phases 1
-and 19, and end with ``{"phases": ...}``, the card line and ``{"ok": true,
+itself), phases 1 and 16, phases 1 and 17, phases 1 and 18, phases 1
+and 19, or phases 1 and 20, and end with ``{"phases": ...}``, the card line and ``{"ok": true,
 "device": {...}}`` without the ``kernels`` object.
 """
 
@@ -2311,7 +2345,8 @@ def main(argv) -> int:
             ("--fused-only",): "fused", ("--store-only",): "store",
             ("--observatory-only",): "observatory",
             ("--analysis-only",): "analysis", ("--chain-only",): "chain",
-            ("--network-only",): "network", ("--validator-only",): "validator"}.get(tuple(argv))
+            ("--network-only",): "network", ("--validator-only",): "validator",
+            ("--ops-only",): "ops"}.get(tuple(argv))
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2353,7 +2388,12 @@ def main(argv) -> int:
             run_network(dev, card, pool)
         if mode == "validator":
             run_validator_phase(dev, card, pool)
-        if mode not in ("sharded", "store", "observatory", "chain", "network", "validator"):
+        if mode == "ops":
+            run_firehose_phase(dev, card)
+            run_chaos(card)
+            run_prewarm(card)
+        if mode not in ("sharded", "store", "observatory", "chain", "network", "validator",
+                        "ops"):
             with Phase("2 kernels"):
                 registry_launches = run_registry(dev, card)
                 results = check_kernels(dev, card)
@@ -2373,7 +2413,7 @@ def main(argv) -> int:
                 f"dispatch [{card}]")
         if mode in ("all", "sharded"):
             ring = run_ring(dev, card)
-        if mode not in ("store", "observatory", "chain", "network", "validator"):
+        if mode not in ("store", "observatory", "chain", "network", "validator", "ops"):
             t0 = time.perf_counter()
             sets256 = make_sets(pool, keys, b"sharded slice")
             log(f"sharded slice: built {len(sets256)} signature sets in {procs} host processes "
@@ -2391,6 +2431,10 @@ def main(argv) -> int:
             cli19 = (concurrent.futures.ThreadPoolExecutor(1).submit(
                 run_cli_validator, os.path.join(REPO, "chiprun_out", "chip_smoke_validator_cli"))
                 if mode == "all" else None)
+            # and phase 20c, the prewarm farm in child processes, whose
+            # checks are exit codes, verdicts and files
+            prewarm20 = (concurrent.futures.ThreadPoolExecutor(1).submit(run_prewarm, card)
+                         if mode == "all" else None)
             verifier, sharded_launches, sharded_xla_launches, tiers = run_sharded(
                 dev, card, sets256, cpu_ref,
                 xla_modes=(False,) if mode == "all" else (True, False))
@@ -2403,12 +2447,18 @@ def main(argv) -> int:
                 cli19 = cli19.result(timeout=1200)
                 log(f"phase 19c beside phase 9: waited {time.perf_counter() - t0:.1f} s for it "
                     f"after phase 9")
+                t0 = time.perf_counter()
+                prewarm20.result(timeout=1200)
+                log(f"phase 20c beside phase 9: waited {time.perf_counter() - t0:.1f} s for it "
+                    f"after phase 9")
             times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
             log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
                 f"{json.dumps({k: v for k, v in times.items() if k != 'logical2'})} [{card}]")
-        if mode not in ("sharded", "store", "observatory", "chain", "network", "validator"):
+            chaos20 = run_chaos(card) if mode == "all" else None
+        if mode not in ("sharded", "store", "observatory", "chain", "network", "validator",
+                        "ops"):
             split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
             pooled = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
@@ -2426,12 +2476,13 @@ def main(argv) -> int:
             chain = run_chain(dev, card, pool)
             network = run_network(dev, card, pool)
             validator = run_validator_phase(dev, card, pool, cli=cli19)
+            firehose20 = run_firehose_phase(dev, card)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
         return ok_lines(card, {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
                                "fused": "1-5, 2b, 11, 12", "store": "1, 14",
                                "observatory": "1, 15", "chain": "1, 17", "network": "1, 18",
-                               "validator": "1, 19"}[mode])
+                               "validator": "1, 19", "ops": "1, 20"}[mode])
 
     def by_path(name):
         return {"registry": registry_launches[name], "fused": fused_launches[name],
@@ -2444,7 +2495,9 @@ def main(argv) -> int:
                 "segment": chain["segment"]["launches"].get(name, 0),
                 "gossip": network["gossip"]["launches"].get(name, 0),
                 "range_sync": network["range_sync"]["launches"].get(name, 0),
-                "validator": validator["validator"]["launches"].get(name, 0)}
+                "validator": validator["validator"]["launches"].get(name, 0),
+                "firehose": firehose20["launches"].get(name, 0),
+                "chaos": chaos20["launches"].get(name, 0)}
 
     # each kernel's launches from its own path: the fused kernels' phase 3,
     # the tower kernels' phase 6, the library kernel's registry run, the
@@ -4359,6 +4412,280 @@ def run_observatory(dev, card: str, pool, keys, sets256=None) -> dict:
             verifier.close()
             shutil.rmtree(tmp, ignore_errors=True)
     return dict(inside=inside, outside=outside, batches=len(report["batches"]))
+
+
+# -- phase 20: the operations harnesses on the card -----------------------------------
+
+OPS_SLO_RATE = 150.0  # sets/s at the SLO: ~45 % of phase 12's pool rate (329.83 on an H100)
+OPS_SLO_S = 10.0
+# the firehose reuses 16 signature sets, so the pack hits the point cache and
+# the pool runs faster than on phase 12's fresh sets (329.83 sets/s): it kept
+# up with 1,500 sets/s offered (1,393.4 verified on an H100), and verified
+# 833.1-884.8 of 2,000, whose lanes never shed at intake (aggregates and
+# blocks, ~37 % of the sets: ~750 sets/s) stay below that
+OPS_OVERLOAD_RATE = 2000.0
+OPS_OVERLOAD_S = 5.0
+OPS_DEADLINE_MS = 400.0  # the storm lanes' deadline in the overload run
+OPS_HIGH_WATER = 512  # pending sets: two merged batches in flight, two waiting
+OPS_PREWARM_BUCKETS = (4, 16)
+OPS_OUT = os.path.join(REPO, "chiprun_out", "chip_smoke_ops")
+
+
+def _batches_by(spans, verifier) -> dict:
+    """The pool's merged batches (its ``pool.batch`` spans) by bucket, and
+    by lane: how many batches carried a job of each lane."""
+    lanes = {}
+    for sp in spans:
+        if sp.name == "bls.queue_wait":
+            lanes.setdefault(sp.cid, set()).add(sp.args["lane"])
+    by_bucket, by_lane = {}, {}
+    for sp in spans:
+        if sp.name == "pool.batch":
+            b = verifier._bucket(sp.args["sets"])
+            by_bucket[b] = by_bucket.get(b, 0) + 1
+            for lane in lanes.get(sp.cid, ()):
+                by_lane[lane] = by_lane.get(lane, 0) + 1
+    return dict(by_bucket=dict(sorted(by_bucket.items())), by_lane=dict(sorted(by_lane.items())))
+
+
+def firehose_run(verifier, builder, rate: float, seconds: float, deadline_ms=None) -> dict:
+    """One ``run_firehose`` window over a pool of its own."""
+    from lodestar_tpu_torch import tracing
+    from lodestar_tpu_torch.tools import firehose
+
+    tracing.TRACER.clear()
+    tracing.enable(1 << 18)
+    pool = firehose.make_pool(verifier, high_water=OPS_HIGH_WATER)
+
+    async def run():
+        try:
+            return await firehose.run_firehose(pool, rate=rate, duration_s=seconds,
+                                               deadline_ms=deadline_ms, sets_builder=builder,
+                                               seed=SEED)
+        finally:
+            pool.close()
+
+    report = asyncio.run(run())
+    report.update(batches=_batches_by(tracing.TRACER.spans(), verifier))
+    tracing.disable()
+    tracing.TRACER.clear()
+    return report
+
+
+def run_firehose_phase(dev, card: str) -> dict:
+    """Phase 20a: the port's firehose on the card's split fused pool
+    (buckets 4, 16 and 128, warmed first): an at-SLO window and an
+    overload window, each over a pool of its own.  Both must account for
+    every offered set with no future stranded and every verified job True;
+    the overload run must shed at intake (backpressure) with the pool's
+    pending sets within the bound backpressure sets.  Logs the achieved
+    sets/s, queue wait and end-to-end p50 / p99 overall, per lane and per
+    duty, the batches by lane and bucket, and the fused kernels' launches
+    over both windows."""
+    from lodestar_tpu_torch.forensics import RECORDER
+    from lodestar_tpu_torch.ops import fused_core
+    from lodestar_tpu_torch.tools import firehose
+
+    out = {}
+    # the overload run's shed-rate bundle lands beside the children's output
+    RECORDER.configure(forensics_dir=os.path.join(OPS_OUT, "firehose"))
+    with Phase("20a firehose"):
+        t0 = time.perf_counter()
+        verifier = firehose.card_verifier(dev)
+        log(f"firehose: split fused graphs at buckets {firehose.CARD_BUCKETS} warmed in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if not (verifier.fused and verifier.host_final_exp):
+            raise AssertionError("firehose: the verifier is not the split fused default")
+        builder = firehose._build_real_sets("cuda")
+        fused_core.reset_launch_counts()
+        d0 = verifier.dispatches
+        for name, rate, seconds, deadline in (
+                ("slo", OPS_SLO_RATE, OPS_SLO_S, None),
+                ("overload", OPS_OVERLOAD_RATE, OPS_OVERLOAD_S, OPS_DEADLINE_MS)):
+            r = firehose_run(verifier, builder, rate, seconds, deadline)
+            out[name] = r
+            log(f"firehose {name}: " + json.dumps(r))
+            log(f"firehose {name}: offered {rate} sets/s for {seconds} s -> achieved "
+                f"{r['achieved_sets_per_s']} sets/s ({r['verified_sets']} of "
+                f"{r['offered_sets']} sets verified); queue wait p50 / p99 "
+                f"{r['queue_wait']['p50_ms']} / {r['queue_wait']['p99_ms']} ms, end to end "
+                f"{r['e2e']['p50_ms']} / {r['e2e']['p99_ms']} ms; per duty "
+                + json.dumps({d: [v["p50_ms"], v["p99_ms"]] for d, v in r["e2e_by_duty"].items()})
+                + "; queue wait per lane " + json.dumps(
+                    {k: [v["p50_ms"], v["p99_ms"]] for k, v in r["queue_wait_by_lane"].items()})
+                + f"; shed at intake {r['intake_shed_total']}, dropped "
+                f"{r['dropped_sets_total']}, pending peak {r['pending_sets_peak']} (bound "
+                f"{r['pending_sets_bound']}); batches "
+                + json.dumps(r["batches"]) + f" [{card}]")
+            bad = [o for o in r["outcomes"] if not (o == "verified_ok" or o.startswith("dropped_"))]
+            if r["unaccounted_sets"] or r["stranded_futures"] or bad:
+                raise AssertionError(f"firehose {name}: unaccounted {r['unaccounted_sets']}, "
+                                     f"stranded {r['stranded_futures']}, outcomes {r['outcomes']}")
+        over = out["overload"]
+        if over["intake_shed_total"] == 0:
+            raise AssertionError("firehose overload: backpressure never shed at intake")
+        if over["pending_sets_peak"] > over["pending_sets_bound"]:
+            raise AssertionError(f"firehose overload: pending sets {over['pending_sets_peak']} "
+                                 f"above backpressure's bound {over['pending_sets_bound']}")
+        out["launches"] = chain_launches(FUSED)
+        out["dispatches"] = verifier.dispatches - d0
+        idle = [name for name in FUSED if out["launches"][name] == 0]
+        if idle:
+            raise AssertionError(f"firehose: kernels never launched {idle}")
+        log(f"firehose: {out['dispatches']} batches; launches over both windows "
+            + json.dumps(out["launches"]))
+        verifier.close()
+    return out
+
+
+# the second prewarmer: imported first, then it runs the farm as soon as the
+# first one's farm lock exists, so that it meets a held lock whatever the
+# two processes' start-up times
+SECOND_PREWARMER = r"""
+import os, sys, time
+sys.path.insert(0, sys.argv[1])
+from lodestar_tpu_torch.tools import prewarm
+lock = os.path.join(sys.argv[2], prewarm.FARM_LOCK_NAME)
+t_end = time.monotonic() + 300
+while not os.path.exists(lock):
+    if time.monotonic() > t_end:
+        sys.exit(4)
+    time.sleep(0.01)
+sys.exit(prewarm.main(["--store", sys.argv[2], "--buckets", "4", "--lock-wait-s", "0.2"]))
+"""
+
+
+def _ops_child(args, env=None) -> subprocess.Popen:
+    os.makedirs(OPS_OUT, exist_ok=True)
+    return subprocess.Popen([sys.executable, *args], cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _ops_wait(proc: subprocess.Popen, name: str, timeout: float) -> tuple:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"ops: {name} did not end in {timeout} s")
+    with open(os.path.join(OPS_OUT, f"{name}.log"), "w") as f:
+        f.write(out + "\n-- stderr --\n" + err)
+    return proc.returncode, out, err
+
+
+def run_chaos_phase(card: str) -> dict:
+    """Phase 20b: the port's chaos campaign as a user runs it, ``python -m
+    lodestar_tpu_torch.tools.chaos_campaign --json`` (the card by default), in a
+    child process: device_loss, device_wedge, compile_fault and
+    sharded_loss on the card's graphs (two executors of card 0 at bucket
+    4; the sharded tier over 2 logical shards at bucket 4), the other four
+    classes on the host.  Every scenario must hold with no verdict lost,
+    and every bundle it names must pass the port's ``inspect_bundle`` here
+    too.  Logs the time to quarantine and to recover, the recovery ratio,
+    and the kernels' launches the child counted over the campaign's
+    batches (its verifiers' warmups apart)."""
+    from lodestar_tpu_torch.tools import inspect_bundle
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(OPS_OUT, "chaos")
+    proc = _ops_child(["-m", "lodestar_tpu_torch.tools.chaos_campaign",
+                       "--json", "--out-dir", out_dir, "--seed", str(SEED % 1000)])
+    rc, out, err = _ops_wait(proc, "chaos_campaign", 600)
+    try:
+        report = json.loads(out)
+    except ValueError:
+        raise AssertionError(f"chaos: no report (exit {rc}): {err[-2000:]}")
+    wall = time.perf_counter() - t0
+    summary = {name: {k: s.get(k) for k in ("ok", "on_card", "wall_s", "verdicts_lost",
+                                             "requeued_batches", "failures")}
+               for name, s in report["scenarios"].items()}
+    log("chaos: " + json.dumps(summary))
+    bundles = [b for s in report["scenarios"].values() for b in s.get("bundles") or []]
+    invalid = {b: e for b in bundles for e in [inspect_bundle.validate(b)] if e}
+    on_card = sorted(n for n, s in report["scenarios"].items() if s.get("on_card"))
+    log(f"chaos: exit {rc}, ok {report['ok']}, verdicts lost {report['verdicts_lost']}, "
+        f"{len(bundles)} bundles validated again here ({len(invalid)} invalid); on the card "
+        f"{on_card}; time to quarantine {report['time_to_quarantine_s']} s, to recover "
+        f"{report['time_to_recover_s']} s, recovery ratio "
+        f"{report['throughput_recovery_ratio']}; campaign {wall:.1f} s [{card}]")
+    if (rc != 0 or not report["ok"] or report["verdicts_lost"] or invalid
+            or len(report["scenarios"]) != 8 or on_card != sorted(
+                ("device_loss", "device_wedge", "compile_fault", "sharded_loss"))):
+        raise AssertionError(f"chaos: the campaign failed: {report['failures']} {invalid}")
+    launches = report["launches"]
+    idle = [name for name in (*FUSED, "ring_hop") if launches.get(name, 0) == 0]
+    if idle:
+        raise AssertionError(f"chaos: kernels never launched {idle}")
+    log("chaos: launches over the campaign's batches " + json.dumps(
+        {n: launches[n] for n in (*FUSED, "ring_hop")}) + "; in its verifiers' warmups "
+        + json.dumps({n: report["warmup_launches"][n] for n in (*FUSED, "ring_hop")}))
+    return dict(report=report, launches=launches, wall=wall)
+
+
+def run_prewarm_phase(card: str, sets) -> dict:
+    """Phase 20c: the port's prewarm farm in child processes.  One fills an
+    empty store for buckets 4 and 16; a second, running while the first
+    holds the farm lock, exits 3; ``--verify`` exits 0.  Then a child with
+    nvcc off its PATH and CUDA_HOME empty loads the library from that store
+    under ``load_only``, warms bucket 4 and verifies a valid and a
+    corrupted batch (True, False) starting no nvcc."""
+    import tempfile
+
+    batches = [[(s.pubkey.to_bytes().hex(), s.signing_root.hex(), s.signature.hex())
+                for s in b] for b in (sets, corrupt(sets, 1, 2))]
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        first = _ops_child(["-m", "lodestar_tpu_torch.tools.prewarm", "--store", store,
+                            "--buckets", ",".join(map(str, OPS_PREWARM_BUCKETS)), "--json"])
+        second = _ops_child(["-c", SECOND_PREWARMER, REPO, store])
+        rc2, _, err2 = _ops_wait(second, "prewarm_second", 300)
+        rc1, out1, err1 = _ops_wait(first, "prewarm_first", 600)
+        farm_wall = time.perf_counter() - t0
+        if rc1 != 0:
+            raise AssertionError(f"prewarm: the farm failed ({rc1}): {err1[-2000:]}")
+        farm = json.loads(out1)
+        log("prewarm: farm " + json.dumps(farm))
+        log(f"prewarm: the second prewarmer exited {rc2}: {err2.strip()[-300:]}")
+        if rc2 != 3 or farm["stats"]["saves"] != 1 or len(farm["entries"]) != 1:
+            raise AssertionError(f"prewarm: the farm lock did not hold the second prewarmer "
+                                 f"off ({rc2}), or the store holds {farm['entries']}")
+        # the sweep and the restart read the store at once: neither writes it
+        verify = _ops_child(["-m", "lodestar_tpu_torch.tools.prewarm", "--store", store,
+                             "--verify", "--json"])
+        case = dict(store=store, load_only=True, bucket=4, seed=SEED + 200, batches=batches)
+        restart = store_child(tmp, "ops_load_only", case, _without_nvcc(tmp))
+        rc3, out3, err3 = _ops_wait(verify, "prewarm_verify", 300)
+        loaded = store_result("ops load_only", restart)
+        sweep = json.loads(out3) if rc3 == 0 else None
+        if rc3 != 0 or sweep["ok"] != farm["entries"] or sweep["corrupt"] or sweep["orphans"]:
+            raise AssertionError(f"prewarm: --verify exited {rc3}: {out3[-500:]} {err3[-500:]}")
+        nvcc = [c for c in loaded["started"] if "nvcc" in c]
+        if (loaded["which_nvcc"] or nvcc or loaded["library"]["kind"] != "aot_load"
+                or loaded["verdicts"] != [True, False]):
+            raise AssertionError("prewarm: the load_only restart did not load the farm's "
+                                 "library and verify True, False without nvcc")
+        log(f"prewarm: farm wall {farm_wall:.2f} s (its warmup {farm['warmup_s']} s, library "
+            f"{farm['library']}); second prewarmer exit 3; --verify ok {len(sweep['ok'])}; "
+            f"load_only restart: library {loaded['library']}, warmup at bucket 4 "
+            f"{loaded['warmup_s']:.2f} s, verdicts {loaded['verdicts']} [{card}]")
+    return dict(farm_wall=farm_wall, farm_warmup_s=farm["warmup_s"],
+                load_only_warmup_s=loaded["warmup_s"])
+
+
+def run_chaos(card: str) -> dict:
+    """Phase 20b, alone: its recovery ratio compares two rates."""
+    with Phase("20b chaos"):
+        return run_chaos_phase(card)
+
+
+def run_prewarm(card: str) -> dict:
+    """Phase 20c (its checks are exit codes, verdicts and files; its
+    children run on the card)."""
+    from lodestar_tpu_torch.tools.chaos_campaign import make_sets as signed_sets
+
+    with Phase("20c prewarm"):
+        return run_prewarm_phase(card, signed_sets(4, start=500))
 
 
 if __name__ == "__main__":

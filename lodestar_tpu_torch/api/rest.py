@@ -1120,8 +1120,8 @@ class RestApiServer:
         cold/warm_load/hit totals and the device sampler's HBM/busy view
         — `curl .../observatory | jq .data.compile_ledger` answers "what
         did startup pay" on a live node."""
-        from ..metrics.registry import SLO_LATENCY_BUCKETS_S
         from ..observatory import COMPILE_LEDGER, get_sampler
+        from ..observatory.latency import SLO_LATENCY_BUCKETS_S
 
         sampler = get_sampler()
         return {

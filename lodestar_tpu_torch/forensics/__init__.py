@@ -1,6 +1,5 @@
 """Flight recorder & failure forensics (the port's copy of the JAX
-package's ``forensics``, without its ``jax.monitoring`` listener, its
-crash hooks and the bench ``salvage`` heartbeats).
+package's ``forensics``, without its ``jax.monitoring`` listener).
 
 Cooperating pieces, all bounded-memory and safe to leave on in
 production:
@@ -12,9 +11,13 @@ production:
   (``INFLIGHT``) plus the stall scanner that turns a silently wedged
   device batch into a metric, a journal ERROR, and an automatic bundle;
 - ``bundle`` / ``recorder`` — the diagnostic bundle writer and the
-  ``RECORDER`` singleton wiring it to the watchdog and on-demand dumps.
+  ``RECORDER`` singleton wiring it to the watchdog, on-demand dumps and
+  the crash hooks;
+- ``salvage`` — heartbeat bundles a stage child leaves behind when it is
+  killed, read back by its parent matched by pid.
 
-Inspect any bundle with ``python tools/inspect_bundle.py BUNDLE_DIR``.
+Inspect any bundle with ``python -m lodestar_tpu_torch.tools.inspect_bundle
+BUNDLE_DIR``.
 """
 
 from .bundle import BUNDLE_SCHEMA, latest_bundle, prune_bundles, write_bundle

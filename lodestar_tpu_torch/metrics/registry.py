@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Sequence
 
+from ..observatory.latency import COMPILE_BUCKETS_S, SLO_LATENCY_BUCKETS_S
+
 try:  # optional: every metric is a no-op without it
     from prometheus_client import (
         CollectorRegistry,
@@ -26,19 +28,6 @@ try:  # optional: every metric is a no-op without it
     HAVE_PROM = True
 except Exception:  # pragma: no cover
     HAVE_PROM = False
-
-
-#: the compile-time histogram's bucket ladder (seconds), the JAX
-#: package's ``observatory/latency.COMPILE_BUCKETS_S``
-COMPILE_BUCKETS_S = (0.1, 0.5, 1, 5, 10, 30, 60, 120, 300, 600)
-
-#: the queue-wait / e2e verify latency ladder (seconds), the JAX
-#: package's ``observatory/latency.SLO_LATENCY_BUCKETS_S``: the 100 ms
-#: queue-wait SLO and the 400 ms / 1000 ms lane deadlines are bucket edges
-SLO_LATENCY_BUCKETS_S = (
-    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.0,
-    2.0, 5.0, 10.0,
-)
 
 
 class _NoopMetric:

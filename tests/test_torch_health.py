@@ -18,8 +18,9 @@ the JAX package on the CPU.
   False.
 - The metrics' exposition lines for requeues and quarantines equal the
   JAX registry's; without ``prometheus_client`` every metric is a no-op.
-- One quarantine bundle per cooldown; ``tools/inspect_bundle.py`` reads
-  the port's bundle as it reads the JAX one.
+- One quarantine bundle per cooldown; the port's
+  ``lodestar_tpu_torch/tools/inspect_bundle.py`` reads the port's bundle as
+  the repo's ``tools/inspect_bundle.py`` reads the JAX one.
 - The pool hands the merged batch's tightest deadline to
   ``verify_signature_sets_async``.
 """
@@ -58,6 +59,7 @@ from lodestar_tpu_torch.crypto.bls.torch_verifier import (
 )
 from lodestar_tpu_torch.forensics import INFLIGHT, JOURNAL, RECORDER, Watchdog
 from lodestar_tpu_torch.metrics import registry as mreg
+from lodestar_tpu_torch.tools import inspect_bundle
 from lodestar_tpu_torch.tracing import TRACER
 
 from tools.chaos_campaign import load_tool, stub_verifier
@@ -437,7 +439,6 @@ def test_requeue_span_and_wedge_leave_their_evidence(tmp_path):
     assert pend.result() is True  # the wedge turned loss was requeued
     bundle = [n for n in os.listdir(RECORDER.dir) if n.startswith("bundle-watchdog")]
     assert bundle
-    inspect_bundle = load_tool("inspect_bundle")
     path = os.path.join(RECORDER.dir, bundle[0])
     assert inspect_bundle.validate(path) == []
     health = inspect_bundle.summarize(path)["chaos"]["executor_health"]
@@ -546,14 +547,15 @@ def test_one_quarantine_bundle_per_cooldown(monkeypatch):
 def test_inspect_bundle_reads_the_ports_bundle_as_the_jax_one(side):
     """As the JAX package's chaos triage test: the summary names the
     fault, the requeues and the quarantined executor, for either
-    package's bundle."""
-    inspect_bundle = load_tool("inspect_bundle")
+    package's bundle, each read by its own package's inspector."""
     if side == "port":
         v, recorder, chaos, plan = port_verifier(2, threshold=1, backoff=5.0), RECORDER, CHAOS, \
             FaultPlan
+        inspector = inspect_bundle
     else:
         v, recorder, chaos, plan = jax_verifier(2, threshold=1, backoff=5.0), JRECORDER, \
             JCHAOS, JFaultPlan
+        inspector = load_tool("inspect_bundle")
     recorder.configure(verifier=v)
     target = v._executors[1].name
     chaos.install(plan(11).add("device.loss", match={"device": target}, count=1))
@@ -563,14 +565,14 @@ def test_inspect_bundle_reads_the_ports_bundle_as_the_jax_one(side):
             break
     path = recorder.dump("chaos-triage-probe")
     chaos.disarm()
-    assert inspect_bundle.validate(path) == []
-    ch = inspect_bundle.summarize(path)["chaos"]
+    assert inspector.validate(path) == []
+    ch = inspector.summarize(path)["chaos"]
     assert ch["armed"] is True and ch["seed"] == 11
     assert ch["last_fault"]["seam"] == "device.loss"
     assert ch["requeued_batches"] >= 1
     assert ch["executor_health"][target]["state"] == QUARANTINED
     assert QUARANTINED in [e["state"] for e in ch["health_timeline"]]
-    inspect_bundle._print_text(inspect_bundle.summarize(path))
+    inspector._print_text(inspector.summarize(path))
 
 
 # -- the pool's deadline -------------------------------------------------------

@@ -58,6 +58,15 @@ VALIDATOR_MODULES = (
 )
 
 
+#: the operations layer: the latency ladder, stage salvage and the
+#: harnesses run as ``python -m lodestar_tpu_torch.tools.<name>``, the
+#: port's copies of the JAX package's modules and of the repo's tools/
+OPS_MODULES = (
+    "observatory/latency", "forensics/salvage", *(f"tools/{m}" for m in (
+        "__init__", "inspect_bundle", "firehose", "chaos_campaign", "prewarm", "meshscope")),
+)
+
+
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
@@ -89,7 +98,7 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "observatory/compile_ledger", "crypto/bls/bucket_program",
                    "observatory/attribution", "observatory/device_sampler",
                    "observatory/xprof", "crypto/bls/native_verifier", "cli",
-                   *CHAIN_MODULES, *NETWORK_MODULES, *VALIDATOR_MODULES):
+                   *CHAIN_MODULES, *NETWORK_MODULES, *VALIDATOR_MODULES, *OPS_MODULES):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -131,7 +140,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.chain.beacon_chain\n"
         "import lodestar_tpu_torch.node.dev_chain\n"
         + "".join(f"import lodestar_tpu_torch.{m.replace('/__init__', '').replace('/', '.')}\n"
-                  for m in CHAIN_MODULES + NETWORK_MODULES + VALIDATOR_MODULES)
+                  for m in CHAIN_MODULES + NETWORK_MODULES + VALIDATOR_MODULES + OPS_MODULES)
         + "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"

@@ -33,7 +33,8 @@ from lodestar_tpu_torch.native import fastbls
 from lodestar_tpu_torch.observatory import COMPILE_LEDGER
 from lodestar_tpu_torch.ops import sharded_verify as sv
 
-from tools.chaos_campaign import stub_verifier
+# the JAX side's stub verifier (the port's is lodestar_tpu_torch.tools.chaos_campaign's)
+from tools.chaos_campaign import stub_verifier as jax_stub_verifier
 
 _GEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_vectors", "generate.py")
 _spec = importlib.util.spec_from_file_location("port_vectors_generate", _GEN)
@@ -119,7 +120,7 @@ def _pair(n, monkeypatch, min_batch=16):
     monkeypatch.setattr(port, "_mesh_program_for", port_mesh)
     monkeypatch.setattr(port, "_program",
                         lambda card, bucket, load_only=None: made["port"].append(("card", bucket)))
-    jax = stub_verifier(n_devices=n, device_s=0.0, sharded=True, bucket=4)
+    jax = jax_stub_verifier(n_devices=n, device_s=0.0, sharded=True, bucket=4)
     jax.sharded_min_batch = min_batch
     jax.buckets = tv.DEFAULT_BUCKETS
     monkeypatch.setattr(jax, "_mesh_fn", lambda b: made["jax"].append(("mesh", b)))

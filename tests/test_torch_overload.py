@@ -34,14 +34,17 @@ from lodestar_tpu_torch.forensics.journal import JOURNAL
 from lodestar_tpu_torch.forensics.recorder import RECORDER
 from lodestar_tpu_torch.metrics import create_metrics
 from lodestar_tpu_torch.observatory import xprof
+from lodestar_tpu_torch.tools import inspect_bundle
 
-from tools.inspect_bundle import summarize, validate
+from tools import inspect_bundle as jinspect_bundle
 
 SIDES = {
     "port": dict(pool=BlsBatchPool, lane=SignatureSetPriority, dropped=VerificationDroppedError,
-                 journal=JOURNAL, tracing=tracing, recorder=RECORDER, metrics=create_metrics),
+                 journal=JOURNAL, tracing=tracing, recorder=RECORDER, metrics=create_metrics,
+                 inspect=inspect_bundle),
     "jax": dict(pool=JBlsBatchPool, lane=JPriority, dropped=JDropped, journal=JJOURNAL,
-                tracing=jtracing, recorder=JRECORDER, metrics=jax_create_metrics),
+                tracing=jtracing, recorder=JRECORDER, metrics=jax_create_metrics,
+                inspect=jinspect_bundle),
 }
 
 
@@ -286,8 +289,9 @@ def test_a_shed_rate_spike_writes_one_triageable_overload_bundle(tmp_path):
         await pool._overload_task
         pool.close()
         bundle = latest_bundle(str(tmp_path / name))
-        assert bundle and "overload" in bundle and validate(bundle) == []
-        ov = summarize(bundle)["overload"]
+        # each package's bundle read by its own inspector
+        assert bundle and "overload" in bundle and env["inspect"].validate(bundle) == []
+        ov = env["inspect"].summarize(bundle)["overload"]
         return ({k: ov[k] for k in ("shed_window_sets", "dropped_by_lane", "dropped_by_reason",
                                     "queue_depth_jobs", "pending_sets", "backpressure")},
                 journal_events(name, ("pool.overload",)),
