@@ -209,9 +209,12 @@ histograms of phases 3, 6 and 11 are read from that record.
     store raises ``AotStoreMiss`` before any batch; one allowed to build
     (into an empty build directory), on a copy of the store whose payload
     ``chaos.corrupt_file`` corrupted, journals ``aot.corrupt``,
-    quarantines it, rebuilds with nvcc and saves again; logged: the
-    store's load seconds against the nvcc build's, and the compile
-    ledger's summary.
+    quarantines it, rebuilds with nvcc, saves again and verifies the same
+    two batches; logged: the store's load seconds against the nvcc
+    build's, the compile ledger's summary, and three starts, each from a
+    verifier's construction to its first verdict at bucket 4: cold (the
+    rebuilding process, nvcc), aot (the ``load_only`` process, the stored
+    library) and warm (this process, the library from its memo).
 15. observatory: the port's own entry (``cli.py``): ``add_bls_flags``
     parsed with ``--bls-buckets 128 --bls-warmup blocking --torch-profile
     <tmp> --profile-window 2 --telemetry-interval-s 0.2 --forensics-dir
@@ -372,6 +375,25 @@ histograms of phases 3, 6 and 11 are read from that record.
     The full run runs 20c in a thread beside phase 9 (as 19c), 20b after
     phase 10, alone (its recovery ratio compares two rates), and 20a
     after phase 19, alone.
+21. run ledger, at the end of every mode: this run's record
+    (``observatory/run_ledger.make_record``: mode, the phases it runs,
+    exit code, the card's name and power limit, torch and CUDA, each
+    phase's wall seconds and ``LEDGER_METRICS``, the tripwire metrics of
+    the phases the mode runs, read from the phases' figures: phase 11's
+    split sets/s and device Miller product, phase 12's pool sets/s, phase
+    10's sharded sets/s and its ratio to one card as 2 x 128, phase 14's
+    cold, aot and warm starts, phase 17's and 18a's blocks/s, 20a's
+    achieved sets/s at the SLO) written to ``chiprun_out/runs/``;
+    then the deltas against the newest earlier record of the same card,
+    ``perf_report``'s one-line summary (regressions, plateaus, gaps) and
+    ``tier1_budget`` over ``.jax_cache/tier1_timings.json`` ("none"
+    without one).  A flagged regression is reported, not fatal.  A run
+    that fails in a phase writes its record (rc 1, null where no phase
+    gave a figure) and then fails as before; a run whose phases passed
+    but left a metric null fails here, its record rc 1.  The deltas compare with the
+    records in this checkout's ``chiprun_out/runs/``;
+    ``python -m lodestar_tpu_torch.tools.perf_report --runs GLOB`` reads
+    records gathered from several checkouts.
 
 Signatures are made by a pool of host processes (each signs in the
 port's C library, ``native/fastbls``), which also run the CPU references
@@ -379,8 +401,8 @@ and phase 17's host chain, phase 18's host sim and phase 19's host run;
 the pool is closed before the end.
 
 The last lines: the paths side by side, the whole run's wall, the
-``kernels`` JSON object, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+``kernels`` JSON object, phase 21's lines, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --split-only
@@ -398,8 +420,8 @@ cross-card legs), phases 1, 2, 2b and 11-13, phases 1-5, 2b, 11 and 12 (every
 path that runs the fused G2 ladder: a checkout's kernels against
 another's), phases 1 and 14, phases 1 and 15 (signing its 256 sets
 itself), phases 1 and 16, phases 1 and 17, phases 1 and 18, phases 1
-and 19, or phases 1 and 20, and end with ``{"phases": ...}``, the card line and ``{"ok": true,
-"device": {...}}`` without the ``kernels`` object.
+and 19, or phases 1 and 20, each then phase 21, and end with ``{"phases": ...}``, the card line
+and ``{"ok": true, "device": {...}}`` without the ``kernels`` object.
 """
 
 from __future__ import annotations
@@ -451,12 +473,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def fresh_dir(path: str) -> str:
+    """``path`` emptied of an earlier run's files (a phase whose state
+    lives there starts from nothing on every run of the checkout)."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# each phase's wall seconds, by name, as it ended (the run's record keeps them)
+PHASE_SECONDS = {}
 
 
 class Phase:
@@ -471,7 +507,8 @@ class Phase:
 
     def __exit__(self, *exc):
         if exc[0] is None:
-            log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s wall")
+            PHASE_SECONDS[self.name] = time.perf_counter() - self.t0
+            log(f"phase {self.name}: {PHASE_SECONDS[self.name]:.1f} s wall")
 
 
 # -- operation counts (int32 multiply-adds a row; carries and adds are not
@@ -2350,13 +2387,36 @@ def main(argv) -> int:
     if mode is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
+    card = card_line()
+    # the phases' figures, filled as each phase returns; every mode ends
+    # in phase 21, a failed run too (its record, then its error)
+    figures = {}
+    try:
+        run_phases(mode, card, figures, t_start)
+    except BaseException:
+        run_ledger_phase(mode, 1, card, figures)
+        raise
+    run_ledger_phase(mode, 0, card, figures)
+    return ok_lines(card, None if mode == "all" else MODE_PHASES[mode])
+
+
+#: the phases each mode runs, as a ``-only`` mode's ``{"phases": ...}``
+#: line prints them
+MODE_PHASES = {"all": "1-21", "sharded": "1, 8-10, 21", "split": "1, 2, 2b, 11-13, 21",
+               "fused": "1-5, 2b, 11, 12, 21", "store": "1, 14, 21",
+               "observatory": "1, 15, 21", "analysis": "1, 16, 21", "chain": "1, 17, 21",
+               "network": "1, 18, 21", "validator": "1, 19, 21", "ops": "1, 20, 21"}
+
+
+def run_phases(mode: str, card: str, figures: dict, t_start: float) -> None:
+    """Phases 1-20 of ``mode``, each phase's figures kept in ``figures``;
+    the full run ends in the ``kernels`` line."""
     from lodestar_tpu_torch.ops import fused_ladder, library_fuse, tower_kernels  # noqa: F401
     from lodestar_tpu_torch.ops import ring_gather
     from lodestar_tpu_torch.ops.fused_core import KERNELS
     from lodestar_tpu_torch.ops.kernels import _build
 
     dev = torch.device("cuda", 0)
-    card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}; {torch.cuda.device_count()} card(s) visible")
     with Phase("1 build"):
@@ -2369,7 +2429,7 @@ def main(argv) -> int:
     if mode == "analysis":
         run_analysis(card)
         log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
-        return ok_lines(card, "1, 16")
+        return
     keys = make_keys(SHARDED_BUCKET)
     procs = min(8, os.cpu_count() or 1)
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
@@ -2379,17 +2439,18 @@ def main(argv) -> int:
                    for what, modes in (("fused", ("all", "fused")), ("xla", ("all",)),
                                        ("sharded", ("all", "sharded"))) if mode in modes}
         if mode == "store":
-            run_store(dev, card, make_sets(pool, keys[:STORE_BUCKET], b"store"), build)
+            figures["store"] = run_store(dev, card, make_sets(pool, keys[:STORE_BUCKET], b"store"),
+                                         build)
         if mode == "observatory":
             run_observatory(dev, card, pool, keys)
         if mode == "chain":
-            run_chain(dev, card, pool)
+            figures["chain"] = run_chain(dev, card, pool)
         if mode == "network":
-            run_network(dev, card, pool)
+            figures["network"] = run_network(dev, card, pool)
         if mode == "validator":
             run_validator_phase(dev, card, pool)
         if mode == "ops":
-            run_firehose_phase(dev, card)
+            figures["firehose"] = run_firehose_phase(dev, card)
             run_chaos(card)
             run_prewarm(card)
         if mode not in ("sharded", "store", "observatory", "chain", "network", "validator",
@@ -2451,7 +2512,8 @@ def main(argv) -> int:
                 prewarm20.result(timeout=1200)
                 log(f"phase 20c beside phase 9: waited {time.perf_counter() - t0:.1f} s for it "
                     f"after phase 9")
-            times = run_sharded_times(dev, card, verifier, pool, keys, sets256)
+            times = figures["sharded_times"] = run_sharded_times(dev, card, verifier, pool, keys,
+                                                                  sets256)
             log(f"paths: sharded over 2 logical shards {times['logical2']['rate']} sets/s at "
                 f"bucket {SHARDED_BUCKET} (device idle {times['logical2']['idle']}), one card as "
                 f"2 x {BUCKET} {times['logical2']['single']} sets/s; cross-card "
@@ -2459,8 +2521,9 @@ def main(argv) -> int:
             chaos20 = run_chaos(card) if mode == "all" else None
         if mode not in ("sharded", "store", "observatory", "chain", "network", "validator",
                         "ops"):
-            split = run_split(dev, card, pool, keys, sets, sets256, verifiers, tiers)
-            pooled = run_pool(dev, card, pool, keys, sets256)
+            split = figures["split"] = run_split(dev, card, pool, keys, sets, sets256, verifiers,
+                                                 tiers)
+            pooled = figures["pool"] = run_pool(dev, card, pool, keys, sets256)
             full = f"{fused_rate} sets/s" if mode in ("all", "fused") else "not run"
             log(f"paths at bucket {BUCKET}: split {split['rate']} sets/s, device idle "
                 f"{split['idle']} of the device Miller product, beside the full-device "
@@ -2471,18 +2534,15 @@ def main(argv) -> int:
         if mode in ("all", "split"):
             run_health(dev, card, sets, sets256)
         if mode == "all":
-            run_store(dev, card, sets, build)
+            figures["store"] = run_store(dev, card, sets, build)
             run_observatory(dev, card, pool, keys, sets256)
-            chain = run_chain(dev, card, pool)
-            network = run_network(dev, card, pool)
+            chain = figures["chain"] = run_chain(dev, card, pool)
+            network = figures["network"] = run_network(dev, card, pool)
             validator = run_validator_phase(dev, card, pool, cli=cli19)
-            firehose20 = run_firehose_phase(dev, card)
+            firehose20 = figures["firehose"] = run_firehose_phase(dev, card)
     log(f"whole run: {time.perf_counter() - t_start:.1f} s wall")
     if mode != "all":
-        return ok_lines(card, {"sharded": "1, 8-10", "split": "1, 2, 2b, 11-13",
-                               "fused": "1-5, 2b, 11, 12", "store": "1, 14",
-                               "observatory": "1, 15", "chain": "1, 17", "network": "1, 18",
-                               "validator": "1, 19", "ops": "1, 20"}[mode])
+        return
 
     def by_path(name):
         return {"registry": registry_launches[name], "fused": fused_launches[name],
@@ -2548,7 +2608,102 @@ def main(argv) -> int:
         **audit["kernels"]["ring_hop"],
     })
     print(json.dumps({"kernels": line}))
-    return ok_lines(card)
+
+
+def git_commit():
+    """``git rev-parse HEAD`` of the checkout, or None outside a git
+    repository."""
+    try:
+        out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO, capture_output=True,
+                             text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if out.returncode != 0:
+        return None
+    return out.stdout.strip() or None
+
+
+#: each tripwire metric chip_smoke measures: the phase that measures it, the
+#: entry of the phases' figures that phase returns, and the metric in it
+LEDGER_METRICS = {
+    "bls_sig_sets_per_s_per_chip": ("11", "split", lambda f: f["rate"]),
+    "dispatch_ms": ("11", "split", lambda f: f["stages"]["device_miller"] * 1e3),
+    "bls_sig_sets_per_s": ("12", "pool", lambda f: f["rate"]),
+    "bls_sig_sets_per_s_sharded": ("10", "sharded_times", lambda f: f["logical2"]["rate"]),
+    "scaling_efficiency_sharded": ("10", "sharded_times",
+                                   lambda f: f["logical2"]["rate"] / f["logical2"]["single"]),
+    "cold_start_cold_s": ("14", "store", lambda f: f["cold_s"]),
+    "cold_start_aot_s": ("14", "store", lambda f: f["aot_s"]),
+    "cold_start_warm_s": ("14", "store", lambda f: f["warm_s"]),
+    "dev_chain_blocks_per_s": ("17", "chain", lambda f: f["chain"]["blocks_per_s"]),
+    "range_sync_blocks_per_s": ("18a", "network", lambda f: f["range_sync"]["blocks_per_s"]),
+    "sustained_sets_per_s_at_slo": ("20a", "firehose",
+                                    lambda f: f["slo"]["achieved_sets_per_s"]),
+}
+
+
+def runs_phase(phases: str, phase: str) -> bool:
+    """Whether ``phases`` (a ``MODE_PHASES`` entry, "1, 8-10, 21") holds
+    ``phase`` ("10"; "18a" is a part of 18)."""
+    n = int(phase.rstrip("abc"))
+    for part in phases.split(", "):
+        lo, _, hi = part.partition("-")
+        if part == phase or (lo.isdigit() and int(lo) <= n <= int(hi or lo)):
+            return True
+    return False
+
+
+def ledger_metrics(mode: str, figures: dict) -> dict:
+    """The ``LEDGER_METRICS`` of the phases ``mode`` runs, read from the
+    phases' figures: None where a phase returned none (it failed or never
+    ran)."""
+    return {name: None if figures.get(entry) is None else float(read(figures[entry]))
+            for name, (phase, entry, read) in LEDGER_METRICS.items()
+            if runs_phase(MODE_PHASES[mode], phase)}
+
+
+def run_ledger_phase(mode: str, rc: int, card: str, figures: dict) -> str:
+    """Phase 21: this run's record (``observatory/run_ledger.make_record``
+    over the phases' figures) written to ``chiprun_out/runs/``; then, for
+    a run whose phases all passed, the deltas against the newest earlier
+    record of the same card, ``perf_report``'s summary over the records,
+    and ``tier1_budget`` over the checkout's tier-1 ledger.  A flagged
+    regression is reported, not fatal; the phase fails where the ledger
+    raises, or where a run whose phases all passed left a metric without
+    a value.  Returns the record's path."""
+    from lodestar_tpu_torch.observatory import COMPILE_LEDGER, run_ledger
+    from lodestar_tpu_torch.tools import perf_report, tier1_budget
+
+    with Phase("21 run ledger"):
+        earlier = perf_report.run_paths(perf_report.DEFAULT_RUNS, REPO)
+        metrics = ledger_metrics(mode, figures)
+        missing = [] if rc else sorted(name for name, v in metrics.items() if v is None)
+        rc = rc or int(bool(missing))
+        record = run_ledger.make_record(mode, rc, card, metrics, MODE_PHASES[mode], PHASE_SECONDS,
+                                        commit=git_commit(), torch_version=torch.__version__,
+                                        cuda_version=torch.version.cuda)
+        path = run_ledger.write_record(record, os.path.join(REPO, run_ledger.RUNS_DIR))
+        log(f"run ledger: wrote {os.path.relpath(path, REPO)} (mode {mode}, rc {rc}): "
+            + json.dumps(record["metrics"]))
+        if missing:
+            raise AssertionError(f"run ledger: the phases passed but left no value for "
+                                 f"{missing}")
+        if rc:
+            return path
+        deltas = run_ledger.deltas_vs_previous(earlier, record["metrics"], card)
+        same_card = [r for r in run_ledger.load_series(earlier) if run_ledger.run_card(r) == card]
+        log(f"run ledger: deltas against the newest earlier record of this card "
+            f"({len(same_card)} earlier of {len(earlier)}): " + json.dumps(deltas))
+        regressed = sorted(name for name, d in deltas.items() if d.get("regressed"))
+        log(f"run ledger: regressed against the previous record (reported, not fatal): "
+            f"{', '.join(regressed) or 'none'} [{card}]")
+        report = run_ledger.analyze(earlier + [path], compile_ledger=COMPILE_LEDGER.path,
+                                    tier1=os.path.join(REPO, tier1_budget.TIER1_LEDGER))
+        log(perf_report.summary_line(report))
+        budget = tier1_budget.analyze(REPO)
+        log(tier1_budget.render(budget) if budget["runs"] or budget["partial_runs"]
+            else f"tier-1 budget: none (no {tier1_budget.TIER1_LEDGER} in this checkout)")
+    return path
 
 
 def ok_lines(card: str, phases: str = None) -> int:
@@ -3704,20 +3859,18 @@ def run_cli_validator(out_dir: str, validators: int = VAL_VALIDATORS,
     card 0 (``host``: ``--bls-verifier native``); ``validator`` drives it
     over REST with every interop key until the node's head passes ``head``;
     both stop on SIGINT.  Each wait is bounded by ``timeout`` seconds."""
-    import shutil
     import signal
 
     from lodestar_tpu_torch.db.beacon import _fork_tagged_block_codec
     from lodestar_tpu_torch.params import MINIMAL
     from lodestar_tpu_torch.validator import SlashingProtection
 
-    os.makedirs(out_dir, exist_ok=True)
+    fresh_dir(out_dir)  # exactly --count keystores, an empty protection database
     out = {}
     password = os.path.join(out_dir, "password.txt")
     with open(password, "w") as f:
         f.write("correct horse battery staple\n")
     keystores = os.path.join(out_dir, "keystores")
-    shutil.rmtree(keystores, ignore_errors=True)  # a fresh directory: exactly --count files
     for name, flags in (("account_create", ["create", "--count", "2", "--kdf", "pbkdf2",
                                             "--out-dir", keystores, "--password-file", password]),
                         ("account_list", ["list", "--keystores-dir", keystores])):
@@ -3838,8 +3991,8 @@ def run_validator_phase(dev, card: str, pool, cli=None) -> dict:
             counts.update(chain_launches(FUSED))
 
         d0, stages0 = verifier.dispatches, dict(verifier.stage_seconds)
-        out_dir = os.path.join(REPO, "chiprun_out", "chip_smoke_validator")
-        os.makedirs(out_dir, exist_ok=True)
+        # an empty protection database: the slots of an earlier run are signed
+        out_dir = fresh_dir(os.path.join(REPO, "chiprun_out", "chip_smoke_validator"))
         run = asyncio.run(validator_duties(
             verifier, protection_path=os.path.join(out_dir, "slashing_protection.json"),
             on_start=zero, on_end=read))
@@ -3956,7 +4109,8 @@ STORE_BUCKET = 4  # the bucket phase 14's processes warm and verify at
 # Run in a fresh process by phase 14 (``python3 -c``, the repository root
 # and a JSON file of the case on its command line): records every process
 # it starts, then makes a verifier over the store, warms it at
-# STORE_BUCKET and verifies the case's batches; prints one JSON line.
+# STORE_BUCKET and verifies the case's batches, timing the span from the
+# verifier's construction to its first verdict; prints one JSON line.
 STORE_CHILD = r"""
 import json, os, shutil, subprocess, sys, time
 started = []
@@ -3978,25 +4132,23 @@ if case.get("build_dir"):
     _build.BUILD_DIR = case["build_dir"]
 store = KernelLibraryStore(path=case["store"])
 out = {"which_nvcc": shutil.which("nvcc"), "cuda_home": os.environ.get("CUDA_HOME")}
-if case.get("library_only"):
-    _build.load(store=store)
+batches = [[SingleSignatureSet(pubkey=PublicKey.from_bytes(bytes.fromhex(pk)),
+                               signing_root=bytes.fromhex(m), signature=bytes.fromhex(sg))
+            for pk, m, sg in batch] for batch in case["batches"]]
+t_made = time.perf_counter()
+v = TorchBlsVerifier(load_only=case["load_only"], aot_store=store,
+                     rng=np.random.default_rng(case["seed"]))
+t0 = time.perf_counter()
+try:
+    v.warmup((case["bucket"],))
+    out["warmup_s"] = time.perf_counter() - t0
     out["library"] = {"kind": _build.build_kind, "seconds": _build.build_seconds}
-else:
-    v = TorchBlsVerifier(load_only=case["load_only"], aot_store=store,
-                         rng=np.random.default_rng(case["seed"]))
-    t0 = time.perf_counter()
-    try:
-        v.warmup((case["bucket"],))
-        out["warmup_s"] = time.perf_counter() - t0
-        out["library"] = {"kind": _build.build_kind, "seconds": _build.build_seconds}
-        batches = [[SingleSignatureSet(pubkey=PublicKey.from_bytes(bytes.fromhex(pk)),
-                                       signing_root=bytes.fromhex(m),
-                                       signature=bytes.fromhex(sg))
-                    for pk, m, sg in batch] for batch in case["batches"]]
-        out["verdicts"] = [v.verify_signature_sets(b) for b in batches]
-    except AotStoreMiss as e:
-        out["raised"] = f"AotStoreMiss: {e}"
-    out["dispatches"] = v.dispatches
+    out["verdicts"] = [v.verify_signature_sets(batches[0])]
+    out["first_verdict_s"] = time.perf_counter() - t_made
+    out["verdicts"] += [v.verify_signature_sets(b) for b in batches[1:]]
+except AotStoreMiss as e:
+    out["raised"] = f"AotStoreMiss: {e}"
+out["dispatches"] = v.dispatches
 out["started"] = started
 out["store"] = store.stats()
 out["journal"] = [e["kind"] for e in JOURNAL.events() if e["kind"].startswith("aot.")]
@@ -4047,14 +4199,19 @@ def run_store(dev, card: str, sets, build: dict) -> dict:
     False) starting no nvcc; one on an empty store raises ``AotStoreMiss``
     before any batch; one, allowed to build into an empty build directory,
     finds a copy of the store whose payload ``chaos.corrupt_file``
-    corrupted, quarantines it, rebuilds with nvcc and saves again.  Logs
-    the store's load seconds against the build's and the compile ledger's
-    summary."""
+    corrupted, quarantines it, rebuilds with nvcc, saves again and
+    verifies the same two batches.  Logs the store's load seconds against
+    the build's and the compile ledger's summary.  The three starts, each
+    from a verifier's construction to its first verdict at bucket 4: cold
+    (the rebuilding process: no usable library, nvcc), aot (the
+    ``load_only`` process: the stored library) and warm (this process: the
+    library from its memo)."""
     import shutil
     import tempfile
 
     from lodestar_tpu_torch.aot import KernelLibraryStore, capability_tag
     from lodestar_tpu_torch.chaos import corrupt_file
+    from lodestar_tpu_torch.crypto.bls.torch_verifier import TorchBlsVerifier
     from lodestar_tpu_torch.observatory import COMPILE_LEDGER
     from lodestar_tpu_torch.ops.kernels import _build
 
@@ -4078,7 +4235,7 @@ def run_store(dev, card: str, sets, build: dict) -> dict:
                  "empty store": store_child(tmp, "empty", dict(
                      case, store=os.path.join(tmp, "empty")), env),
                  "corrupt payload": store_child(tmp, "corrupt", dict(
-                     case, store=bad_store, load_only=False, library_only=True,
+                     case, store=bad_store, load_only=False,
                      build_dir=os.path.join(tmp, "build")))}
         loaded, empty, rebuilt = (store_result(n, p) for n, p in procs.items())
         nvcc = [c for r in (loaded, empty) for c in r["started"] if "nvcc" in c]
@@ -4094,6 +4251,7 @@ def run_store(dev, card: str, sets, build: dict) -> dict:
                                  "batch")
         files = sorted(os.listdir(os.path.join(bad_store, "entries")))
         if ("aot.corrupt" not in rebuilt["journal"] or rebuilt["library"]["kind"] != "build"
+                or rebuilt["verdicts"] != [True, False]
                 or not any(f.endswith(".quarantined") for f in files)
                 or KernelLibraryStore(path=bad_store).verify()["ok"] != [key]):
             raise AssertionError(f"store: the corrupt payload was not quarantined, rebuilt and "
@@ -4106,7 +4264,22 @@ def run_store(dev, card: str, sets, build: dict) -> dict:
             f"{rebuilt['journal']}; entries {files} [{card}]")
         ledger = COMPILE_LEDGER.configure(path=COMPILE_LEDGER.path)
         log("store: compile ledger " + json.dumps(ledger.summary()))
-    return dict(load_s=load_s, build_s=build_s)
+        # the warm start: this process's library comes from its memo
+        t0 = time.perf_counter()
+        warm = TorchBlsVerifier(rng=np.random.default_rng(SEED + 51))
+        warm.warmup((STORE_BUCKET,))
+        verdict = warm.verify_signature_sets(batch)
+        warm_s = time.perf_counter() - t0
+        warm.close()
+        if verdict is not True:
+            raise AssertionError("store: the warm start did not verify a valid batch")
+        starts = dict(cold_s=rebuilt["first_verdict_s"], aot_s=loaded["first_verdict_s"],
+                      warm_s=warm_s)
+        log(f"store: from a verifier's construction to its first verdict at bucket "
+            f"{STORE_BUCKET}: cold (nvcc) {starts['cold_s']} s, aot (the stored library, "
+            f"load_only) {starts['aot_s']} s, warm (the library from this process's memo) "
+            f"{starts['warm_s']} s [{card}]")
+    return dict(load_s=load_s, build_s=build_s, **starts)
 
 
 # -- phase 15: the observatory on the card ------------------------------------
@@ -4587,7 +4760,8 @@ def run_chaos_phase(card: str) -> dict:
     from lodestar_tpu_torch.tools import inspect_bundle
 
     t0 = time.perf_counter()
-    out_dir = os.path.join(OPS_OUT, "chaos")
+    # the scenarios' stores start empty (an earlier run's would hold entries)
+    out_dir = fresh_dir(os.path.join(OPS_OUT, "chaos"))
     proc = _ops_child(["-m", "lodestar_tpu_torch.tools.chaos_campaign",
                        "--json", "--out-dir", out_dir, "--seed", str(SEED % 1000)])
     rc, out, err = _ops_wait(proc, "chaos_campaign", 600)

@@ -4,10 +4,12 @@ programs cost (``compile_ledger``), whether the cards are busy and how
 much memory they hold (``device_sampler``), profiler windows merged with
 the span timeline (``xprof``), each batch's time split into queue,
 pack, device compute, combine, final exponentiation and bubble
-(``attribution``), and the latency ladder with its percentile helpers
-(``latency``)."""
+(``attribution``), the latency ladder with its percentile helpers
+(``latency``), and chip_smoke's run records as a regression-gated trend
+(``run_ledger``)."""
 
 from . import device_sampler as _device_sampler
+from . import run_ledger
 from .attribution import attribute_spans, mesh_scaling_loss, scaling_loss_breakdown
 from .compile_ledger import COMPILE_LEDGER, KINDS, CompileLedger
 from .device_sampler import DeviceSampler, start_sampler, stop_sampler
@@ -46,6 +48,7 @@ __all__ = [
     "nearest_rank",
     "notify_flush",
     "parse_profile_dir",
+    "run_ledger",
     "scaling_loss_breakdown",
     "start_sampler",
     "stop_sampler",

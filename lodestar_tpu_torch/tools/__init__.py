@@ -10,6 +10,10 @@ lodestar_tpu_torch.tools.<name>``:
                      under a farm lock, or verifies and sweeps it;
 - ``inspect_bundle`` validates and summarizes a diagnostic bundle;
 - ``meshscope``      per-batch attribution and the scaling-loss breakdown
-                     of a trace dump.
+                     of a trace dump;
+- ``perf_report``    the trend and regression tripwires over
+                     ``chip_smoke.py``'s run records;
+- ``tier1_budget``   the tier-1 suite's wall time against its cap, its
+                     movers and slowest tests.
 
 Importing a module here starts no card and builds nothing."""

@@ -67,6 +67,12 @@ OPS_MODULES = (
 )
 
 
+#: the run ledger and its two tools: the port's copy of the JAX package's
+#: observatory/run_ledger and its counterparts of the repo's
+#: tools/perf_report and tools/tier1_budget
+LEDGER_MODULES = ("observatory/run_ledger", "tools/perf_report", "tools/tier1_budget")
+
+
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
@@ -98,7 +104,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                    "observatory/compile_ledger", "crypto/bls/bucket_program",
                    "observatory/attribution", "observatory/device_sampler",
                    "observatory/xprof", "crypto/bls/native_verifier", "cli",
-                   *CHAIN_MODULES, *NETWORK_MODULES, *VALIDATOR_MODULES, *OPS_MODULES):
+                   *CHAIN_MODULES, *NETWORK_MODULES, *VALIDATOR_MODULES, *OPS_MODULES,
+                   *LEDGER_MODULES):
         assert os.path.join(PORT, f"{module}.py") in files
     bad = [
         (os.path.relpath(f, REPO), name)
@@ -140,7 +147,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "import lodestar_tpu_torch.chain.beacon_chain\n"
         "import lodestar_tpu_torch.node.dev_chain\n"
         + "".join(f"import lodestar_tpu_torch.{m.replace('/__init__', '').replace('/', '.')}\n"
-                  for m in CHAIN_MODULES + NETWORK_MODULES + VALIDATOR_MODULES + OPS_MODULES)
+                  for m in CHAIN_MODULES + NETWORK_MODULES + VALIDATOR_MODULES + OPS_MODULES
+                  + LEDGER_MODULES)
         + "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
@@ -148,6 +156,34 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_run_ledger_modules_import_and_build_nothing():
+    """The run ledger and its tools import with JAX, the JAX package and the
+    repo's tools/ blocked, and importing them (and a report over no runs)
+    builds no kernel, loads no library and starts no process."""
+    code = (
+        "import subprocess, sys\n"
+        "for name in ('jax', 'jaxlib', 'lodestar_tpu', 'tools', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        "started = []\n"
+        "class Watched(subprocess.Popen):\n"
+        "    def __init__(self, args, *a, **k):\n"
+        "        started.append(args)\n"
+        "        super().__init__(args, *a, **k)\n"
+        "subprocess.Popen = Watched\n"
+        + "".join(f"import lodestar_tpu_torch.{m.replace('/', '.')}\n" for m in LEDGER_MODULES)
+        + "from lodestar_tpu_torch.tools import perf_report\n"
+        "from lodestar_tpu_torch.native import fastbls\n"
+        "from lodestar_tpu_torch.ops.kernels import _build\n"
+        "assert perf_report.main(['--runs', '/nonexistent/*.json']) == 2\n"
+        "assert _build._libs == {} and _build.build_kind is None and fastbls._lib is None\n"
+        "assert started == [], started\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 

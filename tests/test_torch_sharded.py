@@ -148,7 +148,8 @@ def test_per_card_tier_round_robins_over_distinct_cards(monkeypatch):
         "lodestar_tpu_torch.crypto.bls.torch_verifier.verify_signature_sets_fused",
         lambda *args: seen.append(args[0].device) or torch.tensor(True))
     packed = _zero_packed(4)
-    for _ in range(3):
-        v.dispatch(packed)
+    pending = [v.dispatch(packed) for _ in range(3)]
     assert seen == [torch.device("cpu"), torch.device("meta"), torch.device("cpu")]
     assert v.sharded_batches == 0
+    # resolved, so the batches leave the process-wide in-flight table
+    assert [p.result() for p in pending] == [True, True, True]
